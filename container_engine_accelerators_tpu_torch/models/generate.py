@@ -1,0 +1,155 @@
+"""Autoregressive generation for the transformer LM (KV-cache decode) —
+PyTorch counterpart of ``container_engine_accelerators_tpu/models/
+generate.py``.
+
+Generation is two-phase:
+
+1. **Batched prefill** — one forward over the whole (bucket-padded)
+   prompt fills every layer's KV cache; only the last real position's
+   hidden row is projected to logits.
+2. **Decode loop** — ``max_new_tokens - 1`` single-token steps (greedy at
+   ``temperature=0``, Gumbel-max categorical sampling otherwise), a
+   Python loop where the JAX package scans.  Nothing in the loop reads a
+   device value on the host, so the steps queue without host round
+   trips.
+
+``prompt_len`` and ``start`` may be Python ints or 0-d integer tensors.
+Sampling draws from an explicit ``torch.Generator``: it cannot reproduce
+``jax.random.categorical``'s stream, so only greedy output is held
+token-exact against the JAX package.
+"""
+
+from typing import Optional
+
+import torch
+
+from container_engine_accelerators_tpu_torch.models.transformer import lm_head
+
+
+def init_cache(model, batch: int, max_len: int, device=None) -> dict:
+    """Zero-filled cache for ``max_len`` tokens on the model's device:
+    ``cached_key``/``cached_value`` [layers, B, L, KVH, hd] in the
+    compute dtype and a per-sample ``cache_index`` [layers, B] int32."""
+    device = model.embed.device if device is None else device
+    shape = (model.num_layers, batch, max_len, model.num_kv_heads,
+             model.head_dim)
+    return {
+        "cached_key": torch.zeros(shape, dtype=model.dtype, device=device),
+        "cached_value": torch.zeros(shape, dtype=model.dtype, device=device),
+        "cache_index": torch.zeros((model.num_layers, batch),
+                                   dtype=torch.int32, device=device),
+    }
+
+
+def _rewind_cache_index(cache, position):
+    """Set every layer's ``cache_index`` to ``position`` (in place).
+
+    After a prefill over a PADDED prompt the write cursor sits past the
+    pad slots; rewinding it to the true prompt length makes decode
+    overwrite those slots in order, and the visibility mask (key slot <=
+    query position) hides any slot not yet overwritten — so pads never
+    influence the continuation.
+    """
+    cache["cache_index"].fill_(position)
+    return cache
+
+
+def _positions(start, n: int, device):
+    return start + torch.arange(n, dtype=torch.int32, device=device)
+
+
+def _forward_chunk(model, cache, tokens, start):
+    """One decode-mode forward of ``tokens`` [B, S] at positions ``start +
+    arange(S)`` -> (cache with cursor advanced by S, hidden [B, S, D])."""
+    hidden = model(tokens, positions=_positions(start, tokens.shape[1],
+                                                tokens.device),
+                   cache=cache, project=False)
+    return cache, hidden
+
+
+def _project_last(model, h_row):
+    """LM-head projection of one hidden row [B, D] -> f32 logits [B, V]."""
+    return lm_head(h_row, model.embed)
+
+
+def prefill_continue(model, cache, tokens, start, true_end):
+    """Continue a prefill: one forward over ``tokens`` [B, S] into a cache
+    whose write cursor sits at ``start`` -> (cache cued at ``true_end``,
+    last real position's logits).  ``true_end`` counts the real tokens
+    now in the cache; the tail of ``tokens`` beyond it is bucket
+    padding."""
+    cache, hidden = _forward_chunk(model, cache, tokens, start)
+    _rewind_cache_index(cache, true_end)
+    row = torch.as_tensor(true_end - start - 1, device=hidden.device)
+    h_last = hidden.index_select(1, row.clamp(min=0).reshape(1))[:, 0]
+    return cache, _project_last(model, h_last)
+
+
+def prefill(model, prompt, prompt_len, max_len: int):
+    """Batched prefill -> (cache cued at ``prompt_len``, last logits)."""
+    cache = init_cache(model, prompt.shape[0], max_len, prompt.device)
+    return prefill_continue(model, cache, prompt, 0, prompt_len)
+
+
+def decode_loop(model, cache, last_logits, prompt_len, max_new_tokens: int,
+                temperature=0.0, generator: Optional[torch.Generator] = None,
+                dtype=torch.long):
+    """Sample from ``last_logits``, then run ``max_new_tokens - 1``
+    single-token steps -> generated [B, N].  The cache must be cued at
+    ``prompt_len``.  ``temperature == 0`` is greedy."""
+    device = last_logits.device
+    greedy = temperature == 0
+    if not greedy and generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def sample_from(logits):
+        if greedy:
+            return logits.argmax(-1).to(dtype)
+        u = torch.rand(logits.shape, generator=generator, device=device)
+        gumbel = -torch.log(-torch.log(
+            u.clamp_min(torch.finfo(torch.float32).tiny)))
+        return (logits / temperature + gumbel).argmax(-1).to(dtype)
+
+    tok = sample_from(last_logits)
+    toks = [tok]
+    # Step j feeds the token at output position prompt_len + j.
+    for j in range(max_new_tokens - 1):
+        logits = model(tok[:, None], positions=_positions(prompt_len + j, 1,
+                                                          device),
+                       cache=cache)
+        tok = sample_from(logits[:, 0, :])
+        toks.append(tok)
+    return torch.stack(toks, dim=1)
+
+
+def generate(model, prompt, max_new_tokens: int, temperature=0.0,
+             generator: Optional[torch.Generator] = None, prompt_len=None):
+    """Generate ``max_new_tokens`` past ``prompt`` [B, P] -> [B, P+N].
+
+    ``prompt_len`` (optional) is the number of leading ``prompt`` tokens
+    that are real; the rest is bucket padding.  Pad K/V land in cache
+    slots during the prefill but are dead on arrival: the causal mask
+    keeps them out of every real position's attention, the write cursor
+    is rewound to ``prompt_len`` so decode overwrites them in order, and
+    slots beyond the current position are always masked.
+
+    Output layout: positions ``[0, prompt_len)`` echo the prompt,
+    ``[prompt_len, prompt_len + max_new_tokens)`` are generated; with
+    bucket padding the tail beyond that is meaningless — consumers slice
+    ``[:, :prompt_len + max_new_tokens]``.
+    """
+    if not getattr(model, "decode", False):
+        raise ValueError("generate() needs a model built with decode=True")
+    b, plen = prompt.shape
+    if prompt_len is None:
+        prompt_len = plen
+    if isinstance(prompt_len, int) and not 0 < prompt_len <= plen:
+        raise ValueError(f"prompt_len {prompt_len} outside (0, {plen}]")
+    cache, last = prefill(model, prompt, prompt_len, plen + max_new_tokens)
+    gen = decode_loop(model, cache, last, prompt_len, max_new_tokens,
+                      temperature, generator, prompt.dtype)
+    out = torch.cat([prompt, torch.zeros((b, max_new_tokens),
+                                         dtype=prompt.dtype,
+                                         device=prompt.device)], dim=1)
+    out[:, _positions(prompt_len, max_new_tokens, prompt.device).long()] = gen
+    return out

@@ -1,0 +1,154 @@
+"""Flash decode: single-query attention over a long KV cache.
+
+PyTorch counterpart of ``container_engine_accelerators_tpu/ops/
+flash_decode.py``.  The serving decode step attends ONE query token per
+sequence over the whole cached context; the cache stays in its storage
+layout ``[B, L, KVH, D]`` and GQA is handled in the kernel (query head
+``kv*G + j`` reads KV head ``kv``).
+
+- :func:`flash_decode` is the op.  A CUDA tensor goes to the hand-written
+  kernel in ``csrc/flash_decode.cu``, registered with PyTorch as
+  ``torch.ops.cea_tpu_torch.flash_decode`` by ``csrc/flash_decode_op.cpp``
+  and built for ``sm_90a`` with ``torch.utils.cpp_extension.load`` at
+  first use into ``.torch_ext_build/`` beside the package; a CPU tensor
+  goes to :func:`flash_decode_reference`.  A CUDA call whose kernel cannot
+  be built or launched raises: there is no fallback.
+- :func:`flash_decode_reference` is the plain version, with the kernel's
+  dtype rules: the scale multiplies the f32 scores, ``p`` is cast to V's
+  dtype before P.V (f32 accumulation), masked slots are -1e30 and never
+  contribute, and the softmax denominator divides once at the end.
+- ``LAUNCHES["flash_decode"]`` counts kernel launches (and nothing else),
+  so a run can show that its decode steps went through the kernel.
+"""
+
+import functools
+import threading
+from pathlib import Path
+
+import torch
+
+NEG_INF = -1e30
+BLOCK_K = 512
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
+_TILE = 32  # keys per tile in the CUDA kernel; a chunk is a whole number of tiles
+_ROWS_PER_CTA = 8  # query rows of one KV group per CTA
+# CTAs to aim for per SM: 48 registers x 256 threads let ~5 share one.
+_CTAS_PER_SM = 4
+
+LAUNCHES = {"flash_decode": 0}
+
+_op = None
+_build_lock = threading.Lock()
+
+
+def effective_block_k(cache_len: int, block_k: int = BLOCK_K) -> int:
+    """Largest divisor of ``cache_len`` that is <= ``block_k``: the block
+    the TPU kernel streams the cache in (any cache length works; a
+    serving cache is bucket + max_new, not necessarily a multiple of
+    512).  The CUDA kernel walks 32-key tiles and stops at the length
+    itself, so it reads no more than this."""
+    for bk in range(min(block_k, cache_len), 0, -1):
+        if cache_len % bk == 0:
+            return bk
+    return 1  # pragma: no cover — bk=1 always divides
+
+
+def flash_decode_reference(q, k_cache, v_cache, lengths, scale=None):
+    """Plain PyTorch flash decode (any device), the kernel's arithmetic
+    without its tiling.  q [B, H, D]; k/v [B, L, KVH, D]; lengths [B]
+    -> [B, H, D] in q's dtype.  Slots >= length are zeroed before use, so
+    stale or NaN contents there never reach the output."""
+    b, h, d = q.shape
+    _, cache_len, kvh, _ = k_cache.shape
+    if h % kvh:
+        raise ValueError(f"H={h} not divisible by KVH={kvh}")
+    scale = d ** -0.5 if scale is None else scale
+    live = (torch.arange(cache_len, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])  # [B, L]
+    live_kv = live[:, :, None, None]
+    k = torch.where(live_kv, k_cache, torch.zeros((), dtype=k_cache.dtype,
+                                                  device=q.device))
+    v = torch.where(live_kv, v_cache, torch.zeros((), dtype=v_cache.dtype,
+                                                  device=q.device))
+    qg = q.reshape(b, kvh, h // kvh, d).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) * scale
+    live_s = live[:, None, None, :]
+    s = torch.where(live_s, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = torch.where(live_s, p, 0.0)  # an empty sequence gives 0/0, as the kernel
+    denom = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bhgk,bkhd->bhgd", p.to(v.dtype).float(), v.float())
+    return (acc / denom).reshape(b, h, d).to(q.dtype)
+
+
+def flash_decode(q, k_cache, v_cache, lengths, *, scale=None):
+    """Single-token attention over a KV cache.
+
+    q: [B, H, D]; k_cache/v_cache: [B, L, KVH, D] (H = KVH * G); lengths:
+    [B] visible keys per sequence (slot j participates iff j <
+    lengths[b]).  Returns [B, H, D] in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_decode_reference(q, k_cache, v_cache, lengths, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode: unsupported device {q.device}")
+    return _flash_decode_cuda(q, k_cache, v_cache, lengths, scale)
+
+
+def _flash_decode_cuda(q, k_cache, v_cache, lengths, scale):
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError("flash_decode: q must be [B, H, D] and the caches "
+                         "[B, L, KVH, D]")
+    op = build()
+    b, h, d = q.shape
+    _, cache_len, kvh, _ = k_cache.shape
+    scale = d ** -0.5 if scale is None else scale
+    chunk, splits = split_plan(b, h, kvh, cache_len, _sm_count(q.device.index))
+    out = op(q, k_cache, v_cache, lengths, float(scale), chunk, splits)
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_plan(b: int, h: int, kvh: int, cache_len: int, sms: int):
+    """How the CUDA kernel cuts the cache: (chunk, splits), chunk a whole
+    number of 32-key tiles and splits = ceil(cache_len / chunk), so that
+    the CTAs — one per (sequence, KV head, 8 query rows, chunk) — number
+    about ``_CTAS_PER_SM`` per multiprocessor.  Only the cache length is known
+    on the host (lengths stay on the device); chunks that start past a
+    sequence's length exit without reading."""
+    # max(1, ...): sizes the op refuses still get a plan, so that the op
+    # (not a ZeroDivisionError here) reports them.
+    ctas = max(1, b * kvh * -(-(h // max(kvh, 1)) // _ROWS_PER_CTA))
+    tiles = max(1, -(-cache_len // _TILE))
+    want = max(1, min(-(-_CTAS_PER_SM * sms // ctas), tiles))
+    chunk = -(-tiles // want) * _TILE
+    return chunk, -(-cache_len // chunk)
+
+
+def build():
+    """Compile ``csrc/flash_decode.cu`` (nvcc, sm_90a) and
+    ``csrc/flash_decode_op.cpp`` into one library, once per source content,
+    load it and return the op.  Raises on any build or load failure."""
+    global _op
+    if _op is not None:
+        return _op
+    with _build_lock:
+        if _op is None:
+            from torch.utils import cpp_extension
+
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            cpp_extension.load(
+                name="cea_tpu_torch_flash_decode",
+                sources=[str(_CSRC / "flash_decode.cu"),
+                         str(_CSRC / "flash_decode_op.cpp")],
+                extra_cflags=["-O3"],
+                extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
+                build_directory=str(BUILD_DIR), is_python_module=False)
+            _op = torch.ops.cea_tpu_torch.flash_decode
+    return _op

@@ -1,0 +1,168 @@
+"""The port's hand-written CUDA kernels on the card, against their plain
+PyTorch versions.
+
+Every test here carries the ``cuda`` marker and skips without a card: a
+CUDA kernel has no CPU mode.  The file imports no jax, so it runs on a GPU
+host that has only the port's dependencies:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+(``--noconftest``: the suite's conftest imports the JAX package's
+utilities, which such a host need not be able to import.)
+
+Tolerances are the JAX kernel's own: 2e-5 in f32 (f32 accumulation in
+another order), 3e-2 in bf16 (p is rounded to bf16 against a different
+running max, and the output is rounded to bf16).
+"""
+
+import pytest
+import torch
+from flash_decode_inputs import p_cast_inputs
+
+from container_engine_accelerators_tpu_torch.models.generate import (
+    generate,
+    prefill,
+)
+from container_engine_accelerators_tpu_torch.models.transformer import (
+    TransformerLM,
+    init_params,
+)
+from container_engine_accelerators_tpu_torch.ops import flash_decode as fd
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
+                    "CPU mode); chip_smoke.py checks it on the card too")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,cache_len,kvh,h,d", [
+    (1, 1056, 8, 8, 64),   # the server's decode shape: 33 one-tile chunks
+    (3, 1056, 2, 8, 64),   # many chunks
+    (64, 256, 8, 8, 64),   # one chunk per CTA
+    (2, 96, 1, 12, 40),    # G > 8 query rows, scalar loads (40 % 8 != 0)
+])
+def test_flash_decode_kernel_matches_plain_version(cuda, dtype, b, cache_len,
+                                                    kvh, h, d):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+               for s in ((b, h, d), (b, cache_len, kvh, d),
+                         (b, cache_len, kvh, d)))
+    lengths = torch.randint(1, cache_len + 1, (b,), device=cuda,
+                            generator=gen, dtype=torch.int32)
+    lengths[:2] = torch.tensor([1, cache_len])[:b]
+    before = fd.LAUNCHES["flash_decode"]
+    got = fd.flash_decode(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode"] == before + 1
+    want = fd.flash_decode_reference(q, k, v, lengths)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_flash_decode_kernel_never_reads_past_the_length(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen)
+               for s in ((1, 8, 64), (1, 1056, 2, 64), (1, 1056, 2, 64)))
+    live = torch.tensor([517], dtype=torch.int32, device=cuda)
+    tail = torch.arange(1056, device=cuda)[None, :, None, None] >= 517
+    got = fd.flash_decode(q, k.masked_fill(tail, float("nan")),
+                          v.masked_fill(tail, float("nan")), live)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, fd.flash_decode_reference(q, k, v, live),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_flash_decode_casts_p_like_the_plain_version(cuda):
+    """On inputs where rounding p to bf16 moves the output ~18%, the
+    kernel agrees with the plain version to one bf16 step and the same
+    math with p kept in f32 does not (tests/flash_decode_inputs.py)."""
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in p_cast_inputs(1, 1056, 8, 8, 64))
+    lengths = torch.tensor([731], dtype=torch.int32, device=cuda)
+    got = fd.flash_decode(q, k, v, lengths).float()
+    torch.testing.assert_close(
+        got, fd.flash_decode_reference(q, k, v, lengths).float(),
+        rtol=2 ** -7, atol=0)
+    p_in_f32 = fd.flash_decode_reference(q.float(), k.float(), v.float(),
+                                         lengths).to(torch.bfloat16).float()
+    assert not torch.allclose(got, p_in_f32, rtol=2 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("bad", [
+    "k_shape", "lengths_dtype", "lengths_shape", "dtype_mismatch",
+    "float16", "noncontiguous", "head_dim", "kv_heads", "cpu_lengths"])
+def test_flash_decode_rejects_what_the_kernel_does_not_take(cuda, bad):
+    """The op's TORCH_CHECKs refuse what the kernel does not take,
+    before any launch."""
+    dtype = torch.float16 if bad == "float16" else torch.float32
+    q, k, v = (torch.zeros(s, device=cuda, dtype=dtype)
+               for s in ((2, 4, 16), (2, 64, 2, 16), (2, 64, 2, 16)))
+    lengths = torch.full((2,), 3, dtype=torch.int32, device=cuda)
+    if bad == "k_shape":
+        k = k[:, :32]
+    elif bad == "lengths_dtype":
+        lengths = lengths.long()
+    elif bad == "lengths_shape":
+        lengths = lengths[:1]
+    elif bad == "dtype_mismatch":
+        v = v.to(torch.bfloat16)
+    elif bad == "noncontiguous":
+        k = k.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "head_dim":
+        q = torch.zeros(2, 4, 264, device=cuda)
+        k = v = torch.zeros(2, 64, 2, 264, device=cuda)
+    elif bad == "kv_heads":
+        k = v = torch.zeros(2, 64, 3, 16, device=cuda)
+    elif bad == "cpu_lengths":
+        lengths = lengths.cpu()
+    before = fd.LAUNCHES["flash_decode"]
+    with pytest.raises((ValueError, TypeError, RuntimeError)):
+        fd.flash_decode(q, k, v, lengths)
+    assert fd.LAUNCHES["flash_decode"] == before
+
+
+def test_decode_with_kernel_matches_einsum_path(cuda):
+    """A small f32 model on the card: the first decode step's logits
+    agree within 1e-4 and greedy tokens are identical, kernel on or off."""
+    cfg = dict(vocab_size=97, num_layers=2, num_heads=4, head_dim=16,
+               mlp_dim=32, num_kv_heads=2, decode=True, dtype=torch.float32)
+    params = init_params(TransformerLM(**cfg, device="meta"),
+                         torch.Generator().manual_seed(0))
+    model = TransformerLM(**cfg, device=cuda)
+    model.load_state_dict(params)
+    prompt = torch.randint(1, 97, (2, 8), generator=torch.Generator()
+                           .manual_seed(1)).to(cuda)
+    step, toks = {}, {}
+    with torch.inference_mode():
+        for flash in (True, False):
+            model.use_flash_decode = flash
+            cache, last = prefill(model, prompt, 5, 16)
+            step[flash] = model(last.argmax(-1)[:, None],
+                                positions=torch.full((1,), 5,
+                                                     dtype=torch.int32,
+                                                     device=cuda),
+                                cache=cache)
+            toks[flash] = generate(model, prompt, 8, prompt_len=5)[:, :13]
+    torch.testing.assert_close(step[True], step[False], atol=1e-4, rtol=1e-4)
+    assert torch.equal(toks[True], toks[False])
+
+
+def test_flash_decode_op_raises_on_a_refused_launch(cuda):
+    """A plan the kernel does not take (chunk not a whole number of
+    32-key tiles) comes back from cudaGetLastError as an exception."""
+    op = fd.build()
+    q, k, v = (torch.zeros(s, device=cuda)
+               for s in ((1, 4, 16), (1, 64, 2, 16), (1, 64, 2, 16)))
+    lengths = torch.full((1,), 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        op(q, k, v, lengths, 0.25, 16, 4)
+

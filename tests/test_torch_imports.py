@@ -1,0 +1,67 @@
+"""The PyTorch port stands alone: no module of
+container_engine_accelerators_tpu_torch, and not chip_smoke.py, imports
+jax or anything of the JAX package (not even its jax-free modules)."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "container_engine_accelerators_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    for root, _, files in os.walk(os.path.join(REPO, PKG)):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REPO)[:-3]
+                mod = rel.replace(os.sep, ".")
+                mods.append(mod[: -len(".__init__")]
+                            if mod.endswith(".__init__") else mod)
+    return sorted(mods)
+
+
+def _run(code, cwd=REPO, env=None):
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_port_imports_without_jax():
+    mods = _port_modules()
+    assert f"{PKG}.ops.flash_decode" in mods and f"{PKG}.cmd.serve_lm" in mods
+    code = f"""
+import importlib, importlib.util, sys
+sys.modules["jax"] = None  # any import of jax -> ImportError
+for m in {mods!r}:
+    importlib.import_module(m)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m == "container_engine_accelerators_tpu"
+             or m.startswith("container_engine_accelerators_tpu.")
+             or m == "flax" or m.startswith("flax."))
+assert not bad, bad
+print("OK", len({mods!r}))
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """Without a card the script exits non-zero and prints no result;
+    alone in a directory (no package beside it) it fails as well."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_bytes(open(os.path.join(REPO, "chip_smoke.py"), "rb").read())
+    proc = subprocess.run([sys.executable, str(lone)], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
