@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's serving path as a user would — ``cmd/serve_lm.py``'s
-``build_generate`` and ``make_handler`` behind a real HTTP server, at the
-server's default model width (12 layers, 8 heads x 64, mlp 2048, vocab
-32000, random weights from a seed) with ``--flash-decode`` — and holds
-the hand-written CUDA flash-decode kernel against its plain PyTorch
-version.  Phases, one JSON line each:
+Drives the port's two paths as a user would, at the default model width
+(12 layers, 8 heads x 64, mlp 2048, vocab 32000, random weights from a
+seed): serving — ``cmd/serve_lm.py``'s ``build_generate`` and
+``make_handler`` behind a real HTTP server with ``--flash-decode`` — and
+training — ``cmd/train_lm.py``'s ``main`` at its defaults (seq 2048,
+batch 8, bf16) — and holds every hand-written CUDA kernel against its
+plain PyTorch version.  Phases, one JSON line each:
 
 1. the card (``nvidia-smi`` name and power limit, printed verbatim too);
-2. the kernel build from ``ops/csrc/`` (``torch.utils.cpp_extension``:
-   nvcc for sm_90a, and the op's TORCH_LIBRARY binding);
-3. kernel vs plain version on the card, f32 at 2e-5 and bf16 at 3e-2
+2. the build of every kernel from ``ops/csrc/`` in one
+   ``torch.utils.cpp_extension.load`` (nvcc for sm_90a, and the ops'
+   TORCH_LIBRARY bindings);
+3. flash decode vs its plain version on the card, f32 at 2e-5 and bf16 at 3e-2
    (atol and rtol) and, in bf16, a max abs error of at most 1e-2 of the
    case's largest output: at
    every (cache, length) the server phase sends it (batch 1, 8 heads x
@@ -27,14 +29,32 @@ version.  Phases, one JSON line each:
    700-token greedy prompts, a 3-prompt batch, a seeded sampled request
    sent twice), launch counts read — every decode step of every request
    must have launched the kernel;
-6. kernel time (CUDA graphs of launches over enough distinct inputs to
-   miss the 50 MB L2, timed with CUDA events) at the serving shape and at
-   a 4096-token cache, beside the plain version, the
-   ``scaled_dot_product_attention`` yardstick and the HBM bound, and the
-   wall time per call of eager calls back to back (the host's share);
-7. one greedy request through the server's ``run`` traced with
-   ``torch.profiler``: device time against wall time (the busy share);
-8. the ``{"kernels": [...]}`` summary line.
+6. ``fa_kernel_check``: the flash-attention forward (o, lse) and
+   backward (dq, dk, dv) kernels vs their plain versions, causal and
+   not, head dims 64/128/256, T 128/256/2048, B*H 1-64 and the training
+   shape, f32 at 2e-5 / 2e-4 and bf16 at 2e-2 / 1e-1 plus a max abs
+   error of at most 1e-2 of the case's largest output; beside it, how
+   far the plain math with p (and dS) kept in f32 lands from the kernel;
+7. ``train_parity``: the full-width model, batch 2 at T 2048, kernels on
+   vs dense attention — f32 loss within 1e-5 relative and every gradient
+   within 1e-4 of its leaf's largest |g|, bf16 loss within 2e-2;
+8. ``train``: the trainer's ``main`` at its defaults for a few steps
+   with the launch counts reset around it — the forward kernel must run
+   2 x layers x steps times (remat recomputes it), each backward kernel
+   layers x steps — finite losses, the first equal to dense attention's
+   within bf16 tolerance, and the steady-state step time and tokens/s;
+9. kernel times (CUDA graphs of launches over enough distinct inputs to
+   miss the 50 MB L2, timed with CUDA events): flash decode at the
+   serving shape and at a 4096-token cache, beside the plain version,
+   the ``scaled_dot_product_attention`` yardstick and the HBM bound, and
+   the wall time per call of eager calls back to back (the host's
+   share); the three flash-attention kernels at the training shape
+   beside their plain versions, SDPA's forward and backward and their
+   FLOP bounds;
+10. one greedy request through the server's ``run`` and one train step,
+    each traced with ``torch.profiler``: device time against wall time
+    (the busy share), device time by kernel;
+11. the ``{"kernels": [...]}`` summary line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without CUDA the script exits 2 before
@@ -69,6 +89,17 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, same source
 KERNEL_SRC = "container_engine_accelerators_tpu_torch/ops/csrc/flash_decode.cu"
 TPU_KERNEL = "container_engine_accelerators_tpu/ops/flash_decode.py:62"
 L2_BYTES = 50 * 2 ** 20
+FA_SRC = "container_engine_accelerators_tpu_torch/ops/csrc/flash_attention.cu"
+FA_TPU = "container_engine_accelerators_tpu/ops/flash_attention.py"
+# Flash-attention kernels: counter name -> (TPU kernel line, matrix
+# products per (query, key) pair of D multiply-adds each).
+FA_KERNELS = {"flash_attention_fwd": (f"{FA_TPU}:67", 2),
+              "flash_attention_bwd_dq": (f"{FA_TPU}:160", 3),
+              "flash_attention_bwd_dkv": (f"{FA_TPU}:220", 4)}
+# (atol = rtol) forward, backward: the JAX kernels' tests' tolerances.
+FA_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 1e-1)}
+TRAIN_STEPS = 6
+TRAIN_SHAPE = (8, 2048, 8, 64)  # the trainer's defaults: B, T, H, D
 
 
 def _phase(phase, **kw):
@@ -79,14 +110,15 @@ def _name(dtype):
     return str(dtype).replace("torch.", "")
 
 
-def _agrees(got, want, dtype):
+def _agrees(got, want, dtype, tol=None):
     """(max |got - want|, that over max |want|), or AssertionError past
-    the stated tolerance."""
+    atol = rtol = ``tol`` (default: flash decode's for ``dtype``) and, in
+    bf16, past BF16_ERR_TO_MAX of max |want|."""
     import torch
 
     err = (got.float() - want.float()).abs().max().item()
     to_max = err / max(want.float().abs().max().item(), 1e-30)
-    tol = TOL[_name(dtype)]
+    tol = TOL[_name(dtype)] if tol is None else tol
     ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
     if dtype == torch.bfloat16:
         ok = ok and to_max <= BF16_ERR_TO_MAX
@@ -370,21 +402,20 @@ def serve(fd):
     return launches["flash_decode"], run
 
 
-def profile_request(run):
-    """Phase 7: where one greedy request's time goes — device activity
-    (kernels, copies) traced by torch.profiler against the request's
-    wall time under the same tracing."""
+def _traced(fn):
+    """(device ms, wall ms, device ms by kernel name) of ``fn()`` — which
+    must end synchronized — traced by torch.profiler (device activity
+    only: kernels, copies)."""
     from collections import defaultdict
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    prompt = torch.randint(0, 32000, (1, 8), generator=torch.Generator().manual_seed(3))
-    run(prompt, 5, 0.0, 0, False)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(prompt, 5, 0.0, 0, False)  # returns on the host: synchronized
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = defaultdict(float)
     for e in prof.events():
@@ -392,7 +423,19 @@ def profile_request(run):
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
     if not by_name:
         raise AssertionError("the profiler recorded no device activity")
-    device_ms = sum(by_name.values())
+    return sum(by_name.values()), wall_ms, by_name
+
+
+def profile_request(run):
+    """Phase 10 for serving: where one greedy request's time goes —
+    device activity against the request's wall time under the same
+    tracing."""
+    import torch
+
+    prompt = torch.randint(0, 32000, (1, 8), generator=torch.Generator().manual_seed(3))
+    run(prompt, 5, 0.0, 0, False)
+    device_ms, wall_ms, by_name = _traced(
+        lambda: run(prompt, 5, 0.0, 0, False))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     _phase("profile", request="greedy, 5-token prompt (bucket 8), 32 new",
            wall_ms=wall_ms, device_ms=device_ms,
@@ -432,8 +475,30 @@ def _graph_ms(fn, inputs, reps=7):
     return statistics.median(times)
 
 
+def _eager_ms(fn, inputs, reps=7):
+    """Per-call device time of ``fn`` over ``inputs`` called eagerly,
+    back to back, timed with CUDA events: for work that a CUDA graph
+    cannot capture (autograd's backward runs on the forward's stream)."""
+    import torch
+
+    for args in inputs:
+        fn(*args)  # warm-up
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for args in inputs:
+            fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(inputs))
+    return statistics.median(times)
+
+
 def time_kernel(fd, dev, cache_len, length, heads=8, kv_heads=8, head_dim=64):
-    """Phase 6 at one shape (batch 1, bf16, the serving dtype)."""
+    """Phase 9 for flash decode at one shape (batch 1, bf16, the serving
+    dtype)."""
     import torch
     import torch.nn.functional as F
 
@@ -486,6 +551,330 @@ def time_kernel(fd, dev, cache_len, length, heads=8, kv_heads=8, head_dim=64):
     return row
 
 
+def _fa_case(fa, q, k, v, do, causal):
+    """Every flash-attention kernel once at (q, k, v, do) against its
+    plain version: {output: (max abs err, err over max |output|)}, and
+    the same for the plain math with p and dS kept in f32 (the control
+    a cast the kernel forgot would look like), in bf16."""
+    import torch
+
+    dtype = q.dtype
+    scale = q.shape[-1] ** -0.5
+    fwd_tol, bwd_tol = FA_TOL[_name(dtype)]
+    o, lse = fa._forward(q, k, v, causal, scale)
+    grads = fa._backward(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa.flash_attention_reference(q, k, v, causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    errs = {"o": _agrees(o, want_o, dtype, fwd_tol),
+            "lse": _agrees(lse, want_lse, torch.float32, 2e-5)}
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        errs[name] = _agrees(got, ref, dtype, bwd_tol)
+    control = {}
+    if dtype == torch.bfloat16:
+        f32 = [x.float() for x in (q, k, v, o, lse, do)]
+        ctrl_o, _ = fa.flash_attention_reference(*f32[:3], causal)
+        ctrl = fa.flash_attention_bwd_reference(*f32, causal)
+        for name, got, c, ref in zip(("o", "dq", "dk", "dv"), (o,) + grads,
+                                     (ctrl_o,) + ctrl, (want_o,) + want):
+            diff = (got.float() - c.to(dtype).float()).abs().max().item()
+            control[name] = diff / ref.float().abs().max().item()
+    return errs, control
+
+
+def check_fa_kernels(fa, dev):
+    """Phase 6: every flash-attention kernel against its plain version."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shapes = [(1, 128, 1), (4, 128, 16), (2, 256, 3), (8, 256, 8),
+              (1, 2048, 1), (2, 2048, 4)]  # (B, T, H): B*H 1 to 64
+    cases = [(b, t, h, d, causal, dtype)
+             for dtype in (torch.float32, torch.bfloat16)
+             for causal in (False, True) for d in (64, 128, 256)
+             for b, t, h in shapes]
+    b, t, h, d = TRAIN_SHAPE
+    cases += [(b, t, h, d, True, dtype)
+              for dtype in (torch.float32, torch.bfloat16)]
+    worst, worst_to_max = {}, {}
+    control = {}
+    for b, t, h, d, causal, dtype in cases:
+        q, k, v, do = (torch.randn(b, t, h, d, device=dev, generator=gen)
+                       .to(dtype) for _ in range(4))
+        try:
+            errs, ctrl = _fa_case(fa, q, k, v, do, causal)
+        except AssertionError as e:
+            raise AssertionError(f"flash attention kernel != plain at B={b} "
+                                 f"T={t} H={h} D={d} causal={causal} "
+                                 f"{_name(dtype)}: {e}") from None
+        key = _name(dtype)
+        for name, (err, to_max) in errs.items():
+            worst.setdefault(key, {})[name] = max(
+                worst.get(key, {}).get(name, 0.0), err)
+            if dtype == torch.bfloat16:
+                worst_to_max[name] = max(worst_to_max.get(name, 0.0), to_max)
+        for name, to_max in ctrl.items():
+            control[name] = max(control.get(name, 0.0), to_max)
+    # The forward's p cast, on the designed inputs with every query row
+    # the decode query (non-causal, T = 2048).
+    q, k, v = p_cast_inputs(dev, cache_len=2048)
+    q = q[:, None].expand(1, 2048, *q.shape[1:]).contiguous()
+    got = fa._forward(q, k, v, False, 0.125)[0].float()
+    torch.cuda.synchronize()
+    want = fa.flash_attention_reference(q, k, v)[0].float()
+    p_in_f32 = fa.flash_attention_reference(
+        q.float(), k.float(), v.float())[0].to(torch.bfloat16).float()
+    rel = {name: ((x - got).abs() / got.abs()).max().item()
+           for name, x in (("plain", want), ("p_in_f32", p_in_f32))}
+    if not (rel["plain"] <= 2 ** -7 < rel["p_in_f32"]):
+        raise AssertionError(f"flash attention p-cast check: max relative "
+                             f"difference of the kernel to {rel} (bound "
+                             f"2**-7: one bf16 step)")
+    _phase("fa_kernel_check", cases=len(cases) + 1, max_abs_err=worst,
+           tolerance={k: {"fwd": f, "bwd": bw} for k, (f, bw) in FA_TOL.items()},
+           bf16_err_to_max={"kernel": worst_to_max,
+                            "p_and_ds_in_f32_control": control,
+                            "bound": BF16_ERR_TO_MAX},
+           p_cast_case={"kernel_output": got.max().item(),
+                        "max_rel_diff": rel, "bound": 2 ** -7})
+
+
+def _train_model(dev, dtype, use_flash, params):
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+
+    model = TransformerLM(dtype=dtype, use_flash=use_flash, device=dev)
+    model.load_state_dict(params)
+    return model
+
+
+def check_train_parity(dev):
+    """Phase 7: the full-width train step, kernels on vs dense attention."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models import lm_train
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+        init_params,
+    )
+
+    params = init_params(TransformerLM(device="meta"),
+                         torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 32000, (2, 2048))).to(dev)
+    labels, mask = lm_train.next_token_targets(toks)
+    out = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        run = {}
+        for flash in (True, False):
+            model = _train_model(dev, dtype, flash, params)
+            num, den = lm_train._loss(model, toks, labels, mask, None)
+            loss = num / den
+            loss.backward()
+            run[flash] = (loss.item(),
+                          {n: p.grad for n, p in model.named_parameters()})
+            del model
+        rel = abs(run[True][0] - run[False][0]) / abs(run[False][0])
+        grad_err = max(((run[True][1][n] - g).abs().max()
+                        / g.abs().max()).item()
+                       for n, g in run[False][1].items())
+        if not (rel <= tol and math.isfinite(run[True][0])):
+            raise AssertionError(f"train loss, kernels vs dense "
+                                 f"({_name(dtype)}): {run[True][0]} vs "
+                                 f"{run[False][0]}")
+        if dtype == torch.float32 and not grad_err <= 1e-4:
+            raise AssertionError(f"f32 gradient, kernels vs dense: "
+                                 f"{grad_err} of the leaf's max |g|")
+        out[_name(dtype)] = {"loss_kernels": run[True][0],
+                             "loss_dense": run[False][0],
+                             "loss_rel_diff": rel,
+                             "max_grad_err_to_leaf_max": grad_err}
+        del run
+    _phase("train_parity", config="12L 8x64 mlp2048 vocab32000, batch 2 "
+           "x 2048", tolerance={"float32": {"loss_rel": 1e-5,
+                                             "grad_to_leaf_max": 1e-4},
+                                 "bfloat16": {"loss_rel": 2e-2}}, **out)
+
+
+def train(fa, dev, card):
+    """Phase 8: the main path — the trainer's main() at its defaults."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+    from container_engine_accelerators_tpu_torch.models import lm_train
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+
+    argv = ["--train-steps", str(TRAIN_STEPS), "--steps-per-eval", "1"]
+    args = train_lm.parse_args(argv)
+    ends = []
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    losses = train_lm.main(argv, on_step=on_step)
+    launches = dict(fa.LAUNCHES)
+    layers_steps = args.num_layers * TRAIN_STEPS
+    want = {"flash_attention_fwd": 2 * layers_steps,
+            "flash_attention_bwd_dq": layers_steps,
+            "flash_attention_bwd_dkv": layers_steps}
+    if launches != want:
+        raise AssertionError(f"flash attention launches on the main path "
+                             f"{launches}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    # The first step's loss with dense attention: same seed, same batch.
+    model = TransformerLM(use_flash=False, device=dev)
+    lm_train.create_lm_train_state(model, torch.Generator().manual_seed(0))
+    toks, labels, mask = (torch.from_numpy(x).to(dev) for x in
+                          train_lm.synthetic_batches(args)[0])
+    with torch.no_grad():
+        num, den = lm_train._loss(model, toks.long(), labels.long(), mask,
+                                  None)
+    dense = (num / den).item()
+    del model
+    if not abs(losses[0] - dense) <= 2e-2 * abs(dense):
+        raise AssertionError(f"first train loss {losses[0]} != dense "
+                             f"attention's {dense}")
+    steady = [b - a for a, b in zip(ends[1:], ends[2:])]
+    step_ms = statistics.median(steady) * 1e3
+    tokens = args.train_batch_size * args.seq_len
+    _phase("train", entry="cmd/train_lm.py main() at its defaults: 12L 8x64 "
+           "mlp2048 vocab32000, seq 2048, batch 8, bf16, remat",
+           card=card, steps=TRAIN_STEPS, losses=losses,
+           first_loss_dense=dense, launches=launches,
+           expected_launches=f"fwd 2 x {args.num_layers} layers x "
+                             f"{TRAIN_STEPS} steps (remat), bwd "
+                             f"{args.num_layers} x {TRAIN_STEPS}",
+           wall_s=round(time.perf_counter() - t0, 3),
+           steady_step_ms=step_ms, steady_steps=len(steady),
+           step_ms_each=[round(x * 1e3, 3) for x in steady],
+           tokens_per_s=tokens / (step_ms / 1e3))
+    return launches
+
+
+def time_fa_kernels(fa, dev):
+    """Phase 9 for flash attention: each kernel at the training shape
+    (bf16, causal) beside its plain version, SDPA and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    dtype = torch.bfloat16
+    b, t, h, d = TRAIN_SHAPE
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(12)
+    tensor_bytes = b * t * h * d * 2
+    lse_bytes = b * h * t * 4
+    n_inputs = max(3, math.ceil(2.5 * L2_BYTES / (5 * tensor_bytes)))
+    inputs = []
+    for _ in range(n_inputs):
+        q, k, v, do = (torch.randn(b, t, h, d, device=dev, generator=gen)
+                       .to(dtype) for _ in range(4))
+        o, lse = fa._forward(q, k, v, True, scale)
+        inputs.append((q, k, v, o, lse, do))
+    errs, _ = _fa_case(fa, *(inputs[0][i] for i in (0, 1, 2, 5)), True)
+    pairs = b * h * t * (t + 1) // 2  # causal (query, key) pairs
+    # Bytes each must move: inputs read once, outputs written once.
+    nbytes = {"flash_attention_fwd": 4 * tensor_bytes + lse_bytes,
+              "flash_attention_bwd_dq": 6 * tensor_bytes + lse_bytes,
+              "flash_attention_bwd_dkv": 7 * tensor_bytes + lse_bytes}
+
+    def sdpa(q, k, v, *_):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True)
+
+    lib_inputs = []
+    for q, k, v, _, _, do in inputs:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_inputs.append((*leaves, sdpa(*leaves), do.transpose(1, 2)))
+
+    def sdpa_bwd(q, k, v, out, g):
+        torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+    kernel = {"flash_attention_fwd": lambda q, k, v, o, lse, do:
+              fa._forward(q, k, v, True, scale),
+              "flash_attention_bwd_dq": lambda q, k, v, o, lse, do:
+              fa.load_ops().flash_attention_bwd_dq(q, k, v, o, do, lse, True,
+                                                   scale),
+              "flash_attention_bwd_dkv": lambda q, k, v, o, lse, do:
+              fa.load_ops().flash_attention_bwd_dkv(q, k, v, o, do, lse,
+                                                    True, scale)}
+    plain = {"flash_attention_fwd": lambda q, k, v, o, lse, do:
+             fa.flash_attention_reference(q, k, v, True),
+             "flash_attention_bwd_dq": lambda *a:
+             fa.flash_attention_bwd_reference(*a, True)[0],
+             "flash_attention_bwd_dkv": lambda *a:
+             fa.flash_attention_bwd_reference(*a, True)[1:]}
+    library_fwd = _graph_ms(sdpa, inputs)
+    library_bwd = _eager_ms(sdpa_bwd, lib_inputs)
+    rows = {}
+    for name, (line, products) in FA_KERNELS.items():
+        flops = 2 * products * d * pairs
+        bytes_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        err_keys = {"flash_attention_fwd": ("o",),
+                    "flash_attention_bwd_dq": ("dq",),
+                    "flash_attention_bwd_dkv": ("dk", "dv")}[name]
+        rows[name] = {
+            "shape": f"B={b} T={t} H={h} D={d} causal bf16",
+            "distinct_inputs": n_inputs,
+            "max_abs_err": max(errs[k][0] for k in err_keys),
+            "ms": _graph_ms(kernel[name], inputs),
+            "plain_ms": _graph_ms(plain[name], inputs),
+            "library_ms": library_fwd if name == "flash_attention_fwd"
+            else library_bwd,
+            "library": "F.scaled_dot_product_attention(is_causal=True)"
+                       + (" in CUDA graphs" if name == "flash_attention_fwd"
+                          else "'s autograd backward (dq, dk and dv in one "
+                               "call), eager calls timed with CUDA events"),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "flops": flops, "bytes": nbytes[name]}
+        _phase("fa_kernel_time", kernel=name, **rows[name])
+    return rows
+
+
+def profile_train_step(dev):
+    """Phase 10 for training: one train step at the trainer's defaults
+    traced with torch.profiler, after a warm-up step."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+    from container_engine_accelerators_tpu_torch.models import lm_train
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+
+    args = train_lm.parse_args([])
+    model = TransformerLM(device=dev)
+    state = lm_train.create_lm_train_state(model,
+                                           torch.Generator().manual_seed(0))
+    step = lm_train.make_lm_train_step()
+    batches = [tuple(torch.from_numpy(x).to(dev) for x in batch)
+               for batch in train_lm.synthetic_batches(args)[:2]]
+    batches = [(t.long(), l.long(), m) for t, l, m in batches]
+    step(state, *batches[0])
+    torch.cuda.synchronize()
+    device_ms, wall_ms, by_name = _traced(lambda: step(state, *batches[1]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    _phase("profile_train", step="one train step at the trainer's defaults "
+           "(B=8, T=2048, bf16, remat)", wall_ms=wall_ms,
+           device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+           flash_attention_ms={
+               name: sum(v for k, v in by_name.items() if name in k)
+               for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv")},
+           top=[[k[:70], v] for k, v in top])
+
+
 def main():
     import torch
 
@@ -493,6 +882,8 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
+    from container_engine_accelerators_tpu_torch.ops import build
+    from container_engine_accelerators_tpu_torch.ops import flash_attention as fa
     from container_engine_accelerators_tpu_torch.ops import flash_decode as fd
 
     # f32 matmuls in full f32 (PyTorch's default, stated for the f32 checks).
@@ -509,26 +900,35 @@ def main():
            torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    fd.build()
+    build.load_ops()
     _phase("build", seconds=round(time.perf_counter() - t0, 3),
-           route="torch.utils.cpp_extension.load: nvcc sm_90a for the "
-                 "kernel, the host compiler for the TORCH_LIBRARY binding")
+           sources=list(build.SOURCES),
+           route="one torch.utils.cpp_extension.load: nvcc sm_90a for the "
+                 "kernels, the host compiler for the TORCH_LIBRARY bindings")
 
     check_kernel(fd, dev)
     check_model(dev)
-    launches, run = serve(fd)
+    fd_launches, run = serve(fd)
+    check_fa_kernels(fa, dev)
+    check_train_parity(dev)
+    fa_launches = train(fa, dev, smi)
     serving = time_kernel(fd, dev, cache_len=1056, length=731)
     time_kernel(fd, dev, cache_len=4096, length=4096)
+    fa_rows = time_fa_kernels(fa, dev)
     # Last: once traced, the process timed its kernels slower.
     profile_request(run)
+    profile_train_step(dev)
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_decode", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": TPU_KERNEL, "launches": launches,
-        "max_abs_err": serving["max_abs_err"], "ms": serving["ms"],
-        "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
-        "bound_by": serving["bound_by"],
-        "library_ms": serving["library_ms"]}]}), flush=True)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    kernels = [{"name": "flash_decode", "route": "cuda", "source": KERNEL_SRC,
+                "replaces": TPU_KERNEL, "launches": fd_launches,
+                **{k: serving[k] for k in keys}}]
+    kernels += [{"name": name, "route": "cuda", "source": FA_SRC,
+                 "replaces": line, "launches": fa_launches[name],
+                 **{k: fa_rows[name][k] for k in keys}}
+                for name, (line, _) in FA_KERNELS.items()]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

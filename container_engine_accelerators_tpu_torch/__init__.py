@@ -9,5 +9,8 @@ points run on the card unless the caller passes ``device="cpu"``
 
 Ported so far: per-request LM serving in decode mode —
 ``cmd/serve_lm.py`` -> ``models/generate.py`` -> ``models/transformer.py``
--> ``ops/flash_decode.py`` (hand-written CUDA kernel in ``ops/csrc/``).
+-> ``ops/flash_decode.py`` — and single-GPU LM training —
+``cmd/train_lm.py`` -> ``models/lm_train.py`` -> ``models/transformer.py``
+in train mode -> ``ops/flash_attention.py``.  Their kernels are
+hand-written CUDA in ``ops/csrc/``, built together by ``ops/build.py``.
 """

@@ -1,0 +1,200 @@
+"""Transformer-LM trainer — PyTorch counterpart of ``cmd/train_lm.py``.
+
+Trains the LM on one CUDA device (``--device cpu`` for tests) in bf16
+compute with f32 params and AdamW, through the hand-written
+flash-attention kernels (``ops/flash_attention.py``) wherever the shape
+allows, on synthetic token streams (four rotated batches from a seeded
+numpy generator) or a token-shard dataset (``--data-dir``, the
+``data/tokens.py`` format).  SIGTERM finishes the current step and exits
+80 so a Kubernetes Job reschedules the pod (``utils/preempt.py``).
+
+Run: ``python -m container_engine_accelerators_tpu_torch.cmd.train_lm
+[--train-steps N] ...``.  It takes the JAX trainer's flags; those of
+later slices of the port (``--seq-parallel``, ``--model-par > 1``,
+``--param-sharding fsdp``, ``--num-experts``, ``--checkpoint-dir``,
+``--profile-dir``) exit with a message naming the slice.
+"""
+
+import argparse
+import logging
+import time
+
+import numpy as np
+import torch
+
+log = logging.getLogger("train-lm")
+
+_MULTI_GPU = "is not ported yet: it comes with the multi-GPU slice of the PyTorch port"
+_LATER = "is not ported yet: it comes with a later training slice of the PyTorch port"
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="PyTorch transformer-LM trainer")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (cuda, cuda:N or cpu)")
+    p.add_argument("--vocab-size", type=int, default=32000)
+    p.add_argument("--num-layers", type=int, default=12)
+    p.add_argument("--num-heads", type=int, default=8)
+    p.add_argument("--head-dim", type=int, default=64)
+    p.add_argument("--mlp-dim", type=int, default=2048)
+    p.add_argument("--kv-heads", type=int, default=0,
+                   help="GQA KV heads (0 = MHA)")
+    p.add_argument("--num-experts", type=int, default=0,
+                   help="MoE-LM (not ported yet)")
+    p.add_argument("--seq-len", type=int, default=2048)
+    p.add_argument("--train-batch-size", type=int, default=8)
+    p.add_argument("--seq-parallel", default="none",
+                   choices=("none", "ring", "ring-zigzag", "ulysses"),
+                   help="sequence parallelism (only none is ported)")
+    p.add_argument("--param-sharding", default="megatron",
+                   choices=("megatron", "fsdp"),
+                   help="weight layout across devices (only the "
+                        "single-device megatron default is ported)")
+    p.add_argument("--model-par", type=int, default=1,
+                   help="tensor-parallel degree (only 1 is ported)")
+    p.add_argument("--learning-rate", type=float, default=3e-4)
+    p.add_argument("--train-steps", type=int, default=100)
+    p.add_argument("--steps-per-eval", type=int, default=20)
+    p.add_argument("--data-dir", default=None,
+                   help="token-shard dataset dir (data/tokens.py format). "
+                        "Default: synthetic token streams")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="checkpoint dir (not ported yet)")
+    p.add_argument("--checkpoint-interval", type=int, default=100)
+    p.add_argument("--profile-dir", default=None,
+                   help="profiler trace dir (not ported yet)")
+    return p.parse_args(argv)
+
+
+def validate_args(args):
+    """The JAX trainer's own checks, plus every flag this slice of the
+    port does not train with yet."""
+    if args.checkpoint_interval < 1:
+        raise SystemExit("--checkpoint-interval must be >= 1")
+    unported = [
+        (f"--seq-parallel {args.seq_parallel}", args.seq_parallel != "none",
+         _MULTI_GPU),
+        ("--model-par > 1 (tensor parallelism)", args.model_par > 1,
+         _MULTI_GPU),
+        ("--param-sharding fsdp", args.param_sharding == "fsdp", _MULTI_GPU),
+        ("--num-experts (MoE)", args.num_experts, _LATER),
+        ("--checkpoint-dir", args.checkpoint_dir, _LATER),
+        ("--profile-dir", args.profile_dir, _LATER),
+    ]
+    for flag, on, why in unported:
+        if on:
+            raise SystemExit(f"{flag} {why}")
+
+
+def synthetic_batches(args, n_batches=4):
+    """The JAX trainer's synthetic data: ``n_batches`` distinct batches
+    from ``np.random.default_rng(0)``, rotated (identical batches could
+    let a measurement short-circuit), with next-token labels and the last
+    position masked."""
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(n_batches):
+        toks = rng.integers(0, args.vocab_size,
+                            (args.train_batch_size, args.seq_len)
+                            ).astype(np.int32)
+        labels = np.roll(toks, -1, axis=1)
+        mask = np.ones(toks.shape, np.float32)
+        mask[:, -1] = 0.0
+        out.append((toks, labels, mask))
+    return out
+
+
+def main(argv=None, on_step=None):
+    """Train; return the per-step losses as floats.  ``on_step(step,
+    loss)``, if given, is called after each step is enqueued, with the
+    loss still a device tensor."""
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    args = parse_args(argv)
+    validate_args(args)
+
+    from container_engine_accelerators_tpu_torch.models.lm_train import (
+        create_lm_train_state,
+        make_lm_train_step,
+    )
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+    from container_engine_accelerators_tpu_torch.utils.device import (
+        resolve_device,
+    )
+    from container_engine_accelerators_tpu_torch.utils.preempt import (
+        PreemptionGuard,
+        checkpoint_and_exit,
+    )
+
+    device = resolve_device(args.device)
+    model = TransformerLM(
+        vocab_size=args.vocab_size, num_layers=args.num_layers,
+        num_heads=args.num_heads, head_dim=args.head_dim,
+        mlp_dim=args.mlp_dim, num_kv_heads=args.kv_heads or None,
+        device=device)
+    state = create_lm_train_state(
+        model, torch.Generator().manual_seed(0),
+        torch.optim.AdamW(model.parameters(), lr=args.learning_rate,
+                          weight_decay=0.1))
+    step_fn = make_lm_train_step(None, args.param_sharding)
+    log.info("device %s, %d params, seq_len %d, batch %d", device,
+             sum(p.numel() for p in model.parameters()), args.seq_len,
+             args.train_batch_size)
+
+    def on_device(toks, labels, mask):
+        return (torch.from_numpy(toks).to(device, torch.long),
+                torch.from_numpy(labels).to(device, torch.long),
+                torch.from_numpy(mask).to(device))
+
+    batch_iter = batches = None
+    if args.data_dir:
+        from container_engine_accelerators_tpu_torch.data import (
+            TokenBatchLoader,
+            TokenShardReader,
+        )
+
+        reader = TokenShardReader(args.data_dir)
+        loader = TokenBatchLoader(reader, args.train_batch_size, args.seq_len,
+                                  vocab_size=args.vocab_size)
+        log.info("dataset: %d tokens (%d steps/epoch) from %s",
+                 reader.total_tokens, loader.steps_per_epoch(), args.data_dir)
+        batch_iter = loader.iter_batches(0, args.train_steps)
+    else:
+        batches = [on_device(*b) for b in synthetic_batches(args)]
+
+    losses = []
+    tokens_per_batch = args.train_batch_size * args.seq_len
+    t0 = time.perf_counter()
+    try:
+        with PreemptionGuard() as guard:
+            for step in range(args.train_steps):
+                if batch_iter is not None:
+                    toks, labels, mask = on_device(*next(batch_iter))
+                else:
+                    toks, labels, mask = batches[step % len(batches)]
+                state, metrics = step_fn(state, toks, labels, mask)
+                losses.append(metrics["loss"])
+                if on_step is not None:
+                    on_step(step, metrics["loss"])
+                if (step + 1) % args.steps_per_eval == 0:
+                    dt = time.perf_counter() - t0
+                    log.info("step %d loss=%.4f tokens/sec=%.0f", step + 1,
+                             float(metrics["loss"]),
+                             (step + 1) * tokens_per_batch / dt)
+                if guard.should_stop:
+                    checkpoint_and_exit(None, state, step,
+                                        args.checkpoint_interval)
+    finally:
+        if batch_iter is not None:
+            batch_iter.close()  # stops the prefetch thread
+    losses = [float(x) for x in losses]  # waits for the last step
+    total = time.perf_counter() - t0
+    log.info("done: %d steps, %.0f tokens/sec overall", args.train_steps,
+             args.train_steps * tokens_per_batch / max(total, 1e-9))
+    return losses
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,132 @@
+"""Deterministic token-batch loader with background prefetch — a copy of
+the token half of ``container_engine_accelerators_tpu/data/loader.py``
+(``ImageBatchLoader`` comes with the ResNet slice of the port).
+
+Two properties carry the whole design:
+
+1. **The step->batch mapping is a pure function.**  Row ``r`` of step
+   ``s`` is the ``seq_len+1``-token window at logical offset
+   ``(s * batch_size + r) * seq_len`` (modular over the dataset), read
+   through the memory-mapped :class:`~.tokens.TokenShardReader`.  No
+   iterator state exists to checkpoint: resuming a preempted job at
+   step ``k`` (models/checkpoint.py restores ``k``) replays exactly the
+   batches steps ``k, k+1, ...`` would have seen — data-pipeline resume
+   for free, and every host of a pod computes the identical global
+   batch (the multi-host contract cmd/train_lm.py's ``globalize``
+   already assumes for its synthetic streams).
+
+2. **Prefetch happens off the step path.**  A daemon thread keeps a
+   small queue of ready numpy batches while the accelerator runs the
+   current step; the reference leaned on tf.data's C++ pipeline for the
+   same overlap (demo/gpu-training/generate_job.sh:54-70).
+
+Labels are next-token within the same window (the reader hands out
+``seq_len + 1`` tokens), so every position has a real target and the
+mask is all-ones — no batch-boundary dead positions.
+"""
+
+import queue
+import threading
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+
+from container_engine_accelerators_tpu_torch.data.tokens import TokenShardReader
+
+Batch = Tuple[np.ndarray, np.ndarray, np.ndarray]
+
+
+def _prefetched(batch_fn, start_step: int, num_steps: int,
+                prefetch: int) -> Iterator:
+    """Yield ``batch_fn(s)`` for s in [start, start+num) in order,
+    produced by a background thread.  Producer errors (e.g. vocab
+    overflow) are re-raised at the consuming step, not swallowed.
+
+    An abandoned iterator (exception/SystemExit mid-training, partial
+    consumption) must not leak the producer: a blocking ``q.put``
+    would park the thread forever once the consumer stops draining
+    (ADVICE r4), so every put polls a ``closed`` event that the
+    consumer's ``finally`` sets — generator close/GC wakes the
+    producer within one poll interval and it exits."""
+    q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
+    closed = threading.Event()
+
+    def put_until_closed(item) -> bool:
+        while not closed.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for s in range(start_step, start_step + num_steps):
+                if not put_until_closed(batch_fn(s)):
+                    return
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            put_until_closed(e)
+
+    threading.Thread(target=produce, daemon=True,
+                     name="tokenloader-prefetch").start()
+    try:
+        for _ in range(num_steps):
+            item = q.get()
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        closed.set()
+
+
+class TokenBatchLoader:
+    def __init__(self, reader: TokenShardReader, batch_size: int,
+                 seq_len: int, vocab_size: Optional[int] = None,
+                 prefetch: int = 2):
+        if batch_size < 1 or seq_len < 1:
+            raise ValueError("batch_size and seq_len must be >= 1")
+        self.reader = reader
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.vocab_size = vocab_size
+        self.prefetch = prefetch
+
+    def batch_at(self, step: int) -> Batch:
+        """(tokens, labels, mask), each [B, T] — pure in ``step``."""
+        b, t = self.batch_size, self.seq_len
+        window = np.stack([
+            self.reader.read((step * b + r) * t, t + 1)
+            for r in range(b)
+        ])
+        peak = int(window.max())
+        if peak >= 2**31:
+            # The on-disk contract is full-range uint32; int32 batches
+            # would wrap this negative and gather a garbage embedding.
+            raise ValueError(
+                f"dataset token {peak} >= 2**31 overflows the int32 "
+                f"batch dtype (step {step})")
+        if self.vocab_size is not None and peak >= self.vocab_size:
+            raise ValueError(
+                f"dataset token {peak} >= model vocab "
+                f"{self.vocab_size} (step {step}): retokenize or "
+                f"raise --vocab-size")
+        tokens = window[:, :-1].astype(np.int32)
+        labels = window[:, 1:].astype(np.int32)
+        return tokens, labels, np.ones((b, t), np.float32)
+
+    def iter_batches(self, start_step: int,
+                     num_steps: int) -> Iterator[Batch]:
+        """Prefetched batches for steps [start, start+num) in order."""
+        return _prefetched(self.batch_at, start_step, num_steps,
+                           self.prefetch)
+
+    def steps_per_epoch(self) -> int:
+        """Steps to consume the dataset once (floor; the modular
+        mapping keeps running past it seamlessly)."""
+        return max(
+            1,
+            self.reader.total_tokens
+            // (self.batch_size * self.seq_len),
+        )
+

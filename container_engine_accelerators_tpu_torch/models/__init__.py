@@ -1,1 +1,2 @@
-"""Transformer-LM serving path of the PyTorch port (decode mode)."""
+"""Transformer LM of the PyTorch port: decode-mode serving and train-mode
+training."""

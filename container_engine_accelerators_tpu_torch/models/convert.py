@@ -1,4 +1,4 @@
-"""flax LM params -> the port's ``TransformerLM`` state dict.
+"""flax LM params <-> the port's ``TransformerLM`` state dict.
 
 The flax tree (``container_engine_accelerators_tpu/models/transformer.py``
 under ``nn.scan``) stacks every layer's leaves along a leading layer
@@ -12,6 +12,11 @@ layouts, so conversion is an unstack and a copy:
     blocks.block.down.kernel           [L, mlp, D]   -> blocks.i.down
     blocks.block.ln_{attn,mlp}.scale   [L, D]        -> blocks.i.ln_{attn,mlp}.scale
     ln_f.scale                         [D]           -> ln_f.scale
+
+The state dict is f32, the flax params' dtype: it loads as it is into a
+train-mode model (f32 leaves) and, cast once, into a decode-mode one.
+:func:`to_flax_params` is the inverse, for comparing the two packages'
+params leaf by leaf (after a train step, say).
 """
 
 from collections.abc import Mapping
@@ -46,8 +51,9 @@ def _tensor(x) -> torch.Tensor:
 
 def from_flax_params(params: Mapping) -> dict:
     """Convert a flax param tree (nested dicts of numpy arrays) to an f32
-    state dict for ``TransformerLM(decode=True)``.  Raises ``ValueError``
-    on leaves the dense decode model does not have (MoE, int8 kernels)."""
+    state dict for ``TransformerLM`` (either mode).  Raises
+    ``ValueError`` on leaves the dense model does not have (MoE, int8
+    kernels)."""
     expected = ({("embed", "embedding"), ("ln_f", "scale")}
                 | {("blocks", "block") + k for k in _LAYER_LEAVES})
     got = dict(_leaves(params))
@@ -64,3 +70,24 @@ def from_flax_params(params: Mapping) -> dict:
         for i in range(num_layers):
             out[f"blocks.{i}.{name}"] = _tensor(stacked[i])
     return out
+
+
+def to_flax_params(state_dict: Mapping) -> dict:
+    """The port's state dict (any dtype, any device) -> the flax param
+    tree as nested dicts of f32 numpy arrays, per-layer leaves stacked
+    along a leading layer axis as ``nn.scan`` keeps them."""
+    def arr(t):
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    num_layers = 1 + max(int(name.split(".")[1]) for name in state_dict
+                         if name.startswith("blocks."))
+    block = {}
+    for path, name in _LAYER_LEAVES.items():
+        node = block
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([arr(state_dict[f"blocks.{i}.{name}"])
+                                   for i in range(num_layers)])
+    return {"embed": {"embedding": arr(state_dict["embed"])},
+            "ln_f": {"scale": arr(state_dict["ln_f.scale"])},
+            "blocks": {"block": block}}

@@ -1,16 +1,28 @@
-"""Decoder-only transformer LM, decode mode — PyTorch counterpart of
-``container_engine_accelerators_tpu/models/transformer.py``.
+"""Decoder-only transformer LM — PyTorch counterpart of
+``container_engine_accelerators_tpu/models/transformer.py``, in its two
+modes:
 
-Only the serving (KV-cache decode) forward is ported here; the train-mode
-forward with the flash-attention kernels is the LM training slice.
+- **train mode** (``decode=False``, the default): causal attention over
+  the whole sequence, through the flash-attention kernels
+  (``ops/flash_attention.py``) or dense attention
+  (``parallel/seq.py::dense_attention``), each block under activation
+  checkpointing when ``remat`` (the JAX model's ``nn.remat``);
+- **decode mode** (``decode=True``): the serving forward over a KV cache,
+  optionally through the flash-decode kernel.
 
 Numerics follow the flax model under its ``dtype`` (the compute dtype):
-params are f32, projections and the embedding run in the compute dtype
-(flax casts kernel and input per call; here the weights are cast once, at
-load, which gives the same values), RMSNorm computes in f32, and the tied
-LM head multiplies compute-dtype operands with f32 accumulation.  Weights
-keep the flax layouts (q ``[D, H, hd]``, out ``[H, hd, D]``, ...), so
-``models/convert.py`` copies the flax tree without transposes.
+projections and the embedding run in the compute dtype, RMSNorm computes
+in f32, and the tied LM head multiplies compute-dtype operands with f32
+accumulation.  flax keeps the params in f32 and casts kernel and input to
+the compute dtype at every call; train mode does the same — its params
+are f32 leaves with ``requires_grad`` and every use casts them, so the
+f32 gradients flow back through the cast.  Decode mode never trains: it
+holds its weights already cast to the compute dtype (cast once, at load,
+which gives the same values) and without autograd bookkeeping.  Both
+modes have the same parameter names and shapes, so one state dict loads
+into either.  Weights keep the flax layouts (q ``[D, H, hd]``, out ``[H,
+hd, D]``, ...), so ``models/convert.py`` copies the flax tree without
+transposes.
 
 The KV cache (``models/generate.py::init_cache``) is a dict of stacked
 per-layer tensors, ``cached_key``/``cached_value`` ``[layers, B, L, KVH,
@@ -24,16 +36,22 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from container_engine_accelerators_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    supports_flash,
+)
 from container_engine_accelerators_tpu_torch.ops.flash_decode import (
     NEG_INF,
     flash_decode,
 )
+from container_engine_accelerators_tpu_torch.parallel.seq import (
+    dense_attention,
+)
 
-_TRAINING_SLICE = ("is part of the LM training slice of the PyTorch port "
-                   "(flash-attention kernels 1-3); only decode mode is "
-                   "ported so far")
 _LATER_SERVING = "comes with a later serving slice of the PyTorch port"
+_LATER_TRAINING = "comes with a later training slice of the PyTorch port"
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -58,20 +76,24 @@ def lm_head(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
     return x.float() @ embedding.to(x.dtype).float().t()
 
 
-def _param(*shape, dtype, device):
-    # Decode mode never trains: no autograd bookkeeping on the weights.
-    return nn.Parameter(torch.empty(*shape, dtype=dtype, device=device),
-                        requires_grad=False)
+def _param(*shape, dtype, device, train):
+    """A weight: an f32 leaf with ``requires_grad`` in train mode; in
+    decode mode already in ``dtype`` and without autograd bookkeeping."""
+    return nn.Parameter(
+        torch.empty(*shape, dtype=torch.float32 if train else dtype,
+                    device=device),
+        requires_grad=train)
 
 
 class RMSNorm(nn.Module):
     """f32 math, eps 1e-6, output in the compute dtype.  The scale stays
     f32 whatever the compute dtype (bf16 serving weights load exactly)."""
 
-    def __init__(self, dim, dtype=torch.bfloat16, device=None):
+    def __init__(self, dim, dtype=torch.bfloat16, device=None, train=False):
         super().__init__()
         self.dtype = dtype
-        self.scale = _param(dim, dtype=torch.float32, device=device)
+        self.scale = _param(dim, dtype=torch.float32, device=device,
+                            train=train)
 
     def forward(self, x):
         y = x.float()
@@ -80,11 +102,13 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    """GQA attention in decode mode: append this call's K/V at the cache
-    cursor, attend the queries over everything cached so far."""
+    """GQA attention.  With a KV cache (decode mode): append this call's
+    K/V at the cache cursor, attend the queries over everything cached so
+    far.  Without one (train mode): causal attention over the sequence,
+    the K/V heads repeated up to the query heads."""
 
     def __init__(self, dim, num_heads, head_dim, dtype=torch.bfloat16,
-                 num_kv_heads=None, device=None):
+                 num_kv_heads=None, device=None, train=False):
         super().__init__()
         kv_heads = num_kv_heads or num_heads
         if num_heads % kv_heads:
@@ -92,21 +116,50 @@ class Attention(nn.Module):
                              f"num_kv_heads={kv_heads}")
         self.num_heads, self.kv_heads, self.head_dim = (
             num_heads, kv_heads, head_dim)
-        self.q = _param(dim, num_heads, head_dim, dtype=dtype, device=device)
-        self.k = _param(dim, kv_heads, head_dim, dtype=dtype, device=device)
-        self.v = _param(dim, kv_heads, head_dim, dtype=dtype, device=device)
-        self.out = _param(num_heads, head_dim, dim, dtype=dtype,
-                          device=device)
+        self.dtype = dtype
+        w = dict(dtype=dtype, device=device, train=train)
+        self.q = _param(dim, num_heads, head_dim, **w)
+        self.k = _param(dim, kv_heads, head_dim, **w)
+        self.v = _param(dim, kv_heads, head_dim, **w)
+        self.out = _param(num_heads, head_dim, dim, **w)
 
-    def forward(self, x, positions, cache, use_flash_decode=False):
+    def forward(self, x, positions, cache=None, use_flash_decode=False,
+                use_flash=None):
         b, t, _ = x.shape
-        q = (x @ self.q.flatten(1)).view(b, t, self.num_heads, self.head_dim)
-        k = (x @ self.k.flatten(1)).view(b, t, self.kv_heads, self.head_dim)
-        v = (x @ self.v.flatten(1)).view(b, t, self.kv_heads, self.head_dim)
+        dt = self.dtype
+        q = (x @ self.q.to(dt).flatten(1)).view(b, t, self.num_heads,
+                                                 self.head_dim)
+        k = (x @ self.k.to(dt).flatten(1)).view(b, t, self.kv_heads,
+                                                 self.head_dim)
+        v = (x @ self.v.to(dt).flatten(1)).view(b, t, self.kv_heads,
+                                                 self.head_dim)
         q = rotary_embedding(q, positions)
         k = rotary_embedding(k, positions)
-        o = self._decode_attend(q, k, v, positions, cache, use_flash_decode)
-        return o.reshape(b, t, -1) @ self.out.flatten(0, 1)
+        if cache is not None:
+            o = self._decode_attend(q, k, v, positions, cache,
+                                    use_flash_decode)
+        else:
+            o = self._train_attend(q, k, v, use_flash)
+        return o.reshape(b, t, -1) @ self.out.to(dt).flatten(0, 1)
+
+    def _train_attend(self, q, k, v, use_flash):
+        """Causal attention over the whole sequence.  The kernels take
+        equal Q and KV heads, so under GQA K/V are repeated up to the
+        query heads (``jnp.repeat`` on the head axis).  ``use_flash``
+        None (auto) takes the flash kernel on a CUDA tensor whose shape
+        it supports and dense attention otherwise (on the CPU too, as the
+        JAX model does off the TPU); True takes ``flash_attention``
+        whatever the device (its plain version on the CPU)."""
+        rep = self.num_heads // self.kv_heads
+        if rep > 1:
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        flash = use_flash
+        if flash is None:
+            flash = q.is_cuda and supports_flash(q.shape[1], self.head_dim)
+        if flash:
+            return flash_attention(q, k, v, causal=True)
+        return dense_attention(q, k, v, causal=True)
 
     def _decode_attend(self, q, k, v, positions, cache, use_flash_decode):
         """The write cursor is per sample (``cache_index`` [B]) and
@@ -152,38 +205,53 @@ class Block(nn.Module):
     """Pre-norm block: attention, then a SwiGLU MLP."""
 
     def __init__(self, num_heads, head_dim, mlp_dim, dtype=torch.bfloat16,
-                 num_kv_heads=None, device=None):
+                 num_kv_heads=None, device=None, train=False):
         super().__init__()
         dim = num_heads * head_dim
-        self.ln_attn = RMSNorm(dim, dtype, device)
+        self.dtype = dtype
+        self.ln_attn = RMSNorm(dim, dtype, device, train)
         self.attn = Attention(dim, num_heads, head_dim, dtype, num_kv_heads,
-                              device)
-        self.ln_mlp = RMSNorm(dim, dtype, device)
-        self.gate = _param(dim, mlp_dim, dtype=dtype, device=device)
-        self.up = _param(dim, mlp_dim, dtype=dtype, device=device)
-        self.down = _param(mlp_dim, dim, dtype=dtype, device=device)
+                              device, train)
+        self.ln_mlp = RMSNorm(dim, dtype, device, train)
+        w = dict(dtype=dtype, device=device, train=train)
+        self.gate = _param(dim, mlp_dim, **w)
+        self.up = _param(dim, mlp_dim, **w)
+        self.down = _param(mlp_dim, dim, **w)
 
-    def forward(self, x, positions, cache, use_flash_decode=False):
-        x = x + self.attn(self.ln_attn(x), positions, cache, use_flash_decode)
+    def forward(self, x, positions, cache=None, use_flash_decode=False,
+                use_flash=None):
+        dt = self.dtype
+        x = x + self.attn(self.ln_attn(x), positions, cache, use_flash_decode,
+                          use_flash)
         y = self.ln_mlp(x)
-        return x + (F.silu(y @ self.gate) * (y @ self.up)) @ self.down
+        return x + (F.silu(y @ self.gate.to(dt)) * (y @ self.up.to(dt))
+                    ) @ self.down.to(dt)
 
 
 class TransformerLM(nn.Module):
-    """Causal LM in decode mode: ``forward(tokens [B, T], positions,
-    cache) -> f32 logits [B, T, V]`` (or the final-norm hidden states
-    with ``project=False``), updating ``cache`` in place."""
+    """Causal LM.  Train mode: ``forward(tokens [B, T], positions=None)
+    -> f32 logits [B, T, V]``, positions defaulting to ``arange(T)``.
+    Decode mode: ``forward(tokens, positions, cache)``, updating ``cache``
+    in place.  Either returns the final-norm hidden states instead with
+    ``project=False``.
+
+    ``use_flash`` (train mode) picks the attention: None = auto (the
+    flash kernel on the card for the shapes it supports), True = flash,
+    False = dense.  ``remat`` recomputes each block's activations in the
+    backward instead of keeping them (``torch.utils.checkpoint``), as the
+    JAX model's default ``nn.remat`` does: the flash forward then runs
+    twice per layer and step."""
 
     def __init__(self, vocab_size=32_000, num_layers=12, num_heads=8,
                  head_dim=64, mlp_dim=2048, dtype=torch.bfloat16,
                  num_kv_heads=None, decode=False, use_flash_decode=False,
-                 num_experts=0, quant=False, device=None):
+                 use_flash=None, remat=True, num_experts=0, quant=False,
+                 device=None):
         super().__init__()
-        if not decode:
-            raise NotImplementedError(f"the train-mode forward {_TRAINING_SLICE}")
         if num_experts:
-            raise NotImplementedError(f"MoE decode (num_experts > 0) "
-                                      f"{_LATER_SERVING}")
+            raise NotImplementedError(
+                f"MoE (num_experts > 0) "
+                f"{_LATER_SERVING if decode else _LATER_TRAINING}")
         if quant:
             raise NotImplementedError(f"int8 weights (quant=True) "
                                       f"{_LATER_SERVING}")
@@ -191,25 +259,39 @@ class TransformerLM(nn.Module):
         self.num_heads, self.head_dim = num_heads, head_dim
         self.num_kv_heads = num_kv_heads or num_heads
         self.dtype = dtype
-        self.decode = True
+        self.decode = decode
         self.use_flash_decode = use_flash_decode
+        self.use_flash = use_flash
+        self.remat = remat
+        # Train mode: f32 leaves, cast at use.  Decode: cast once at load.
+        train = not decode
         self.embed = _param(vocab_size, num_heads * head_dim, dtype=dtype,
-                            device=device)
+                            device=device, train=train)
         self.blocks = nn.ModuleList(
-            Block(num_heads, head_dim, mlp_dim, dtype, num_kv_heads, device)
+            Block(num_heads, head_dim, mlp_dim, dtype, num_kv_heads, device,
+                  train)
             for _ in range(num_layers))
-        self.ln_f = RMSNorm(num_heads * head_dim, dtype, device)
+        self.ln_f = RMSNorm(num_heads * head_dim, dtype, device, train)
 
     def forward(self, tokens, positions=None, cache=None, project=True):
-        if cache is None:
+        if self.decode and cache is None:
             raise ValueError("decode mode needs a KV cache "
                              "(models/generate.py init_cache)")
+        if not self.decode and cache is not None:
+            raise ValueError("train mode takes no KV cache; build the model "
+                             "with decode=True to decode")
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = F.embedding(tokens, self.embed)
+        x = F.embedding(tokens, self.embed.to(self.dtype))
         for i, blk in enumerate(self.blocks):
-            layer = {name: buf[i] for name, buf in cache.items()}
-            x = blk(x, positions, layer, self.use_flash_decode)
+            if self.decode:
+                layer = {name: buf[i] for name, buf in cache.items()}
+                x = blk(x, positions, layer, self.use_flash_decode)
+            elif self.remat and torch.is_grad_enabled():
+                x = checkpoint(blk, x, positions, None, False, self.use_flash,
+                               use_reentrant=False)
+            else:
+                x = blk(x, positions, None, False, self.use_flash)
         x = self.ln_f(x)
         if not project:
             return x

@@ -9,8 +9,8 @@ layout ``[B, L, KVH, D]`` and GQA is handled in the kernel (query head
 - :func:`flash_decode` is the op.  A CUDA tensor goes to the hand-written
   kernel in ``csrc/flash_decode.cu``, registered with PyTorch as
   ``torch.ops.cea_tpu_torch.flash_decode`` by ``csrc/flash_decode_op.cpp``
-  and built for ``sm_90a`` with ``torch.utils.cpp_extension.load`` at
-  first use into ``.torch_ext_build/`` beside the package; a CPU tensor
+  and built for ``sm_90a`` with every other kernel of the port at first
+  use (``ops/build.py``); a CPU tensor
   goes to :func:`flash_decode_reference`.  A CUDA call whose kernel cannot
   be built or launched raises: there is no fallback.
 - :func:`flash_decode_reference` is the plain version, with the kernel's
@@ -22,25 +22,20 @@ layout ``[B, L, KVH, D]`` and GQA is handled in the kernel (query head
 """
 
 import functools
-import threading
-from pathlib import Path
 
 import torch
+
+from container_engine_accelerators_tpu_torch.ops.build import load_ops
 
 NEG_INF = -1e30
 BLOCK_K = 512
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 _TILE = 32  # keys per tile in the CUDA kernel; a chunk is a whole number of tiles
 _ROWS_PER_CTA = 8  # query rows of one KV group per CTA
 # CTAs to aim for per SM: 48 registers x 256 threads let ~5 share one.
 _CTAS_PER_SM = 4
 
 LAUNCHES = {"flash_decode": 0}
-
-_op = None
-_build_lock = threading.Lock()
 
 
 def effective_block_k(cache_len: int, block_k: int = BLOCK_K) -> int:
@@ -132,23 +127,7 @@ def split_plan(b: int, h: int, kvh: int, cache_len: int, sms: int):
 
 
 def build():
-    """Compile ``csrc/flash_decode.cu`` (nvcc, sm_90a) and
-    ``csrc/flash_decode_op.cpp`` into one library, once per source content,
-    load it and return the op.  Raises on any build or load failure."""
-    global _op
-    if _op is not None:
-        return _op
-    with _build_lock:
-        if _op is None:
-            from torch.utils import cpp_extension
-
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            cpp_extension.load(
-                name="cea_tpu_torch_flash_decode",
-                sources=[str(_CSRC / "flash_decode.cu"),
-                         str(_CSRC / "flash_decode_op.cpp")],
-                extra_cflags=["-O3"],
-                extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
-                build_directory=str(BUILD_DIR), is_python_module=False)
-            _op = torch.ops.cea_tpu_torch.flash_decode
-    return _op
+    """Build every kernel of the port (``ops/build.py``: one library,
+    nvcc for sm_90a) at first use and return this op.  Raises on any
+    build or load failure."""
+    return load_ops().flash_decode

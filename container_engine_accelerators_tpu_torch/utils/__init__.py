@@ -1,1 +1,1 @@
-"""Device selection for the PyTorch port."""
+"""Device selection and graceful preemption for the PyTorch port."""

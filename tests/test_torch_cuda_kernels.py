@@ -10,15 +10,18 @@ host that has only the port's dependencies:
 (``--noconftest``: the suite's conftest imports the JAX package's
 utilities, which such a host need not be able to import.)
 
-Tolerances are the JAX kernel's own: 2e-5 in f32 (f32 accumulation in
-another order), 3e-2 in bf16 (p is rounded to bf16 against a different
-running max, and the output is rounded to bf16).
+Tolerances are the JAX kernels' own: flash decode 2e-5 in f32 (f32
+accumulation in another order) and 3e-2 in bf16 (p is rounded to bf16
+against a different running max, and the output is rounded to bf16);
+flash attention 2e-5 / 2e-4 (forward / backward) in f32 and 2e-2 / 1e-1
+in bf16.
 """
 
 import pytest
 import torch
 from flash_decode_inputs import p_cast_inputs
 
+from container_engine_accelerators_tpu_torch.models import lm_train
 from container_engine_accelerators_tpu_torch.models.generate import (
     generate,
     prefill,
@@ -27,6 +30,7 @@ from container_engine_accelerators_tpu_torch.models.transformer import (
     TransformerLM,
     init_params,
 )
+from container_engine_accelerators_tpu_torch.ops import flash_attention as fa
 from container_engine_accelerators_tpu_torch.ops import flash_decode as fd
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
@@ -166,3 +170,109 @@ def test_flash_decode_op_raises_on_a_refused_launch(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         op(q, k, v, lengths, 0.25, 16, 4)
 
+
+
+FA_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (2e-2, 1e-1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("b,t,h", [(1, 128, 1), (2, 384, 3)])
+def test_flash_attention_kernels_match_plain_version(cuda, dtype, d, causal,
+                                                      b, t, h):
+    """Forward (o, lse) and backward (dq, dk, dv), each kernel once."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do = (torch.randn(b, t, h, d, device=cuda, generator=gen)
+                   .to(dtype) for _ in range(4))
+    before = dict(fa.LAUNCHES)
+    o, lse = fa._forward(q, k, v, causal, d ** -0.5)
+    dq, dk, dv = fa._backward(q, k, v, o, lse, do, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkv": 1}
+    want_o, want_lse = fa.flash_attention_reference(q, k, v, causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    fwd_tol, bwd_tol = FA_TOL[dtype]
+    torch.testing.assert_close(o.float(), want_o.float(), atol=fwd_tol,
+                               rtol=fwd_tol)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), ref.float(), atol=bwd_tol,
+                                   rtol=bwd_tol)
+
+
+def test_flash_attention_casts_p_like_the_plain_version(cuda):
+    """tests/flash_decode_inputs.py's designed inputs, every query row the
+    decode query: the forward kernel agrees with the plain version to one
+    bf16 step, and the same math with p kept in f32 does not."""
+    q, k, v = p_cast_inputs(1, 2048, 8, 8, 64)
+    q = q[:, None].repeat(2048, axis=1)
+    q, k, v = (torch.from_numpy(x).to(cuda) for x in (q, k, v))
+    got, _ = fa._forward(*(x.bfloat16() for x in (q, k, v)), False, 0.125)
+    want, _ = fa.flash_attention_reference(*(x.bfloat16() for x in (q, k, v)))
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=0)
+    p_in_f32, _ = fa.flash_attention_reference(q, k, v)
+    assert not torch.allclose(got.float(), p_in_f32.bfloat16().float(),
+                              rtol=2 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("bad", [
+    "seq_len", "short", "head_dim", "float16", "dtype_mismatch", "shape",
+    "noncontiguous", "cpu_k"])
+def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda, bad):
+    shape, dtype = (1, 256, 2, 64), torch.float32
+    if bad == "seq_len":
+        shape = (1, 200, 2, 64)
+    elif bad == "short":
+        shape = (1, 64, 2, 64)
+    elif bad == "head_dim":
+        shape = (1, 256, 2, 96)
+    elif bad == "float16":
+        dtype = torch.float16
+    q, k, v = (torch.zeros(shape, device=cuda, dtype=dtype)
+               for _ in range(3))
+    if bad == "dtype_mismatch":
+        v = v.to(torch.bfloat16)
+    elif bad == "shape":
+        k = k[:, :128]
+    elif bad == "noncontiguous":
+        k = k.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "cpu_k":
+        k = k.cpu()
+    before = dict(fa.LAUNCHES)
+    with pytest.raises((ValueError, TypeError, RuntimeError)):
+        fa.load_ops().flash_attention_fwd(q, k, v, True, 0.125)
+    assert fa.LAUNCHES == before
+
+
+def test_train_step_with_kernels_matches_dense(cuda):
+    """A small f32 model on the card: loss and gradients through the
+    kernels (remat on) equal dense attention's (loss 1e-5 relative,
+    gradients 1e-4 of each leaf's largest |g|)."""
+    cfg = dict(vocab_size=97, num_layers=2, num_heads=4, head_dim=64,
+               mlp_dim=64, num_kv_heads=2, dtype=torch.float32)
+    params = init_params(TransformerLM(**cfg, device="meta"),
+                         torch.Generator().manual_seed(0))
+    toks = torch.randint(0, 97, (2, 256), generator=torch.Generator()
+                         .manual_seed(1)).to(cuda)
+    labels, mask = lm_train.next_token_targets(toks)
+    out = {}
+    for flash in (True, False):
+        model = TransformerLM(**cfg, use_flash=flash, device=cuda)
+        model.load_state_dict(params)
+        before = fa.LAUNCHES["flash_attention_bwd_dkv"]
+        num, den = lm_train._loss(model, toks, labels, mask, None)
+        (num / den).backward()
+        launched = fa.LAUNCHES["flash_attention_bwd_dkv"] - before
+        assert launched == (2 if flash else 0)
+        out[flash] = ((num / den).item(),
+                      {n: p.grad for n, p in model.named_parameters()})
+    assert abs(out[True][0] - out[False][0]) <= 1e-5 * abs(out[False][0])
+    for name, g in out[True][1].items():
+        ref = out[False][1][name]
+        assert (g - ref).abs().max() <= 1e-4 * ref.abs().max(), name

@@ -164,11 +164,13 @@ def test_failed_build_raises_instead_of_falling_back(monkeypatch, tmp_path):
     a silent switch to the plain version."""
     from torch.utils import cpp_extension
 
-    monkeypatch.setattr(fd, "_op", None)
-    monkeypatch.setattr(fd, "BUILD_DIR", tmp_path)
+    from container_engine_accelerators_tpu_torch.ops import build
+
+    monkeypatch.setattr(build, "_ops", None)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)  # no nvcc
     before = dict(fd.LAUNCHES)
     with pytest.raises(OSError, match="CUDA_HOME"):
         fd._flash_decode_cuda(*_cpu_inputs(), None)
     assert fd.LAUNCHES == before
-    assert fd._op is None
+    assert build._ops is None

@@ -204,7 +204,7 @@ def test_convert_rejects_foreign_trees(params):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(decode=False), "training slice"),
+    (dict(decode=False, num_experts=4), "training slice"),
     (dict(decode=True, num_experts=4), "later serving slice"),
     (dict(decode=True, quant=True), "later serving slice"),
 ])
