@@ -12,7 +12,7 @@ plain PyTorch version.  Phases, one JSON line each:
 1. the card (``nvidia-smi`` name and power limit, printed verbatim too);
 2. the build of every kernel from ``ops/csrc/`` in one
    ``torch.utils.cpp_extension.load`` (nvcc for sm_90a, and the ops'
-   TORCH_LIBRARY bindings);
+   TORCH_LIBRARY bindings), with its seconds and the tensor-core source;
 3. flash decode vs its plain version on the card, f32 at 2e-5 and bf16 at 3e-2
    (atol and rtol) and, in bf16, a max abs error of at most 1e-2 of the
    case's largest output: at
@@ -35,6 +35,11 @@ plain PyTorch version.  Phases, one JSON line each:
    shape, f32 at 2e-5 / 2e-4 and bf16 at 2e-2 / 1e-1 plus a max abs
    error of at most 1e-2 of the case's largest output; beside it, how
    far the plain math with p (and dS) kept in f32 lands from the kernel;
+   and two designed cases where the casts move the output far more than
+   bf16 rounds it: the forward's p cast (decode inputs, every query row
+   the decode query) and the backward's P and dS casts
+   (``bwd_cast_inputs``), where the kernel must match the plain version
+   to one bf16 step and the same math in f32 must not;
 7. ``train_parity``: the full-width model, batch 2 at T 2048, kernels on
    vs dense attention — f32 loss within 1e-5 relative and every gradient
    within 1e-4 of its leaf's largest |g|, bf16 loss within 2e-2;
@@ -50,7 +55,7 @@ plain PyTorch version.  Phases, one JSON line each:
    the wall time per call of eager calls back to back (the host's
    share); the three flash-attention kernels at the training shape
    beside their plain versions, SDPA's forward and backward and their
-   FLOP bounds;
+   FLOP bounds, with the achieved TFLOP/s and the share of the bound;
 10. one greedy request through the server's ``run`` and one train step,
     each traced with ``torch.profiler``: device time against wall time
     (the busy share), device time by kernel;
@@ -89,13 +94,18 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, same source
 KERNEL_SRC = "container_engine_accelerators_tpu_torch/ops/csrc/flash_decode.cu"
 TPU_KERNEL = "container_engine_accelerators_tpu/ops/flash_decode.py:62"
 L2_BYTES = 50 * 2 ** 20
-FA_SRC = "container_engine_accelerators_tpu_torch/ops/csrc/flash_attention.cu"
+FA_CSRC = "container_engine_accelerators_tpu_torch/ops/csrc"
 FA_TPU = "container_engine_accelerators_tpu/ops/flash_attention.py"
 # Flash-attention kernels: counter name -> (TPU kernel line, matrix
-# products per (query, key) pair of D multiply-adds each).
-FA_KERNELS = {"flash_attention_fwd": (f"{FA_TPU}:67", 2),
-              "flash_attention_bwd_dq": (f"{FA_TPU}:160", 3),
-              "flash_attention_bwd_dkv": (f"{FA_TPU}:220", 4)}
+# products per (query, key) pair of D multiply-adds each, the source of
+# the kernel a bf16 call at the training shape runs).
+FA_KERNELS = {
+    "flash_attention_fwd": (f"{FA_TPU}:67", 2,
+                            f"{FA_CSRC}/flash_attention_sm90.cu"),
+    "flash_attention_bwd_dq": (f"{FA_TPU}:160", 3,
+                               f"{FA_CSRC}/flash_attention.cu"),
+    "flash_attention_bwd_dkv": (f"{FA_TPU}:220", 4,
+                                f"{FA_CSRC}/flash_attention_sm90.cu")}
 # (atol = rtol) forward, backward: the JAX kernels' tests' tolerances.
 FA_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 1e-1)}
 TRAIN_STEPS = 6
@@ -169,6 +179,41 @@ def p_cast_inputs(dev, cache_len=1056, heads=8, head_dim=64):
     v[:, slot == 0] = 1.0
     v[:, slot == 1] = -1.0
     return tuple(t.to(torch.bfloat16) for t in (q, k, v))
+
+
+def bwd_cast_inputs(dev, t=2048, heads=8, head_dim=64):
+    """tests/flash_decode_inputs.py's designed backward inputs (q, k, v,
+    o, do in bf16, lse f32, on the card; batch 1, non-causal, scale 1/8):
+    query rows of kinds i % 4, P = 1 on kinds 0-1 and exp(-41/4096) =
+    0.99004 (bf16: 0.98828) on kinds 2-3, dO = +1 / -1 on them, so every
+    element of dV is (T/2)(1 - P): 0.01172 T/2 with P cast to bf16,
+    0.00996 T/2 without; V = 0 and O chosen so that dS on kind-1 rows is
+    0.12366 (bf16: 0.12354), and dK's first column is (T/4)(dS - 1/8):
+    -0.0014648 T/4 with dS cast, -0.0013428 T/4 without.  Every product
+    and sum is exact in f32 in any order.  Also returns the same inputs in
+    f32, for the control."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    scale = head_dim ** -0.5
+    shape = (1, t, heads, head_dim)
+    kind = (torch.arange(t, device=dev) % 4)[None, :, None]
+    a_rows = kind < 2
+    q = torch.zeros(shape, device=dev)
+    q[..., 0] = a_rows.float()
+    q[..., 1] = (~a_rows).float()
+    k = torch.round(torch.randn(shape, device=dev, generator=gen) * 32) / 32
+    k[..., 0] = 0.0
+    k[..., 1] = -41 / 4096 / scale
+    v = torch.zeros(shape, device=dev)
+    o = torch.zeros(shape, device=dev)
+    o[..., 0] = torch.where(kind == 0, 1.0, torch.where(kind == 1, -253 / 256,
+                                                        0.0))
+    o[..., 1] = torch.where(kind == 1, -2.0 ** -10, 0.0)
+    do = torch.where(a_rows, 1.0, -1.0)[..., None].expand(shape).contiguous()
+    lse = torch.zeros(heads, t, device=dev)
+    f32 = (q, k, v, o, lse, do)
+    return tuple(x if x is lse else x.bfloat16() for x in f32), f32
 
 
 def check_kernel(fd, dev):
@@ -630,13 +675,38 @@ def check_fa_kernels(fa, dev):
         raise AssertionError(f"flash attention p-cast check: max relative "
                              f"difference of the kernel to {rel} (bound "
                              f"2**-7: one bf16 step)")
-    _phase("fa_kernel_check", cases=len(cases) + 1, max_abs_err=worst,
+    p_cast = {"kernel_output": got.max().item(), "max_rel_diff": rel,
+              "bound": 2 ** -7}
+    # The backward's P and dS casts, on designed inputs at T = 2048.
+    bf16, f32 = bwd_cast_inputs(dev)
+    q, k, v, o, lse, do = bf16
+    dk, dv = fa.load_ops().flash_attention_bwd_dkv(q, k, v, o, do, lse, False,
+                                                   0.125)
+    torch.cuda.synchronize()
+    _, want_dk, want_dv = fa.flash_attention_bwd_reference(*bf16)
+    _, ctrl_dk, ctrl_dv = fa.flash_attention_bwd_reference(*f32)
+    bwd_cast = {}
+    for name, got, want, ctrl in (
+            ("dk_col0", dk[..., 0], want_dk[..., 0], ctrl_dk[..., 0]),
+            ("dv", dv, want_dv, ctrl_dv)):
+        got = got.float()
+        rel = {"plain": ((want.float() - got).abs() / got.abs()).max().item(),
+               "p_and_ds_in_f32": ((ctrl.bfloat16().float() - got).abs()
+                                   / got.abs()).max().item()}
+        if not (rel["plain"] <= 2 ** -7 < rel["p_and_ds_in_f32"]):
+            raise AssertionError(f"flash attention backward cast check "
+                                 f"({name}): max relative difference of the "
+                                 f"kernel to {rel} (bound 2**-7)")
+        bwd_cast[name] = {"kernel_output": got.abs().max().item(),
+                          "max_rel_diff": rel}
+    if dk[..., 1:].float().any():
+        raise AssertionError("backward cast check: dK outside column 0 != 0")
+    _phase("fa_kernel_check", cases=len(cases) + 2, max_abs_err=worst,
            tolerance={k: {"fwd": f, "bwd": bw} for k, (f, bw) in FA_TOL.items()},
            bf16_err_to_max={"kernel": worst_to_max,
                             "p_and_ds_in_f32_control": control,
                             "bound": BF16_ERR_TO_MAX},
-           p_cast_case={"kernel_output": got.max().item(),
-                        "max_rel_diff": rel, "bound": 2 ** -7})
+           p_cast_case=p_cast, bwd_cast_case={**bwd_cast, "bound": 2 ** -7})
 
 
 def _train_model(dev, dtype, use_flash, params):
@@ -817,7 +887,7 @@ def time_fa_kernels(fa, dev):
     library_fwd = _graph_ms(sdpa, inputs)
     library_bwd = _eager_ms(sdpa_bwd, lib_inputs)
     rows = {}
-    for name, (line, products) in FA_KERNELS.items():
+    for name, (line, products, src) in FA_KERNELS.items():
         flops = 2 * products * d * pairs
         bytes_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
@@ -828,6 +898,7 @@ def time_fa_kernels(fa, dev):
             "shape": f"B={b} T={t} H={h} D={d} causal bf16",
             "distinct_inputs": n_inputs,
             "max_abs_err": max(errs[k][0] for k in err_keys),
+            "source": src,
             "ms": _graph_ms(kernel[name], inputs),
             "plain_ms": _graph_ms(plain[name], inputs),
             "library_ms": library_fwd if name == "flash_attention_fwd"
@@ -839,7 +910,10 @@ def time_fa_kernels(fa, dev):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "flops": flops, "bytes": nbytes[name]}
-        _phase("fa_kernel_time", kernel=name, **rows[name])
+        row = rows[name]
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        _phase("fa_kernel_time", kernel=name, **row)
     return rows
 
 
@@ -871,7 +945,8 @@ def profile_train_step(dev):
            device_ms=device_ms, device_busy_share=device_ms / wall_ms,
            flash_attention_ms={
                name: sum(v for k, v in by_name.items() if name in k)
-               for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv")},
+               for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv",
+                            "fa_bwd_delta")},
            top=[[k[:70], v] for k, v in top])
 
 
@@ -903,6 +978,10 @@ def main():
     build.load_ops()
     _phase("build", seconds=round(time.perf_counter() - t0, 3),
            sources=list(build.SOURCES),
+           tensor_core_source=f"{FA_CSRC}/flash_attention_sm90.cu",
+           routing="bf16 forward (D 64/128/256) and bf16 dK/dV (D 64/128): "
+                   "flash_attention_sm90.cu (TMA + wgmma); f32, dQ and bf16 "
+                   "dK/dV at D 256: flash_attention.cu (CUDA cores)",
            route="one torch.utils.cpp_extension.load: nvcc sm_90a for the "
                  "kernels, the host compiler for the TORCH_LIBRARY bindings")
 
@@ -924,10 +1003,10 @@ def main():
     kernels = [{"name": "flash_decode", "route": "cuda", "source": KERNEL_SRC,
                 "replaces": TPU_KERNEL, "launches": fd_launches,
                 **{k: serving[k] for k in keys}}]
-    kernels += [{"name": name, "route": "cuda", "source": FA_SRC,
+    kernels += [{"name": name, "route": "cuda", "source": src,
                  "replaces": line, "launches": fa_launches[name],
                  **{k: fa_rows[name][k] for k in keys}}
-                for name, (line, _) in FA_KERNELS.items()]
+                for name, (line, _, src) in FA_KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,8 @@
-// Flash attention for Hopper (sm_90a): the forward and the two backward
-// kernels of causal / non-causal attention on [B, T, H, D].
+// Flash attention on the CUDA cores (sm_90a): the forward and the two
+// backward kernels of causal / non-causal attention on [B, T, H, D], for
+// the calls flash_attention_sm90.cu's tensor-core kernels do not take:
+// every f32 call (f32 stays true f32 here, where the tensor cores would
+// round it to TF32), every dQ, and bf16 dK/dV at D = 256.
 //
 // Replaces the Pallas TPU kernels of container_engine_accelerators_tpu/
 // ops/flash_attention.py and computes what they compute:
@@ -38,11 +41,11 @@
 // wrapper transposes nothing.
 //
 // Bound on this card: operations.  At the training shape (B=8, H=8,
-// T=2048, D=64, causal, bf16) the forward does 34 GFLOP against 50 MB of
-// inputs and outputs, ~680 FLOP per byte, above the H100's ~295 bf16
-// ridge.  This version runs those FLOPs on the CUDA cores in f32 from
-// shared memory, far from the tensor-core peak; wgmma with TMA-fed
-// tiles is the redesign that closes the gap (later work).
+// T=2048, D=64, causal, bf16) dQ does 52 GFLOP against 101 MB of inputs
+// and outputs, above the H100's ~295 bf16 FLOP per byte ridge.  These
+// kernels run their FLOPs on the CUDA cores in f32 from shared memory,
+// far from the tensor-core peak; flash_attention_sm90.cu is the
+// tensor-core design, and dQ is the next kernel to move there.
 //
 // Interface: this file includes no PyTorch header, so nvcc builds it in
 // seconds.  flash_attention_op.cpp registers the ops with PyTorch
@@ -536,7 +539,7 @@ bool takes(int B, int seq, int heads, int D) {
 // Called by flash_attention_op.cpp.  q, k, v, o, dout, dq, dk, dv are
 // contiguous [B, T, H, D] in f32 (bf16 = false) or bf16; lse is [B*H, T]
 // f32.  Each returns cudaGetLastError() after its launch, or
-// cudaErrorInvalidValue for sizes the kernels do not take.
+// cudaErrorInvalidValue for sizes and dtypes it does not take.
 
 #define CEA_FA_DISPATCH(FN, ...)                                                   \
   if (!takes(B, seq, heads, D)) return cudaErrorInvalidValue;                      \
@@ -549,10 +552,16 @@ bool takes(int B, int seq, int heads, int D) {
       return bf16 ? FN<__nv_bfloat16, 256>(__VA_ARGS__) : FN<float, 256>(__VA_ARGS__); \
   }
 
-cudaError_t flash_attention_fwd_launch(bool bf16, const void* q, const void* k, const void* v,
-                                       void* o, float* lse, int B, int seq, int heads, int D,
-                                       float scale, bool causal, cudaStream_t stream) {
-  CEA_FA_DISPATCH(fwd, q, k, v, o, lse, B, seq, heads, scale, causal, stream)
+// f32 only: bf16 forwards run on the tensor cores (flash_attention_sm90.cu).
+cudaError_t flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
+                                       float* lse, int B, int seq, int heads, int D, float scale,
+                                       bool causal, cudaStream_t stream) {
+  if (!takes(B, seq, heads, D)) return cudaErrorInvalidValue;
+  switch (D) {
+    case 64: return fwd<float, 64>(q, k, v, o, lse, B, seq, heads, scale, causal, stream);
+    case 128: return fwd<float, 128>(q, k, v, o, lse, B, seq, heads, scale, causal, stream);
+    default: return fwd<float, 256>(q, k, v, o, lse, B, seq, heads, scale, causal, stream);
+  }
 }
 
 cudaError_t flash_attention_bwd_dq_launch(bool bf16, const void* q, const void* k, const void* v,
@@ -562,10 +571,26 @@ cudaError_t flash_attention_bwd_dq_launch(bool bf16, const void* q, const void* 
   CEA_FA_DISPATCH(bwd_dq, q, k, v, o, dout, lse, dq, B, seq, heads, scale, causal, stream)
 }
 
+// f32 at any D, bf16 at D = 256 only: bf16 at D = 64 and 128 runs on the
+// tensor cores (flash_attention_sm90.cu).
 cudaError_t flash_attention_bwd_dkv_launch(bool bf16, const void* q, const void* k,
                                            const void* v, const void* o, const void* dout,
                                            const float* lse, void* dk, void* dv, int B, int seq,
                                            int heads, int D, float scale, bool causal,
                                            cudaStream_t stream) {
-  CEA_FA_DISPATCH(bwd_dkv, q, k, v, o, dout, lse, dk, dv, B, seq, heads, scale, causal, stream)
+  if (!takes(B, seq, heads, D) || (bf16 && D != 256)) return cudaErrorInvalidValue;
+  if (bf16)
+    return bwd_dkv<__nv_bfloat16, 256>(q, k, v, o, dout, lse, dk, dv, B, seq, heads, scale,
+                                       causal, stream);
+  switch (D) {
+    case 64:
+      return bwd_dkv<float, 64>(q, k, v, o, dout, lse, dk, dv, B, seq, heads, scale, causal,
+                                stream);
+    case 128:
+      return bwd_dkv<float, 128>(q, k, v, o, dout, lse, dk, dv, B, seq, heads, scale, causal,
+                                 stream);
+    default:
+      return bwd_dkv<float, 256>(q, k, v, o, dout, lse, dk, dv, B, seq, heads, scale, causal,
+                                 stream);
+  }
 }

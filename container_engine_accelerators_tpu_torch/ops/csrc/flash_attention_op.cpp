@@ -1,9 +1,14 @@
-// PyTorch binding of the flash-attention kernels (flash_attention.cu):
-// registers torch.ops.cea_tpu_torch.flash_attention_fwd, _bwd_dq and
-// _bwd_dkv for CUDA tensors.  Each op checks what the kernel takes,
-// allocates its outputs on the input's device, launches on PyTorch's
-// current stream, and raises if the launch failed.  The autograd wrapper
-// is ops/flash_attention.py.
+// PyTorch binding of the flash-attention kernels: registers
+// torch.ops.cea_tpu_torch.flash_attention_fwd, _bwd_dq and _bwd_dkv for
+// CUDA tensors.  Each op checks what the kernels take, allocates its
+// outputs (and dK/dV's delta scratch) on the input's device, launches on
+// PyTorch's current stream, and raises if a launch failed.  The autograd
+// wrapper is ops/flash_attention.py.
+//
+// Routing: bf16 forward (D 64/128/256) and bf16 dK/dV at D 64/128 go to
+// the tensor-core kernels of flash_attention_sm90.cu; f32, dQ and bf16
+// dK/dV at D 256 go to flash_attention.cu's CUDA-core kernels.  A call
+// never falls back from one to the other.
 //
 // Only the few headers below, not torch/extension.h, so the host compiler
 // builds this file while nvcc builds the kernels.
@@ -21,9 +26,18 @@
 #include <string>
 #include <tuple>
 
-cudaError_t flash_attention_fwd_launch(bool bf16, const void* q, const void* k, const void* v,
-                                       void* o, float* lse, int B, int seq, int heads, int D,
-                                       float scale, bool causal, cudaStream_t stream);
+cudaError_t flash_attention_sm90_fwd_launch(const void* q, const void* k, const void* v, void* o,
+                                            float* lse, int B, int seq, int heads, int D,
+                                            float scale, bool causal, cudaStream_t stream);
+cudaError_t flash_attention_sm90_bwd_dkv_launch(const void* q, const void* k, const void* v,
+                                                const void* o, const void* dout, const float* lse,
+                                                float* delta, void* dk, void* dv, int B, int seq,
+                                                int heads, int D, float scale, bool causal,
+                                                cudaStream_t stream);
+bool flash_attention_sm90_dkv_takes(int D);
+cudaError_t flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
+                                       float* lse, int B, int seq, int heads, int D, float scale,
+                                       bool causal, cudaStream_t stream);
 cudaError_t flash_attention_bwd_dq_launch(bool bf16, const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const float* lse,
                                           void* dq, int B, int seq, int heads, int D, float scale,
@@ -105,11 +119,16 @@ std::tuple<at::Tensor, at::Tensor> fwd(const at::Tensor& q, const at::Tensor& k,
   const int64_t B = q.size(0), T = q.size(1), H = q.size(2), D = q.size(3);
   at::Tensor o = at::empty_like(q);
   at::Tensor lse = at::empty({B * H, T}, q.options().dtype(at::kFloat));
+  const bool bf16 = q.scalar_type() == at::kBFloat16;
   check_launch("flash_attention_fwd",
-               flash_attention_fwd_launch(q.scalar_type() == at::kBFloat16, q.data_ptr(),
-                                          k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                          lse.data_ptr<float>(), (int)B, (int)T, (int)H, (int)D,
-                                          (float)scale, causal, stream_of(q)));
+               bf16 ? flash_attention_sm90_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                      o.data_ptr(), lse.data_ptr<float>(), (int)B,
+                                                      (int)T, (int)H, (int)D, (float)scale,
+                                                      causal, stream_of(q))
+                    : flash_attention_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                 o.data_ptr(), lse.data_ptr<float>(), (int)B,
+                                                 (int)T, (int)H, (int)D, (float)scale, causal,
+                                                 stream_of(q)));
   return {o, lse};
 }
 
@@ -138,12 +157,24 @@ std::tuple<at::Tensor, at::Tensor> bwd_dkv(const at::Tensor& q, const at::Tensor
   const c10::cuda::CUDAGuard guard(q.device());
   at::Tensor dk = at::empty_like(k);
   at::Tensor dv = at::empty_like(v);
-  check_launch("flash_attention_bwd_dkv",
-               flash_attention_bwd_dkv_launch(
-                   q.scalar_type() == at::kBFloat16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   o.data_ptr(), dout.data_ptr(), lse.data_ptr<float>(), dk.data_ptr(),
-                   dv.data_ptr(), (int)q.size(0), (int)q.size(1), (int)q.size(2),
-                   (int)q.size(3), (float)scale, causal, stream_of(q)));
+  const int B = (int)q.size(0), T = (int)q.size(1), H = (int)q.size(2), D = (int)q.size(3);
+  const bool bf16 = q.scalar_type() == at::kBFloat16;
+  if (bf16 && flash_attention_sm90_dkv_takes(D)) {
+    // delta = rowsum(dO * O), filled by the launch's pre-pass.
+    at::Tensor delta = at::empty_like(lse);
+    check_launch("flash_attention_bwd_dkv",
+                 flash_attention_sm90_bwd_dkv_launch(
+                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+                     lse.data_ptr<float>(), delta.data_ptr<float>(), dk.data_ptr(),
+                     dv.data_ptr(), B, T, H, D, (float)scale, causal, stream_of(q)));
+  } else {
+    check_launch("flash_attention_bwd_dkv",
+                 flash_attention_bwd_dkv_launch(bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                o.data_ptr(), dout.data_ptr(),
+                                                lse.data_ptr<float>(), dk.data_ptr(),
+                                                dv.data_ptr(), B, T, H, D, (float)scale, causal,
+                                                stream_of(q)));
+  }
   return {dk, dv};
 }
 

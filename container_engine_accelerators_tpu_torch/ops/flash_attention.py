@@ -8,12 +8,14 @@ flash_attention.py``.
   ``jax.custom_vjp`` becomes a ``torch.autograd.Function``).  The forward
   saves ``(q, k, v, o, lse)``, ``lse`` as ``[B*H, T]`` f32; the backward
   runs the dQ and the dK/dV computations.  CUDA tensors go to the
-  hand-written kernels in ``csrc/flash_attention.cu``, registered as
+  hand-written kernels, registered as
   ``torch.ops.cea_tpu_torch.flash_attention_{fwd,bwd_dq,bwd_dkv}`` by
   ``csrc/flash_attention_op.cpp`` and built with every other kernel of
-  the port at first use (``ops/build.py``); CPU tensors go to the plain
-  versions.  A CUDA call whose kernel cannot be built or launched raises:
-  there is no fallback.
+  the port at first use (``ops/build.py``): bf16 forwards and bf16 dK/dV
+  at D 64/128 run on the tensor cores (``csrc/flash_attention_sm90.cu``),
+  the rest on the CUDA cores (``csrc/flash_attention.cu``).  CPU tensors
+  go to the plain versions.  A CUDA call whose kernel cannot be built or
+  launched raises: there is no fallback.
 - :func:`flash_attention_reference` and
   :func:`flash_attention_bwd_reference` are the plain versions, with the
   kernels' dtype rules: scores are f32 products of input-dtype operands

@@ -28,3 +28,43 @@ def p_cast_inputs(b, cache_len, h, kvh, d):
     v[:, slot == 0] = 1.0
     v[:, slot == 1] = -1.0
     return q, k, v
+
+
+def bwd_cast_inputs(b, t, h, d):
+    """Flash-attention backward inputs (q, k, v, o, lse [B*H, T], do; f32
+    numpy, every value bf16-exact) on which the rules "P is rounded to dO's
+    dtype before P^T.dO" and "dS is rounded to Q's dtype before dS^T.Q"
+    move dV and dK by far more than one bf16 step.  Non-causal, scale
+    d**-0.5 = 1/8 at d = 64.  Query rows come in four kinds by i % 4:
+    kinds 0 and 1 ("A") have q = e0, kinds 2 and 3 ("B") q = e1; k's first
+    two columns make every score exact: 0 for A rows and -41/4096 for B
+    rows at every key.  lse is 0 (the backward takes it as given), so P is
+    1 on A rows and exp(-41/4096) = 0.99004 on B rows, which bf16 rounds
+    to 0.98828.  dO is +1 on A rows and -1 on B rows, so every element of
+    dV is (T/2)(1 - P_B): 0.01172 T/2 with the cast, 0.00996 T/2 without.
+    V is 0, so dS = -P delta scale with delta = rowsum(dO * O) set by O:
+    1 on kind 0, -(253/256 + 2**-10) on kind 1, 0 on B rows, all exact;
+    dS on kind 1 rows is 0.12366, which bf16 rounds to 0.12354, and
+    dK[:, :, :, 0] = (T/4)(dS_1 - 1/8) is -0.0014648 T/4 with the cast and
+    -0.0013428 T/4 without (its other columns are 0).  Every product and
+    sum is exact in f32 in any order."""
+    rng = np.random.default_rng(8)
+    scale = d ** -0.5
+    kind = np.arange(t) % 4
+    a_rows = kind < 2
+    q = np.zeros((b, t, h, d), np.float32)
+    q[:, a_rows, :, 0] = 1.0
+    q[:, ~a_rows, :, 1] = 1.0
+    # Random elsewhere (only dQ reads them), on a 1/32 grid: bf16-exact.
+    k = np.round(rng.standard_normal((b, t, h, d)) * 32).astype(np.float32) / 32
+    k[..., 0] = 0.0
+    k[..., 1] = -41 / 4096 / scale
+    v = np.zeros((b, t, h, d), np.float32)
+    o = np.zeros((b, t, h, d), np.float32)
+    o[:, kind == 0, :, 0] = 1.0
+    o[:, kind == 1, :, 0] = -253 / 256
+    o[:, kind == 1, :, 1] = -2.0 ** -10
+    do = np.where(a_rows[None, :, None, None], 1.0, -1.0) * np.ones(
+        (b, t, h, d), np.float32)
+    lse = np.zeros((b * h, t), np.float32)
+    return q, k, v, o, lse, do.astype(np.float32)

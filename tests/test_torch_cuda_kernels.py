@@ -14,12 +14,12 @@ Tolerances are the JAX kernels' own: flash decode 2e-5 in f32 (f32
 accumulation in another order) and 3e-2 in bf16 (p is rounded to bf16
 against a different running max, and the output is rounded to bf16);
 flash attention 2e-5 / 2e-4 (forward / backward) in f32 and 2e-2 / 1e-1
-in bf16.
+in bf16; the designed cast inputs one bf16 step (2**-7 relative).
 """
 
 import pytest
 import torch
-from flash_decode_inputs import p_cast_inputs
+from flash_decode_inputs import bwd_cast_inputs, p_cast_inputs
 
 from container_engine_accelerators_tpu_torch.models import lm_train
 from container_engine_accelerators_tpu_torch.models.generate import (
@@ -179,10 +179,18 @@ FA_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (2e-2, 1e-1)}
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("b,t,h", [(1, 128, 1), (2, 384, 3)])
+@pytest.mark.parametrize("b,t,h", [
+    (1, 128, 1),   # causal: a single diagonal block
+    (2, 384, 3),
+    (2, 2048, 8),  # the training shape's T and H (B*H = 16)
+    (3, 2048, 3),  # B*H = 9: 144 CTAs, a partial second wave on 132 SMs
+])
 def test_flash_attention_kernels_match_plain_version(cuda, dtype, d, causal,
                                                       b, t, h):
-    """Forward (o, lse) and backward (dq, dk, dv), each kernel once."""
+    """Forward (o, lse) and backward (dq, dk, dv), each op once: in bf16
+    the forward and dK/dV run the tensor-core kernels
+    (flash_attention_sm90.cu, dK/dV at D 64 and 128), in f32 the CUDA-core
+    ones."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     q, k, v, do = (torch.randn(b, t, h, d, device=cuda, generator=gen)
                    .to(dtype) for _ in range(4))
@@ -219,6 +227,56 @@ def test_flash_attention_casts_p_like_the_plain_version(cuda):
     p_in_f32, _ = fa.flash_attention_reference(q, k, v)
     assert not torch.allclose(got.float(), p_in_f32.bfloat16().float(),
                               rtol=2 ** -7, atol=0)
+
+
+def test_flash_attention_casts_p_and_ds_like_the_plain_version(cuda):
+    """tests/flash_decode_inputs.py's designed backward inputs: the dK/dV
+    kernel agrees with the plain version to one bf16 step on every element
+    of dV and on dK's first column (its other columns are 0), and the same
+    math with P and dS kept in f32 does not."""
+    f32 = [torch.from_numpy(x).to(cuda)
+           for x in bwd_cast_inputs(1, 2048, 8, 64)]
+    q, k, v, o, lse, do = (x if i == 4 else x.bfloat16()
+                           for i, x in enumerate(f32))
+    dk, dv = fa.load_ops().flash_attention_bwd_dkv(q, k, v, o, do, lse,
+                                                   False, 0.125)
+    torch.cuda.synchronize()
+    _, want_dk, want_dv = fa.flash_attention_bwd_reference(q, k, v, o, lse,
+                                                           do)
+    _, ctrl_dk, ctrl_dv = fa.flash_attention_bwd_reference(*f32)
+    for got, want, ctrl in ((dk[..., 0], want_dk[..., 0], ctrl_dk[..., 0]),
+                            (dv, want_dv, ctrl_dv)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=0)
+        assert not torch.allclose(got.float(), ctrl.bfloat16().float(),
+                                  rtol=2 ** -7, atol=0)
+    assert not dk[..., 1:].float().any()
+
+
+@pytest.mark.parametrize("op", ["fwd", "bwd_dkv"])
+@pytest.mark.parametrize("bad", ["misaligned", "seq_len"])
+def test_flash_attention_tensor_core_path_raises_on_refused_input(cuda, op,
+                                                                   bad):
+    """A bf16 call the binding refuses (TMA needs a 16-byte aligned base;
+    T a multiple of 128) raises before any launch and runs no other
+    kernel in its place."""
+    shape = (1, 200 if bad == "seq_len" else 256, 2, 64)
+    n = shape[1] * 2 * 64
+    flat = [torch.zeros(n + 1, device=cuda, dtype=torch.bfloat16)
+            for _ in range(5)]
+    q, k, v, o, do = (x[1:] if bad == "misaligned" else x[:n]
+                      for x in flat)
+    q, k, v, o, do = (x.view(shape) for x in (q, k, v, o, do))
+    lse = torch.zeros(2, shape[1], device=cuda)
+    ops = fa.load_ops()
+    before = dict(fa.LAUNCHES)
+    with pytest.raises((ValueError, RuntimeError)):
+        if op == "fwd":
+            ops.flash_attention_fwd(q, k, v, True, 0.125)
+        else:
+            ops.flash_attention_bwd_dkv(q, k, v, o, do, lse, True, 0.125)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before
 
 
 @pytest.mark.parametrize("bad", [

@@ -30,7 +30,7 @@ from container_engine_accelerators_tpu_torch.ops import flash_attention as fa
 from container_engine_accelerators_tpu_torch.parallel.seq import (
     dense_attention,
 )
-from flash_decode_inputs import p_cast_inputs
+from flash_decode_inputs import bwd_cast_inputs, p_cast_inputs
 
 # The JAX ops package re-exports the function under the module's name.
 jfa = importlib.import_module("container_engine_accelerators_tpu.ops."
@@ -123,6 +123,36 @@ def test_p_is_cast_to_v_dtype_like_the_jax_kernel():
     p_in_f32 = fa.flash_attention(*args).bfloat16().float().numpy()
     assert not np.allclose(p_in_f32, want, rtol=2 ** -7, atol=0)
     assert abs(float(want.max()) - 0.00589) < 2e-4
+
+
+def test_p_and_ds_are_cast_like_the_jax_kernels():
+    """Random inputs cannot see the backward's casts either (P and dS kept
+    in f32 stay under the bf16 bound); tests/flash_decode_inputs.py's
+    designed backward inputs can: there rounding P to dO's dtype moves
+    every element of dV by 18%, and rounding dS to Q's dtype moves dK's
+    first column by 9%.  The port's backward agrees with the JAX kernels
+    to one bf16 step; the same math with P and dS kept in f32 does not."""
+    q, k, v, o, lse, do = bwd_cast_inputs(1, 256, 2, 64)
+    lanes = np.repeat(lse[..., None], jfa.LSE_LANES, axis=-1)
+    _, jdk, jdv = jfa._fa_backward(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, o)),
+        jnp.asarray(lanes), jnp.asarray(do, jnp.bfloat16), False, 0.125, True,
+        jfa.BLOCK_Q, jfa.BLOCK_K)
+    want = {"dk": _f32(jdk)[..., 0], "dv": _f32(jdv)}
+    f32 = [torch.from_numpy(x) for x in (q, k, v, o, lse, do)]
+    bf16 = [x if i == 4 else x.bfloat16() for i, x in enumerate(f32)]
+    _, dk, dv = fa._backward(*bf16, False, 0.125)
+    _, ctrl_dk, ctrl_dv = fa._backward(*f32, False, 0.125)
+    got = {"dk": dk.float().numpy()[..., 0], "dv": dv.float().numpy()}
+    ctrl = {"dk": ctrl_dk.bfloat16().float().numpy()[..., 0],
+            "dv": ctrl_dv.bfloat16().float().numpy()}
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=2 ** -7, atol=0,
+                                   err_msg=name)
+        assert not np.allclose(ctrl[name], want[name], rtol=2 ** -7, atol=0), \
+            name
+    assert np.all(want["dv"] == 1.5) and np.all(want["dk"] == -0.09375)
+    assert not dk.float()[..., 1:].any()
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
