@@ -35,11 +35,11 @@ plain PyTorch version.  Phases, one JSON line each:
    shape, f32 at 2e-5 / 2e-4 and bf16 at 2e-2 / 1e-1 plus a max abs
    error of at most 1e-2 of the case's largest output; beside it, how
    far the plain math with p (and dS) kept in f32 lands from the kernel;
-   and two designed cases where the casts move the output far more than
+   and designed cases where the casts move the output far more than
    bf16 rounds it: the forward's p cast (decode inputs, every query row
-   the decode query) and the backward's P and dS casts
-   (``bwd_cast_inputs``), where the kernel must match the plain version
-   to one bf16 step and the same math in f32 must not;
+   the decode query), dK/dV's P and dS casts (``bwd_cast_inputs``) and
+   dQ's dS cast (``dq_cast_inputs``), where the kernel must match the
+   plain version to one bf16 step and the same math in f32 must not;
 7. ``train_parity``: the full-width model, batch 2 at T 2048, kernels on
    vs dense attention — f32 loss within 1e-5 relative and every gradient
    within 1e-4 of its leaf's largest |g|, bf16 loss within 2e-2;
@@ -54,11 +54,15 @@ plain PyTorch version.  Phases, one JSON line each:
    the ``scaled_dot_product_attention`` yardstick and the HBM bound, and
    the wall time per call of eager calls back to back (the host's
    share); the three flash-attention kernels at the training shape
-   beside their plain versions, SDPA's forward and backward and their
-   FLOP bounds, with the achieved TFLOP/s and the share of the bound;
+   beside their plain versions, SDPA's forward and backward kernels and
+   their FLOP bounds, with the achieved TFLOP/s and the share of the
+   bound; and the port's whole bf16 backward (dQ op, then dK/dV op)
+   beside SDPA's backward kernel, both in CUDA graphs;
 10. one greedy request through the server's ``run`` and one train step,
     each traced with ``torch.profiler``: device time against wall time
-    (the busy share), device time by kernel;
+    (the busy share), device time by kernel, and in the train step one
+    delta pre-pass launch per layer (delta is computed once per
+    backward);
 11. the ``{"kernels": [...]}`` summary line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -103,7 +107,7 @@ FA_KERNELS = {
     "flash_attention_fwd": (f"{FA_TPU}:67", 2,
                             f"{FA_CSRC}/flash_attention_sm90.cu"),
     "flash_attention_bwd_dq": (f"{FA_TPU}:160", 3,
-                               f"{FA_CSRC}/flash_attention.cu"),
+                               f"{FA_CSRC}/flash_attention_sm90.cu"),
     "flash_attention_bwd_dkv": (f"{FA_TPU}:220", 4,
                                 f"{FA_CSRC}/flash_attention_sm90.cu")}
 # (atol = rtol) forward, backward: the JAX kernels' tests' tolerances.
@@ -211,6 +215,33 @@ def bwd_cast_inputs(dev, t=2048, heads=8, head_dim=64):
                                                         0.0))
     o[..., 1] = torch.where(kind == 1, -2.0 ** -10, 0.0)
     do = torch.where(a_rows, 1.0, -1.0)[..., None].expand(shape).contiguous()
+    lse = torch.zeros(heads, t, device=dev)
+    f32 = (q, k, v, o, lse, do)
+    return tuple(x if x is lse else x.bfloat16() for x in f32), f32
+
+
+def dq_cast_inputs(dev, t=2048, heads=8, head_dim=64):
+    """tests/flash_decode_inputs.py's designed dQ inputs (q, k, v, o, do
+    in bf16, lse f32, on the card; batch 1, non-causal, scale 1/8): every
+    query row q = e0, keys of two kinds by parity with scores 0 and
+    -41/4096 (lse = 0: P = 1 and 0.99004), V = 0 and delta = -1, so dS is
+    1/8 and 0.123755 (bf16: 0.123535), and with K's second column +1 / -1
+    dQ[..., 1] is (T/2)(1/8 - dS_odd): 0.0014648 T/2 with dS cast to bf16,
+    0.0012450 T/2 without.  Also returns the same inputs in f32."""
+    import torch
+
+    scale = head_dim ** -0.5
+    shape = (1, t, heads, head_dim)
+    odd = (torch.arange(t, device=dev) % 2 == 1)[None, :, None]
+    q = torch.zeros(shape, device=dev)
+    q[..., 0] = 1.0
+    k = torch.zeros(shape, device=dev)
+    k[..., 0] = torch.where(odd, -41 / 4096 / scale, 0.0)
+    k[..., 1] = torch.where(odd, -1.0, 1.0)
+    v = torch.zeros(shape, device=dev)
+    o = torch.zeros(shape, device=dev)
+    o[..., 0] = -1.0
+    do = torch.ones(shape, device=dev)
     lse = torch.zeros(heads, t, device=dev)
     f32 = (q, k, v, o, lse, do)
     return tuple(x if x is lse else x.bfloat16() for x in f32), f32
@@ -448,10 +479,10 @@ def serve(fd):
 
 
 def _traced(fn):
-    """(device ms, wall ms, device ms by kernel name) of ``fn()`` — which
-    must end synchronized — traced by torch.profiler (device activity
-    only: kernels, copies)."""
-    from collections import defaultdict
+    """(device ms, wall ms, device ms by kernel name, launches by kernel
+    name) of ``fn()`` — which must end synchronized — traced by
+    torch.profiler (device activity only: kernels, copies)."""
+    from collections import Counter, defaultdict
 
     import torch
     from torch.autograd import DeviceType
@@ -462,13 +493,14 @@ def _traced(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = defaultdict(float)
+    by_name, count = defaultdict(float), Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
+            count[e.name] += 1
     if not by_name:
         raise AssertionError("the profiler recorded no device activity")
-    return sum(by_name.values()), wall_ms, by_name
+    return sum(by_name.values()), wall_ms, by_name, count
 
 
 def profile_request(run):
@@ -479,7 +511,7 @@ def profile_request(run):
 
     prompt = torch.randint(0, 32000, (1, 8), generator=torch.Generator().manual_seed(3))
     run(prompt, 5, 0.0, 0, False)
-    device_ms, wall_ms, by_name = _traced(
+    device_ms, wall_ms, by_name, _ = _traced(
         lambda: run(prompt, 5, 0.0, 0, False))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     _phase("profile", request="greedy, 5-token prompt (bucket 8), 32 new",
@@ -514,27 +546,6 @@ def _graph_ms(fn, inputs, reps=7):
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / len(inputs))
-    return statistics.median(times)
-
-
-def _eager_ms(fn, inputs, reps=7):
-    """Per-call device time of ``fn`` over ``inputs`` called eagerly,
-    back to back, timed with CUDA events: for work that a CUDA graph
-    cannot capture (autograd's backward runs on the forward's stream)."""
-    import torch
-
-    for args in inputs:
-        fn(*args)  # warm-up
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for args in inputs:
-            fn(*args)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / len(inputs))
@@ -677,18 +688,26 @@ def check_fa_kernels(fa, dev):
                              f"2**-7: one bf16 step)")
     p_cast = {"kernel_output": got.max().item(), "max_rel_diff": rel,
               "bound": 2 ** -7}
-    # The backward's P and dS casts, on designed inputs at T = 2048.
+    # The backward's casts, on designed inputs at T = 2048: P and dS in
+    # dK/dV, dS in dQ.
     bf16, f32 = bwd_cast_inputs(dev)
     q, k, v, o, lse, do = bf16
     dk, dv = fa.load_ops().flash_attention_bwd_dkv(q, k, v, o, do, lse, False,
                                                    0.125)
-    torch.cuda.synchronize()
     _, want_dk, want_dv = fa.flash_attention_bwd_reference(*bf16)
     _, ctrl_dk, ctrl_dv = fa.flash_attention_bwd_reference(*f32)
+    bf16, f32 = dq_cast_inputs(dev)
+    q, k, v, o, lse, do = bf16
+    dq, _ = fa.load_ops().flash_attention_bwd_dq(q, k, v, o, do, lse, False,
+                                                 0.125)
+    torch.cuda.synchronize()
+    want_dq = fa.flash_attention_bwd_reference(*bf16)[0]
+    ctrl_dq = fa.flash_attention_bwd_reference(*f32)[0]
     bwd_cast = {}
     for name, got, want, ctrl in (
             ("dk_col0", dk[..., 0], want_dk[..., 0], ctrl_dk[..., 0]),
-            ("dv", dv, want_dv, ctrl_dv)):
+            ("dv", dv, want_dv, ctrl_dv),
+            ("dq_col1", dq[..., 1], want_dq[..., 1], ctrl_dq[..., 1])):
         got = got.float()
         rel = {"plain": ((want.float() - got).abs() / got.abs()).max().item(),
                "p_and_ds_in_f32": ((ctrl.bfloat16().float() - got).abs()
@@ -699,9 +718,10 @@ def check_fa_kernels(fa, dev):
                                  f"kernel to {rel} (bound 2**-7)")
         bwd_cast[name] = {"kernel_output": got.abs().max().item(),
                           "max_rel_diff": rel}
-    if dk[..., 1:].float().any():
-        raise AssertionError("backward cast check: dK outside column 0 != 0")
-    _phase("fa_kernel_check", cases=len(cases) + 2, max_abs_err=worst,
+    if dk[..., 1:].float().any() or dq[..., 2:].float().any():
+        raise AssertionError("backward cast check: dK outside column 0 or "
+                             "dQ past column 1 != 0")
+    _phase("fa_kernel_check", cases=len(cases) + 3, max_abs_err=worst,
            tolerance={k: {"fwd": f, "bwd": bw} for k, (f, bw) in FA_TOL.items()},
            bf16_err_to_max={"kernel": worst_to_max,
                             "p_and_ds_in_f32_control": control,
@@ -833,7 +853,8 @@ def train(fa, dev, card):
 
 def time_fa_kernels(fa, dev):
     """Phase 9 for flash attention: each kernel at the training shape
-    (bf16, causal) beside its plain version, SDPA and its bound."""
+    (bf16, causal) beside its plain version, SDPA and its bound; then the
+    port's whole backward beside SDPA's, both in CUDA graphs."""
     import torch
     import torch.nn.functional as F
 
@@ -862,13 +883,23 @@ def time_fa_kernels(fa, dev):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True)
 
+    # SDPA's backward kernel (its flash backend: dq, dk and dv in one
+    # call) on the residuals of its own forward, called directly so that a
+    # CUDA graph captures it as it captures the port's ops.
     lib_inputs = []
     for q, k, v, _, _, do in inputs:
-        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        lib_inputs.append((*leaves, sdpa(*leaves), do.transpose(1, 2)))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = (
+            torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, True, scale=scale))
+        lib_inputs.append((do.transpose(1, 2), qt, kt, vt, out, lse, cum_q,
+                           cum_k, max_q, max_k, seed, offset))
 
-    def sdpa_bwd(q, k, v, out, g):
-        torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+    def sdpa_bwd(g, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, seed,
+                 offset):
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            g, qt, kt, vt, out, lse, cum_q, cum_k, max_q, max_k, 0.0, True,
+            seed, offset, scale=scale)
 
     kernel = {"flash_attention_fwd": lambda q, k, v, o, lse, do:
               fa._forward(q, k, v, True, scale),
@@ -885,7 +916,7 @@ def time_fa_kernels(fa, dev):
              "flash_attention_bwd_dkv": lambda *a:
              fa.flash_attention_bwd_reference(*a, True)[1:]}
     library_fwd = _graph_ms(sdpa, inputs)
-    library_bwd = _eager_ms(sdpa_bwd, lib_inputs)
+    library_bwd = _graph_ms(sdpa_bwd, lib_inputs)
     rows = {}
     for name, (line, products, src) in FA_KERNELS.items():
         flops = 2 * products * d * pairs
@@ -904,9 +935,9 @@ def time_fa_kernels(fa, dev):
             "library_ms": library_fwd if name == "flash_attention_fwd"
             else library_bwd,
             "library": "F.scaled_dot_product_attention(is_causal=True)"
-                       + (" in CUDA graphs" if name == "flash_attention_fwd"
-                          else "'s autograd backward (dq, dk and dv in one "
-                               "call), eager calls timed with CUDA events"),
+                       if name == "flash_attention_fwd"
+                       else "aten._scaled_dot_product_flash_attention_"
+                            "backward (dq, dk and dv in one call)",
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "flops": flops, "bytes": nbytes[name]}
@@ -914,6 +945,21 @@ def time_fa_kernels(fa, dev):
         row["tflops"] = flops / row["ms"] / 1e9
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         _phase("fa_kernel_time", kernel=name, **row)
+    # The port's whole backward against SDPA's: dQ, dK and dV, in CUDA
+    # graphs over the same inputs.  7 products; q, k, v, o, dO and lse read
+    # once, dq, dk and dv written once.
+    bwd_ms = _graph_ms(lambda q, k, v, o, lse, do:
+                       fa._backward(q, k, v, o, lse, do, True, scale), inputs)
+    bytes_ms = (8 * tensor_bytes + lse_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * 7 * d * pairs / PEAK_FLOPS["bfloat16"] * 1e3
+    _phase("fa_backward_time", what="flash_attention_bwd: the port's whole "
+           "bf16 backward (_backward: the dQ op with the delta pre-pass, "
+           "then the dK/dV op with its delta) and SDPA's backward kernel, "
+           "both in CUDA graphs", shape=f"B={b} T={t} H={h} D={d} causal bf16",
+           distinct_inputs=n_inputs, ms=bwd_ms, library_bwd_ms=library_bwd,
+           ratio_to_library=bwd_ms / library_bwd,
+           bound_ms=max(bytes_ms, ops_ms),
+           tflops=2 * 7 * d * pairs / bwd_ms / 1e9)
     return rows
 
 
@@ -938,15 +984,24 @@ def profile_train_step(dev):
     batches = [(t.long(), l.long(), m) for t, l, m in batches]
     step(state, *batches[0])
     torch.cuda.synchronize()
-    device_ms, wall_ms, by_name = _traced(lambda: step(state, *batches[1]))
+    device_ms, wall_ms, by_name, count = _traced(
+        lambda: step(state, *batches[1]))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    names = ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv", "fa_bwd_delta")
+    launches = {name: sum(v for k, v in count.items() if name in k)
+                for name in names}
+    # delta once per backward: one pre-pass per layer, not one per op.
+    if launches["fa_bwd_delta"] != args.num_layers:
+        raise AssertionError(f"{launches['fa_bwd_delta']} delta pre-pass "
+                             f"launches in one train step, expected "
+                             f"{args.num_layers}")
     _phase("profile_train", step="one train step at the trainer's defaults "
            "(B=8, T=2048, bf16, remat)", wall_ms=wall_ms,
            device_ms=device_ms, device_busy_share=device_ms / wall_ms,
            flash_attention_ms={
                name: sum(v for k, v in by_name.items() if name in k)
-               for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv",
-                            "fa_bwd_delta")},
+               for name in names},
+           flash_attention_launches=launches,
            top=[[k[:70], v] for k, v in top])
 
 
@@ -976,12 +1031,13 @@ def main():
 
     t0 = time.perf_counter()
     build.load_ops()
-    _phase("build", seconds=round(time.perf_counter() - t0, 3),
-           sources=list(build.SOURCES),
+    seconds = round(time.perf_counter() - t0, 3)
+    _phase("build", seconds=seconds, sources=list(build.SOURCES),
            tensor_core_source=f"{FA_CSRC}/flash_attention_sm90.cu",
-           routing="bf16 forward (D 64/128/256) and bf16 dK/dV (D 64/128): "
-                   "flash_attention_sm90.cu (TMA + wgmma); f32, dQ and bf16 "
-                   "dK/dV at D 256: flash_attention.cu (CUDA cores)",
+           routing="bf16 forward (D 64/128/256), bf16 dQ and dK/dV (D "
+                   "64/128): flash_attention_sm90.cu (TMA + wgmma); f32, and "
+                   "bf16 dQ and dK/dV at D 256: flash_attention.cu (CUDA "
+                   "cores)",
            route="one torch.utils.cpp_extension.load: nvcc sm_90a for the "
                  "kernels, the host compiler for the TORCH_LIBRARY bindings")
 

@@ -2,7 +2,7 @@
 // backward kernels of causal / non-causal attention on [B, T, H, D], for
 // the calls flash_attention_sm90.cu's tensor-core kernels do not take:
 // every f32 call (f32 stays true f32 here, where the tensor cores would
-// round it to TF32), every dQ, and bf16 dK/dV at D = 256.
+// round it to TF32), and bf16 dQ and dK/dV at D = 256.
 //
 // Replaces the Pallas TPU kernels of container_engine_accelerators_tpu/
 // ops/flash_attention.py and computes what they compute:
@@ -41,11 +41,11 @@
 // wrapper transposes nothing.
 //
 // Bound on this card: operations.  At the training shape (B=8, H=8,
-// T=2048, D=64, causal, bf16) dQ does 52 GFLOP against 101 MB of inputs
-// and outputs, above the H100's ~295 bf16 FLOP per byte ridge.  These
+// T=2048, D=64, causal) dQ does 52 GFLOP against 101 MB of inputs and
+// outputs in bf16, above the H100's ~295 bf16 FLOP per byte ridge.  These
 // kernels run their FLOPs on the CUDA cores in f32 from shared memory,
-// far from the tensor-core peak; flash_attention_sm90.cu is the
-// tensor-core design, and dQ is the next kernel to move there.
+// far from the tensor-core peak; the bf16 calls of the main path run
+// flash_attention_sm90.cu's tensor-core kernels instead.
 //
 // Interface: this file includes no PyTorch header, so nvcc builds it in
 // seconds.  flash_attention_op.cpp registers the ops with PyTorch
@@ -541,17 +541,6 @@ bool takes(int B, int seq, int heads, int D) {
 // f32.  Each returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for sizes and dtypes it does not take.
 
-#define CEA_FA_DISPATCH(FN, ...)                                                   \
-  if (!takes(B, seq, heads, D)) return cudaErrorInvalidValue;                      \
-  switch (D) {                                                                     \
-    case 64:                                                                       \
-      return bf16 ? FN<__nv_bfloat16, 64>(__VA_ARGS__) : FN<float, 64>(__VA_ARGS__); \
-    case 128:                                                                      \
-      return bf16 ? FN<__nv_bfloat16, 128>(__VA_ARGS__) : FN<float, 128>(__VA_ARGS__); \
-    default:                                                                       \
-      return bf16 ? FN<__nv_bfloat16, 256>(__VA_ARGS__) : FN<float, 256>(__VA_ARGS__); \
-  }
-
 // f32 only: bf16 forwards run on the tensor cores (flash_attention_sm90.cu).
 cudaError_t flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                        float* lse, int B, int seq, int heads, int D, float scale,
@@ -564,15 +553,26 @@ cudaError_t flash_attention_fwd_launch(const void* q, const void* k, const void*
   }
 }
 
+// f32 at any D, bf16 at D = 256 only: bf16 at D = 64 and 128 runs on the
+// tensor cores (flash_attention_sm90.cu).  The same for dK/dV below.
 cudaError_t flash_attention_bwd_dq_launch(bool bf16, const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const float* lse,
                                           void* dq, int B, int seq, int heads, int D, float scale,
                                           bool causal, cudaStream_t stream) {
-  CEA_FA_DISPATCH(bwd_dq, q, k, v, o, dout, lse, dq, B, seq, heads, scale, causal, stream)
+  if (!takes(B, seq, heads, D) || (bf16 && D != 256)) return cudaErrorInvalidValue;
+  if (bf16)
+    return bwd_dq<__nv_bfloat16, 256>(q, k, v, o, dout, lse, dq, B, seq, heads, scale, causal,
+                                      stream);
+  switch (D) {
+    case 64:
+      return bwd_dq<float, 64>(q, k, v, o, dout, lse, dq, B, seq, heads, scale, causal, stream);
+    case 128:
+      return bwd_dq<float, 128>(q, k, v, o, dout, lse, dq, B, seq, heads, scale, causal, stream);
+    default:
+      return bwd_dq<float, 256>(q, k, v, o, dout, lse, dq, B, seq, heads, scale, causal, stream);
+  }
 }
 
-// f32 at any D, bf16 at D = 256 only: bf16 at D = 64 and 128 runs on the
-// tensor cores (flash_attention_sm90.cu).
 cudaError_t flash_attention_bwd_dkv_launch(bool bf16, const void* q, const void* k,
                                            const void* v, const void* o, const void* dout,
                                            const float* lse, void* dk, void* dv, int B, int seq,

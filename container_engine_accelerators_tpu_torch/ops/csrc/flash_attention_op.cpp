@@ -1,14 +1,20 @@
 // PyTorch binding of the flash-attention kernels: registers
 // torch.ops.cea_tpu_torch.flash_attention_fwd, _bwd_dq and _bwd_dkv for
 // CUDA tensors.  Each op checks what the kernels take, allocates its
-// outputs (and dK/dV's delta scratch) on the input's device, launches on
+// outputs (and the backward's delta) on the input's device, launches on
 // PyTorch's current stream, and raises if a launch failed.  The autograd
 // wrapper is ops/flash_attention.py.
 //
-// Routing: bf16 forward (D 64/128/256) and bf16 dK/dV at D 64/128 go to
-// the tensor-core kernels of flash_attention_sm90.cu; f32, dQ and bf16
-// dK/dV at D 256 go to flash_attention.cu's CUDA-core kernels.  A call
-// never falls back from one to the other.
+// Routing: bf16 forward (D 64/128/256) and bf16 dQ and dK/dV at D 64/128
+// go to the tensor-core kernels of flash_attention_sm90.cu; f32, and bf16
+// dQ and dK/dV at D 256, go to flash_attention.cu's CUDA-core kernels.  A
+// call never falls back from one to the other.
+//
+// Delta once per backward: on the tensor-core route the dQ op runs the
+// delta pre-pass and returns delta beside dQ, and the dK/dV op takes it
+// (its optional last argument) instead of running the pre-pass again.  On
+// the CUDA-core route each kernel computes delta itself: the dQ op returns
+// None for it and the dK/dV op ignores a given one.
 //
 // Only the few headers below, not torch/extension.h, so the host compiler
 // builds this file while nvcc builds the kernels.
@@ -23,18 +29,27 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <optional>
 #include <string>
 #include <tuple>
 
 cudaError_t flash_attention_sm90_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                             float* lse, int B, int seq, int heads, int D,
                                             float scale, bool causal, cudaStream_t stream);
+cudaError_t flash_attention_sm90_bwd_delta_launch(const void* o, const void* dout, float* delta,
+                                                  int B, int seq, int heads, int D,
+                                                  cudaStream_t stream);
+cudaError_t flash_attention_sm90_bwd_dq_launch(const void* q, const void* k, const void* v,
+                                               const void* dout, const float* lse,
+                                               const float* delta, void* dq, int B, int seq,
+                                               int heads, int D, float scale, bool causal,
+                                               cudaStream_t stream);
 cudaError_t flash_attention_sm90_bwd_dkv_launch(const void* q, const void* k, const void* v,
-                                                const void* o, const void* dout, const float* lse,
-                                                float* delta, void* dk, void* dv, int B, int seq,
-                                                int heads, int D, float scale, bool causal,
-                                                cudaStream_t stream);
-bool flash_attention_sm90_dkv_takes(int D);
+                                                const void* dout, const float* lse,
+                                                const float* delta, void* dk, void* dv, int B,
+                                                int seq, int heads, int D, float scale,
+                                                bool causal, cudaStream_t stream);
+bool flash_attention_sm90_bwd_takes(int D);
 cudaError_t flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                        float* lse, int B, int seq, int heads, int D, float scale,
                                        bool causal, cudaStream_t stream);
@@ -93,14 +108,14 @@ void check_bthd(const char* op, const at::Tensor& q, std::initializer_list<const
   }
 }
 
-void check_lse(const char* op, const at::Tensor& q, const at::Tensor& lse) {
-  const std::string name(op);
-  TORCH_CHECK_VALUE(lse.dim() == 2 && lse.size(0) == q.size(0) * q.size(2) &&
-                        lse.size(1) == q.size(1),
-                    name, ": lse must be [B*H, T], got ", shape(lse));
-  TORCH_CHECK_TYPE(lse.scalar_type() == at::kFloat, name, ": lse must be float32");
-  TORCH_CHECK(lse.is_cuda() && lse.device() == q.device() && lse.is_contiguous(), name,
-              ": lse must be contiguous on q's CUDA device");
+// lse and delta: [B*H, T] f32, contiguous on q's device.
+void check_rows(const char* op, const char* what, const at::Tensor& q, const at::Tensor& t) {
+  const std::string name = std::string(op) + ": " + what;
+  TORCH_CHECK_VALUE(t.dim() == 2 && t.size(0) == q.size(0) * q.size(2) && t.size(1) == q.size(1),
+                    name, " must be [B*H, T], got ", shape(t));
+  TORCH_CHECK_TYPE(t.scalar_type() == at::kFloat, name, " must be float32");
+  TORCH_CHECK(t.is_cuda() && t.device() == q.device() && t.is_contiguous(), name,
+              " must be contiguous on q's CUDA device");
 }
 
 void check_launch(const char* op, cudaError_t err) {
@@ -132,41 +147,67 @@ std::tuple<at::Tensor, at::Tensor> fwd(const at::Tensor& q, const at::Tensor& k,
   return {o, lse};
 }
 
-at::Tensor bwd_dq(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
-                  const at::Tensor& o, const at::Tensor& dout, const at::Tensor& lse,
-                  bool causal, double scale) {
+// (dq, delta): delta = rowsum(dO * O) on the tensor-core route, for the
+// dK/dV op; None on the CUDA-core route.
+std::tuple<at::Tensor, std::optional<at::Tensor>> bwd_dq(
+    const at::Tensor& q, const at::Tensor& k, const at::Tensor& v, const at::Tensor& o,
+    const at::Tensor& dout, const at::Tensor& lse, bool causal, double scale) {
   check_bthd("flash_attention_bwd_dq", q, {&k, &v, &o, &dout});
-  check_lse("flash_attention_bwd_dq", q, lse);
+  check_rows("flash_attention_bwd_dq", "lse", q, lse);
   const c10::cuda::CUDAGuard guard(q.device());
   at::Tensor dq = at::empty_like(q);
+  const int B = (int)q.size(0), T = (int)q.size(1), H = (int)q.size(2), D = (int)q.size(3);
+  const bool bf16 = q.scalar_type() == at::kBFloat16;
+  if (bf16 && flash_attention_sm90_bwd_takes(D)) {
+    at::Tensor delta = at::empty_like(lse);
+    check_launch("flash_attention_bwd_dq",
+                 flash_attention_sm90_bwd_delta_launch(o.data_ptr(), dout.data_ptr(),
+                                                       delta.data_ptr<float>(), B, T, H, D,
+                                                       stream_of(q)));
+    check_launch("flash_attention_bwd_dq",
+                 flash_attention_sm90_bwd_dq_launch(
+                     q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                     lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(), B, T, H, D,
+                     (float)scale, causal, stream_of(q)));
+    return {dq, delta};
+  }
   check_launch("flash_attention_bwd_dq",
-               flash_attention_bwd_dq_launch(
-                   q.scalar_type() == at::kBFloat16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   o.data_ptr(), dout.data_ptr(), lse.data_ptr<float>(), dq.data_ptr(),
-                   (int)q.size(0), (int)q.size(1), (int)q.size(2), (int)q.size(3),
-                   (float)scale, causal, stream_of(q)));
-  return dq;
+               flash_attention_bwd_dq_launch(bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                             o.data_ptr(), dout.data_ptr(),
+                                             lse.data_ptr<float>(), dq.data_ptr(), B, T, H, D,
+                                             (float)scale, causal, stream_of(q)));
+  return {dq, std::nullopt};
 }
 
 std::tuple<at::Tensor, at::Tensor> bwd_dkv(const at::Tensor& q, const at::Tensor& k,
                                            const at::Tensor& v, const at::Tensor& o,
                                            const at::Tensor& dout, const at::Tensor& lse,
-                                           bool causal, double scale) {
+                                           bool causal, double scale,
+                                           const std::optional<at::Tensor>& delta) {
   check_bthd("flash_attention_bwd_dkv", q, {&k, &v, &o, &dout});
-  check_lse("flash_attention_bwd_dkv", q, lse);
+  check_rows("flash_attention_bwd_dkv", "lse", q, lse);
   const c10::cuda::CUDAGuard guard(q.device());
   at::Tensor dk = at::empty_like(k);
   at::Tensor dv = at::empty_like(v);
   const int B = (int)q.size(0), T = (int)q.size(1), H = (int)q.size(2), D = (int)q.size(3);
   const bool bf16 = q.scalar_type() == at::kBFloat16;
-  if (bf16 && flash_attention_sm90_dkv_takes(D)) {
-    // delta = rowsum(dO * O), filled by the launch's pre-pass.
-    at::Tensor delta = at::empty_like(lse);
+  if (bf16 && flash_attention_sm90_bwd_takes(D)) {
+    at::Tensor d;
+    if (delta.has_value()) {
+      check_rows("flash_attention_bwd_dkv", "delta", q, *delta);
+      d = *delta;
+    } else {  // not given: the pre-pass fills it
+      d = at::empty_like(lse);
+      check_launch("flash_attention_bwd_dkv",
+                   flash_attention_sm90_bwd_delta_launch(o.data_ptr(), dout.data_ptr(),
+                                                         d.data_ptr<float>(), B, T, H, D,
+                                                         stream_of(q)));
+    }
     check_launch("flash_attention_bwd_dkv",
                  flash_attention_sm90_bwd_dkv_launch(
-                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-                     lse.data_ptr<float>(), delta.data_ptr<float>(), dk.data_ptr(),
-                     dv.data_ptr(), B, T, H, D, (float)scale, causal, stream_of(q)));
+                     q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                     lse.data_ptr<float>(), d.data_ptr<float>(), dk.data_ptr(), dv.data_ptr(), B,
+                     T, H, D, (float)scale, causal, stream_of(q)));
   } else {
     check_launch("flash_attention_bwd_dkv",
                  flash_attention_bwd_dkv_launch(bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -186,9 +227,9 @@ TORCH_LIBRARY_FRAGMENT(cea_tpu_torch, m) {
   m.def("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, float scale) "
         "-> (Tensor, Tensor)");
   m.def("flash_attention_bwd_dq(Tensor q, Tensor k, Tensor v, Tensor o, Tensor dout, "
-        "Tensor lse, bool causal, float scale) -> Tensor");
+        "Tensor lse, bool causal, float scale) -> (Tensor, Tensor?)");
   m.def("flash_attention_bwd_dkv(Tensor q, Tensor k, Tensor v, Tensor o, Tensor dout, "
-        "Tensor lse, bool causal, float scale) -> (Tensor, Tensor)");
+        "Tensor lse, bool causal, float scale, Tensor? delta=None) -> (Tensor, Tensor)");
 }
 
 TORCH_LIBRARY_IMPL(cea_tpu_torch, CUDA, m) {

@@ -1,49 +1,54 @@
-// Flash attention on Hopper's tensor cores (sm_90a): the bf16 forward and
-// dK/dV kernels, built from TMA tile loads, an mbarrier ring between a
+// Flash attention on Hopper's tensor cores (sm_90a): the bf16 forward, dQ
+// and dK/dV kernels, built from TMA tile loads, an mbarrier ring between a
 // producer warpgroup and two consumer warpgroups, and wgmma.
 //
 // Replaces, for bf16 inputs, the Pallas TPU kernels of
 // container_engine_accelerators_tpu/ops/flash_attention.py:
 //
 //   fa_fwd_sm90_kernel      <- _fa_kernel (:67-117), called by _fa_forward
+//   fa_bwd_dq_sm90_kernel   <- _fa_bwd_dq_kernel (:160-217)
 //   fa_bwd_dkv_sm90_kernel  <- _fa_bwd_dkv_kernel (:220-278)
 //   fa_bwd_delta_kernel        delta = rowsum(dO * O) in f32, once per
-//                              backward (the TPU kernel recomputes it in
-//                              every (K block, Q block) step)
+//                              backward for both kernels (the TPU kernels
+//                              recompute it in every block step)
 //
 // and computes what they compute: S is the f32 product of bf16 operands,
 // the scale multiplies the f32 scores (q is not pre-scaled), masked scores
 // are -1e30; the forward's online softmax keeps m, l and acc in f32, p is
 // rounded to bf16 before P.V, o = acc / l is rounded once, and lse =
-// m + log(l) is stored [B*H, T] f32; in dK/dV, P = exp(s - lse), dS =
-// P (dP - delta) scale, P is rounded to dO's dtype before P^T.dO and dS to
-// Q's before dS^T.Q, and dK, dV accumulate in f32.
+// m + log(l) is stored [B*H, T] f32; in the backward, P = exp(s - lse),
+// dS = P (dP - delta) scale, dS is rounded to K's dtype before dS.K and to
+// Q's before dS^T.Q, P to dO's before P^T.dO, and dQ, dK, dV accumulate in
+// f32 and are rounded once.
 //
 // Which kernel takes a call (the routing is flash_attention_op.cpp's):
 //
-//   dtype  D    forward               dQ                    dK/dV
-//   bf16   64   fa_fwd_sm90_kernel    flash_attention.cu    fa_bwd_dkv_sm90_kernel
-//   bf16   128  fa_fwd_sm90_kernel    flash_attention.cu    fa_bwd_dkv_sm90_kernel
-//   bf16   256  fa_fwd_sm90_kernel    flash_attention.cu    flash_attention.cu
-//   f32    any  flash_attention.cu    flash_attention.cu    flash_attention.cu
+//   dtype  D    forward               dQ                     dK/dV
+//   bf16   64   fa_fwd_sm90_kernel    fa_bwd_dq_sm90_kernel  fa_bwd_dkv_sm90_kernel
+//   bf16   128  fa_fwd_sm90_kernel    fa_bwd_dq_sm90_kernel  fa_bwd_dkv_sm90_kernel
+//   bf16   256  fa_fwd_sm90_kernel    flash_attention.cu     flash_attention.cu
+//   f32    any  flash_attention.cu    flash_attention.cu     flash_attention.cu
 //
 // f32 stays on flash_attention.cu's CUDA-core kernels, which keep true f32
 // (the tensor cores would take f32 only as TF32).  dK/dV at D = 256 would
 // need two 64 x 256 f32 accumulators, 256 registers a thread, past the
-// 255 a thread can hold.
+// 255 a thread can hold; dQ at D = 256 (a 64 x 256 f32 accumulator
+// beside S and dP) spilled and had its wgmma serialised when built (ptxas
+// -v), and its two ring stages would need 256 KB of shared memory.
 //
 // Bound on this card: operations.  At the training shape (B=8, T=2048,
-// H=8, D=64, causal) the forward does 34 GFLOP against 68 MB, dK/dV
-// 69 GFLOP against 118 MB, far above the H100's ~295 bf16 FLOP per byte
-// ridge, so the products must run on the tensor cores at their rate.
+// H=8, D=64, causal) the forward does 34 GFLOP against 68 MB, dQ 52 GFLOP
+// against 101 MB, dK/dV 69 GFLOP against 118 MB, far above the H100's
+// ~295 bf16 FLOP per byte ridge, so the products must run on the tensor
+// cores at their rate.
 //
 // Design.
 //
 // - CTA: three warpgroups.  Warpgroup 0 is the producer: it gives most of
 //   its registers away (setmaxnreg) and one of its threads issues every
 //   TMA load.  Warpgroups 1 and 2 are consumers with 240 registers each,
-//   each owning 64 rows of the CTA's 128 (query rows in the forward, keys
-//   in dK/dV).  Their products are wgmma m64nNk16 bf16 -> f32.
+//   each owning 64 rows of the CTA's 128 (query rows in the forward and
+//   dQ, keys in dK/dV).  Their products are wgmma m64nNk16 bf16 -> f32.
 // - TMA: one 4-D tensor map over each [B, T, H, D] input (innermost D,
 //   rows H*D*2 bytes apart), box 64 columns x 1 head x rows x 1 batch, in
 //   128-byte-swizzled shared memory.  A swizzle row holds 64 bf16, so a
@@ -76,12 +81,22 @@
 //   feed dV += P^T.dO and dK += dS^T.Q as register A fragments with dO and
 //   Q as MN-major B operands.  dK and dV stay in registers over the whole
 //   loop; no atomics.
+// - dQ: Q and dO (128 rows) are loaded once; K and V tiles of 64 keys
+//   stream through the ring.  S = Q.K^T and dP = dO.V^T are shared-memory
+//   wgmma, both operands K-major; P and dS are formed on the accumulator
+//   fragment in place (each thread's two rows' lse and delta sit in
+//   registers for the whole loop), dS is rounded to bf16 into A fragments,
+//   and dQ += dS.K takes K's tile as an MN-major B operand, as the forward
+//   reads V for P.V.  dQ stays in registers and is written once: no
+//   atomics, so it is deterministic.  Causal as in the forward.
+// - The delta pre-pass runs once per backward: the dQ op launches it and
+//   hands its result to the dK/dV op.
 // - A wait on an mbarrier that is never completed traps after ~10 s of
 //   clock instead of hanging the card.
 //
 // Interface: no PyTorch header.  flash_attention_op.cpp checks the inputs,
-// allocates the outputs and the delta scratch, and calls the *_launch
-// functions at the end of this file, which return cudaGetLastError().
+// allocates the outputs and the delta, and calls the *_launch functions at
+// the end of this file, which return cudaGetLastError().
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
@@ -376,25 +391,133 @@ __device__ __forceinline__ void turn_end(int wg, int j, int n) {
   if (wg == 0 || j < n - 1) asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
 }
 
+// The mbarriers at `at`: `once` completes when the CTA's own tiles (loaded
+// once) have landed; each ring stage has a "full" barrier (the producer's
+// expected bytes, completed by TMA) and an "empty" one (one arrival per
+// consumer warp).  Thread 0 initialises them, then the CTA syncs.
+struct Ring {
+  uint64_t* once;
+  uint64_t* full;
+  uint64_t* empty;
+};
+constexpr int kRingBarBytes = (1 + 2 * kStages) * 8;
+
+__device__ __forceinline__ Ring init_ring(uint8_t* at) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(at);
+  const Ring ring{bars, bars + 1, bars + 1 + kStages};
+  if (threadIdx.x == 0) {
+    mbar_init(ring.once, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return ring;
+}
+
+// Producer, step `it` of its loop: wait until the step's stage is free,
+// announce `bytes` of TMA traffic into it; returns the stage.
+__device__ __forceinline__ int ring_fill(const Ring& r, int it, uint32_t bytes) {
+  const int s = it % kStages;
+  mbar_wait(&r.empty[s], ((it / kStages) & 1) ^ 1);
+  mbar_expect_tx(&r.full[s], bytes);
+  return s;
+}
+
+// Consumer, step `it`: wait until the step's stage has landed; returns it.
+__device__ __forceinline__ int ring_take(const Ring& r, int it) {
+  const int s = it % kStages;
+  mbar_wait(&r.full[s], (it / kStages) & 1);
+  return s;
+}
+
+// The forward's and dQ's producer: K and V tiles of BK keys, blocks 0 ..
+// nk - 1, into the stages at k_ring and v_ring.
+template <int D, int BK>
+__device__ __forceinline__ void produce_kv(const Ring& r, uint8_t* k_ring, uint8_t* v_ring,
+                                           const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                           int h, int b, int nk) {
+  constexpr int kTileBytes = BK * D * 2;
+  for (int j = 0; j < nk; ++j) {
+    const int s = ring_fill(r, j, 2 * kTileBytes);
+    tma_tile<D>(k_ring + s * kTileBytes, tm_k, &r.full[s], h, j * BK, b, BK);
+    tma_tile<D>(v_ring + s * kTileBytes, tm_v, &r.full[s], h, j * BK, b, BK);
+  }
+}
+
+// A consumer thread's place in the CTA's 128 rows from r0 (query rows in
+// the forward and dQ, keys in dK/dV): warpgroup wg owns rows first ..
+// first + 63; in its warp's 16 the thread holds rows `row` and `row + 8`
+// of the accumulator fragment, columns c0, c0 + 1 of every 8.
+struct Frag {
+  int wg, lane, c0, first, row;
+};
+
+__device__ __forceinline__ Frag frag_at(int r0) {
+  Frag f;
+  f.wg = threadIdx.x / 128 - 1;
+  f.lane = threadIdx.x % 32;
+  f.c0 = 2 * (f.lane % 4);
+  f.first = r0 + 64 * f.wg;
+  f.row = f.first + 16 * ((threadIdx.x / 32) % 4) + f.lane / 4;
+  return f;
+}
+
+// Causal, the forward and dQ: a warpgroup's query rows against keys k0 ..
+// k0 + bk - 1.  The block is live unless every key lies past every row;
+// it needs the mask when some key lies past some row.
+__device__ __forceinline__ bool block_live(bool causal, const Frag& f, int k0) {
+  return !causal || k0 <= f.first + 63;
+}
+__device__ __forceinline__ bool block_diag(bool causal, const Frag& f, int k0, int bk) {
+  return causal && k0 + bk - 1 > f.first;
+}
+// Whether element i of the fragment of an S block from key k0 is masked:
+// its key lies past its query row.
+__device__ __forceinline__ bool key_past_row(const Frag& f, int i, int k0) {
+  return k0 + 8 * (i >> 2) + f.c0 + (i & 1) > f.row + 8 * ((i >> 1) & 1);
+}
+
+// This thread's fragment of a 64 x D f32 accumulator, row r's values
+// divided by den[r], as bf16 pairs into rows f.row and f.row + 8 of head
+// h, batch b of a [B, T, H, D] tensor.
+template <int D>
+__device__ __forceinline__ void store_frag(__nv_bfloat16* out, const float (&acc)[D / 2],
+                                           const float (&den)[2], const Frag& f, int b, int h,
+                                           int seq, int heads) {
+  const size_t rs = static_cast<size_t>(heads) * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    __nv_bfloat16* at =
+        out + (static_cast<size_t>(b) * seq + f.row + 8 * half) * rs + static_cast<size_t>(h) * D;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn)
+      *reinterpret_cast<uint32_t*>(at + 8 * jn + f.c0) =
+          pack_bf16(acc[4 * jn + 2 * half] / den[half], acc[4 * jn + 2 * half + 1] / den[half]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Forward.
 
 // One block of the online softmax on this thread's fragment of S (rows
-// `row` and `row + 8`, columns k0 + 8j + c0 + {0, 1}), in place: the f32
-// scores become p = exp(scale * s - m_new), masked ones (under `diag`,
+// f.row and f.row + 8, columns k0 + 8j + f.c0 + {0, 1}), in place: the
+// f32 scores become p = exp(scale * s - m_new), masked ones (under `diag`,
 // keys past the row) -1e30 before the exp; m and l move to the new
 // running max and sum, and corr gets exp(m_old - m_new), the factor the
 // accumulator must be rescaled by.
 template <int N>
 __device__ __forceinline__ void online_softmax(float (&sc)[N], float (&m)[2], float (&l)[2],
                                                float (&corr)[2], float scale, bool diag, int k0,
-                                               int row, int c0) {
+                                               const Frag& f) {
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const int half = (i >> 1) & 1;
     float x = scale * sc[i];
-    if (diag && k0 + 8 * (i >> 2) + c0 + (i & 1) > row + 8 * half) x = kNegInf;
+    if (diag && key_past_row(f, i, k0)) x = kNegInf;
     sc[i] = x;
     mx[half] = fmaxf(mx[half], x);
   }
@@ -432,7 +555,7 @@ struct Fwd {
   static constexpr int kK = kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBar = kV + kStages * kTileBytes;
-  static constexpr int kSmem = kBar + (1 + 2 * kStages) * 8 + kSlack;
+  static constexpr int kSmem = kBar + kRingBarBytes + kSlack;
 };
 
 template <int D>
@@ -445,55 +568,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int BK = C::kBK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kBar);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kStages;
+  const Ring ring = init_ring(smem + C::kBar);
   const int bh = blockIdx.x, b = bh / heads, h = bh % heads;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kRows;  // heaviest causal blocks first
   const int nk = causal ? (q0 + C::kRows - 1) / BK + 1 : seq / BK;
 
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
   if (threadIdx.x < 128) {  // producer warpgroup
     regs_dec<24>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, C::kQBytes);
-      tma_tile<D>(smem, &tm_q, q_full, h, q0, b, C::kRows);
-      for (int j = 0; j < nk; ++j) {
-        const int s = j % kStages;
-        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * C::kTileBytes);
-        tma_tile<D>(smem + C::kK + s * C::kTileBytes, &tm_k, &full[s], h, j * BK, b, BK);
-        tma_tile<D>(smem + C::kV + s * C::kTileBytes, &tm_v, &full[s], h, j * BK, b, BK);
-      }
+      mbar_expect_tx(ring.once, C::kQBytes);
+      tma_tile<D>(smem, &tm_q, ring.once, h, q0, b, C::kRows);
+      produce_kv<D, BK>(ring, smem + C::kK, smem + C::kV, &tm_k, &tm_v, h, b, nk);
     }
   } else {  // consumer warpgroups
     regs_inc<240>();
-    const int wg = threadIdx.x / 128 - 1;
-    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int c0 = 2 * (lane % 4);                 // columns c0, c0 + 1 of every 8
-    const int wg_row = q0 + 64 * wg;               // this warpgroup's first row
-    const int row = wg_row + 16 * warp + lane / 4;  // rows `row` and `row + 8`
-    const uint8_t* q_tile = smem + wg * 64 * kRowBytes;
+    const Frag f = frag_at(q0);
+    const uint8_t* q_tile = smem + f.wg * 64 * kRowBytes;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-    mbar_wait(q_full, 0);
+    mbar_wait(ring.once, 0);
     for (int j = 0; j < nk; ++j) {
-      const int s = j % kStages, k0 = j * BK;
-      mbar_wait(&full[s], (j / kStages) & 1);
-      turn_begin(wg, j);
-      if (!causal || k0 <= wg_row + 63) {  // else every key of the block lies past every row
+      const int s = ring_take(ring, j), k0 = j * BK;
+      turn_begin(f.wg, j);
+      if (block_live(causal, f, k0)) {
         const uint8_t* k_tile = smem + C::kK + s * C::kTileBytes;
         const uint8_t* v_tile = smem + C::kV + s * C::kTileBytes;
         float sc[BK / 2];
@@ -502,12 +602,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kk = 0; kk < D / 16; ++kk)
           wgmma_ss(sc, kmajor_desc<C::kRows>(q_tile, kk), kmajor_desc<BK>(k_tile, kk), kk > 0);
         wgmma_commit();
-        turn_end(wg, j, nk);
+        turn_end(f.wg, j, nk);
         wgmma_wait_all();
         fence_regs(sc);
 
         float corr[2];
-        online_softmax(sc, m, l, corr, scale, causal && k0 + BK - 1 > wg_row, k0, row, c0);
+        online_softmax(sc, m, l, corr, scale, block_diag(causal, f, k0, BK), k0, f);
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
         uint32_t pa[BK / 16][4];
@@ -520,27 +620,21 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_wait_all();
         fence_regs(acc);
       } else {
-        turn_end(wg, j, nk);
+        turn_end(f.wg, j, nk);
       }
-      if (lane == 0) mbar_arrive(&empty[s]);
+      if (f.lane == 0) mbar_arrive(&ring.empty[s]);
     }
 
-    const size_t rs = static_cast<size_t>(heads) * D;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row + 8 * half;
-      __nv_bfloat16* out = o + (static_cast<size_t>(b) * seq + r) * rs + static_cast<size_t>(h) * D;
-#pragma unroll
-      for (int jn = 0; jn < D / 8; ++jn)
-        *reinterpret_cast<uint32_t*>(out + 8 * jn + c0) =
-            pack_bf16(acc[4 * jn + 2 * half] / l[half], acc[4 * jn + 2 * half + 1] / l[half]);
-      if (lane % 4 == 0) lse[static_cast<size_t>(bh) * seq + r] = m[half] + logf(l[half]);
+    store_frag<D>(o, acc, l, f, b, h, seq, heads);
+    if (f.lane % 4 == 0) {
+      lse[static_cast<size_t>(bh) * seq + f.row] = m[0] + logf(l[0]);
+      lse[static_cast<size_t>(bh) * seq + f.row + 8] = m[1] + logf(l[1]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Backward: delta pre-pass and dK/dV.
+// Backward: delta pre-pass, dQ and dK/dV.
 
 // delta[b*H + h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d] in f32; D / 8
 // threads per (b, t, h) row, one 16-byte load of each input each.
@@ -573,6 +667,104 @@ __global__ void __launch_bounds__(256)
 }
 
 template <int D>
+struct Dq {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int kRows = 128;  // query rows per CTA
+  static constexpr int kBK = 64;     // keys per ring buffer
+  static constexpr int kQBytes = kRows * D * 2;
+  static constexpr int kTileBytes = kBK * D * 2;
+  static constexpr int kDO = kQBytes;
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;
+  static constexpr int kSmem = kBar + kRingBarBytes + kSlack;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    fa_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int seq, int heads, float scale,
+                          int causal) {
+  using C = Dq<D>;
+  constexpr int BK = C::kBK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const Ring ring = init_ring(smem + C::kBar);
+  const int bh = blockIdx.x, b = bh / heads, h = bh % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kRows;  // heaviest causal blocks first
+  const int nk = causal ? (q0 + C::kRows - 1) / BK + 1 : seq / BK;
+
+  if (threadIdx.x < 128) {  // producer warpgroup
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(ring.once, 2 * C::kQBytes);
+      tma_tile<D>(smem, &tm_q, ring.once, h, q0, b, C::kRows);
+      tma_tile<D>(smem + C::kDO, &tm_do, ring.once, h, q0, b, C::kRows);
+      produce_kv<D, BK>(ring, smem + C::kK, smem + C::kV, &tm_k, &tm_v, h, b, nk);
+    }
+  } else {  // consumer warpgroups
+    regs_inc<240>();
+    const Frag f = frag_at(q0);
+    const uint8_t* q_tile = smem + f.wg * 64 * kRowBytes;
+    const uint8_t* do_tile = smem + C::kDO + f.wg * 64 * kRowBytes;
+    const size_t at = static_cast<size_t>(bh) * seq + f.row;
+    const float row_lse[2] = {lse[at], lse[at + 8]};
+    const float row_delta[2] = {delta[at], delta[at + 8]};
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(ring.once, 0);
+    for (int j = 0; j < nk; ++j) {
+      const int s = ring_take(ring, j), k0 = j * BK;
+      if (block_live(causal, f, k0)) {
+        const uint8_t* k_tile = smem + C::kK + s * C::kTileBytes;
+        const uint8_t* v_tile = smem + C::kV + s * C::kTileBytes;
+        float sc[BK / 2], dp[BK / 2];  // S and dP: rows query rows, columns keys
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(sc, kmajor_desc<C::kRows>(q_tile, kk), kmajor_desc<BK>(k_tile, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(dp, kmajor_desc<C::kRows>(do_tile, kk), kmajor_desc<BK>(v_tile, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        const bool diag = block_diag(causal, f, k0, BK);
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int half = (i >> 1) & 1;
+          float x = scale * sc[i];
+          if (diag && key_past_row(f, i, k0)) x = kNegInf;
+          const float p = exp2f((x - row_lse[half]) * kLog2e);  // exp(s - lse)
+          dp[i] = p * (dp[i] - row_delta[half]) * scale;       // dS
+        }
+        uint32_t dsa[BK / 16][4];
+        to_a_frags(dp, dsa);  // dS rounded to K's dtype
+
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(acc, dsa[kk], mnmajor_desc<BK>(k_tile, kk), 1);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      }
+      if (f.lane == 0) mbar_arrive(&ring.empty[s]);
+    }
+
+    const float one[2] = {1.f, 1.f};
+    store_frag<D>(dq, acc, one, f, b, h, seq, heads);
+  }
+}
+
+template <int D>
 struct Dkv {
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
   static constexpr int kKeys = 128;  // keys per CTA
@@ -585,7 +777,7 @@ struct Dkv {
   static constexpr int kLse = kDO + kStages * kTileBytes;
   static constexpr int kDelta = kLse + kStages * kBQ * 4;
   static constexpr int kBar = kDelta + kStages * kBQ * 4;
-  static constexpr int kSmem = kBar + (1 + 2 * kStages) * 8 + kSlack;
+  static constexpr int kSmem = kBar + kRingBarBytes + kSlack;
 };
 
 template <int D>
@@ -603,58 +795,39 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint8_t* smem = aligned_smem(smem_raw);
   float* lse_s = reinterpret_cast<float*>(smem + C::kLse);
   float* delta_s = reinterpret_cast<float*>(smem + C::kDelta);
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + C::kBar);
-  uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + kStages;
+  const Ring ring = init_ring(smem + C::kBar);
   const int bh = blockIdx.x, b = bh / heads, h = bh % heads;
   const int k0 = blockIdx.y * C::kKeys;  // the lowest (heaviest causal) K blocks first
   const int first = causal ? k0 / BQ : 0, nq = seq / BQ;
 
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
   if (threadIdx.x < 128) {  // producer warpgroup
     regs_dec<24>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(kv_full, 2 * C::kKVBytes);
-      tma_tile<D>(smem, &tm_k, kv_full, h, k0, b, C::kKeys);
-      tma_tile<D>(smem + C::kV, &tm_v, kv_full, h, k0, b, C::kKeys);
+      mbar_expect_tx(ring.once, 2 * C::kKVBytes);
+      tma_tile<D>(smem, &tm_k, ring.once, h, k0, b, C::kKeys);
+      tma_tile<D>(smem + C::kV, &tm_v, ring.once, h, k0, b, C::kKeys);
       for (int i = first; i < nq; ++i) {
-        const int it = i - first, s = it % kStages;
-        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * C::kTileBytes + 2 * BQ * 4);
-        tma_tile<D>(smem + C::kQ + s * C::kTileBytes, &tm_q, &full[s], h, i * BQ, b, BQ);
-        tma_tile<D>(smem + C::kDO + s * C::kTileBytes, &tm_do, &full[s], h, i * BQ, b, BQ);
+        const int s = ring_fill(ring, i - first, 2 * C::kTileBytes + 2 * BQ * 4);
+        tma_tile<D>(smem + C::kQ + s * C::kTileBytes, &tm_q, &ring.full[s], h, i * BQ, b, BQ);
+        tma_tile<D>(smem + C::kDO + s * C::kTileBytes, &tm_do, &ring.full[s], h, i * BQ, b, BQ);
         const size_t off = static_cast<size_t>(bh) * seq + i * BQ;
-        bulk_copy(lse_s + s * BQ, lse + off, BQ * 4, &full[s]);
-        bulk_copy(delta_s + s * BQ, delta + off, BQ * 4, &full[s]);
+        bulk_copy(lse_s + s * BQ, lse + off, BQ * 4, &ring.full[s]);
+        bulk_copy(delta_s + s * BQ, delta + off, BQ * 4, &ring.full[s]);
       }
     }
   } else {  // consumer warpgroups
     regs_inc<240>();
-    const int wg = threadIdx.x / 128 - 1;
-    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int c0 = 2 * (lane % 4);
-    const int wg_key = k0 + 64 * wg;                   // this warpgroup's first key
-    const int key = wg_key + 16 * warp + lane / 4;     // keys `key` and `key + 8`
-    const uint8_t* k_tile = smem + wg * 64 * kRowBytes;
-    const uint8_t* v_tile = smem + C::kV + wg * 64 * kRowBytes;
+    const Frag f = frag_at(k0);  // the fragment's rows are keys: f.row and f.row + 8
+    const uint8_t* k_tile = smem + f.wg * 64 * kRowBytes;
+    const uint8_t* v_tile = smem + C::kV + f.wg * 64 * kRowBytes;
     float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
-    mbar_wait(kv_full, 0);
+    mbar_wait(ring.once, 0);
     for (int i = first; i < nq; ++i) {
-      const int it = i - first, s = it % kStages, q0 = i * BQ;
-      mbar_wait(&full[s], (it / kStages) & 1);
-      if (!causal || q0 + BQ - 1 >= wg_key) {  // else every row precedes every key
+      const int s = ring_take(ring, i - first), q0 = i * BQ;
+      if (!causal || q0 + BQ - 1 >= f.first) {  // else every row precedes every key
         const uint8_t* q_tile = smem + C::kQ + s * C::kTileBytes;
         const uint8_t* do_tile = smem + C::kDO + s * C::kTileBytes;
         float st[BQ / 2], dpt[BQ / 2];  // S^T and dP^T: rows keys, columns query rows
@@ -670,18 +843,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs(st);
         fence_regs(dpt);
 
-        const bool diag = causal && q0 < wg_key + 63;  // some key past some row
+        const bool diag = causal && q0 < f.first + 63;  // some key past some row
         const float* lse_q = lse_s + s * BQ;
         const float* delta_q = delta_s + s * BQ;
 #pragma unroll
         for (int jn = 0; jn < BQ / 8; ++jn) {
-          const float2 lq = *reinterpret_cast<const float2*>(lse_q + 8 * jn + c0);
-          const float2 dl = *reinterpret_cast<const float2*>(delta_q + 8 * jn + c0);
+          const float2 lq = *reinterpret_cast<const float2*>(lse_q + 8 * jn + f.c0);
+          const float2 dl = *reinterpret_cast<const float2*>(delta_q + 8 * jn + f.c0);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int i = 4 * jn + e, half = e >> 1, col = e & 1;
             float x = scale * st[i];
-            if (diag && key + 8 * half > q0 + 8 * jn + c0 + col) x = kNegInf;
+            if (diag && f.row + 8 * half > q0 + 8 * jn + f.c0 + col) x = kNegInf;
             const float p = exp2f((x - (col ? lq.y : lq.x)) * kLog2e);  // exp(s - lse)
             st[i] = p;
             dpt[i] = p * (dpt[i] - (col ? dl.y : dl.x)) * scale;  // dS
@@ -703,21 +876,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs(dv_acc);
         fence_regs(dk_acc);
       }
-      if (lane == 0) mbar_arrive(&empty[s]);
+      if (f.lane == 0) mbar_arrive(&ring.empty[s]);
     }
 
-    const size_t rs = static_cast<size_t>(heads) * D;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const size_t off =
-          (static_cast<size_t>(b) * seq + key + 8 * half) * rs + static_cast<size_t>(h) * D;
-#pragma unroll
-      for (int jn = 0; jn < D / 8; ++jn) {
-        const int i = 4 * jn + 2 * half;
-        *reinterpret_cast<uint32_t*>(dk + off + 8 * jn + c0) = pack_bf16(dk_acc[i], dk_acc[i + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off + 8 * jn + c0) = pack_bf16(dv_acc[i], dv_acc[i + 1]);
-      }
-    }
+    const float one[2] = {1.f, 1.f};
+    store_frag<D>(dk, dk_acc, one, f, b, h, seq, heads);
+    store_frag<D>(dv, dv_acc, one, f, b, h, seq, heads);
   }
 }
 
@@ -766,6 +930,17 @@ cudaError_t tile_map(CUtensorMap* map, const void* base, int B, int seq, int hea
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// tile_map of each input base[i] with boxes of rows[i] rows.
+template <int N>
+cudaError_t tile_maps(CUtensorMap (&maps)[N], const void* const (&base)[N], const int (&rows)[N],
+                      int B, int seq, int heads, int D) {
+  for (int i = 0; i < N; ++i) {
+    const cudaError_t err = tile_map(&maps[i], base[i], B, seq, heads, D, rows[i]);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // Lift the 48 KB default for `kernel` once per instantiation (the first
 // call is made outside any CUDA graph capture).
 template <typename K>
@@ -783,43 +958,62 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse
   using C = Fwd<D>;
   static bool ready = false;
   cudaError_t err = allow_smem(fa_fwd_sm90_kernel<D>, C::kSmem, &ready);
-  CUtensorMap tq, tk, tv;
-  if (err == cudaSuccess) err = tile_map(&tq, q, B, seq, heads, D, C::kRows);
-  if (err == cudaSuccess) err = tile_map(&tk, k, B, seq, heads, D, C::kBK);
-  if (err == cudaSuccess) err = tile_map(&tv, v, B, seq, heads, D, C::kBK);
+  CUtensorMap m[3];  // q, k, v
+  if (err == cudaSuccess)
+    err = tile_maps(m, {q, k, v}, {C::kRows, C::kBK, C::kBK}, B, seq, heads, D);
   if (err != cudaSuccess) return err;
   fa_fwd_sm90_kernel<D><<<dim3(B * heads, seq / C::kRows), kThreads, C::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, seq, heads, scale, causal);
+      m[0], m[1], m[2], static_cast<__nv_bfloat16*>(o), lse, seq, heads, scale, causal);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                    const float* lse, float* delta, void* dk, void* dv, int B, int seq, int heads,
-                    float scale, bool causal, cudaStream_t stream) {
-  using C = Dkv<D>;
+cudaError_t bwd_delta(const void* o, const void* dout, float* delta, int B, int seq, int heads,
+                      cudaStream_t stream) {
   const int rows = B * seq * heads;
   const int blocks = (rows * (D / 8) + 255) / 256;
   fa_bwd_delta_kernel<D><<<blocks, 256, 0, stream>>>(static_cast<const __nv_bfloat16*>(o),
                                                       static_cast<const __nv_bfloat16*>(dout),
                                                       delta, rows, seq, heads);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, int B, int seq, int heads,
+                   float scale, bool causal, cudaStream_t stream) {
+  using C = Dq<D>;
   static bool ready = false;
-  if (err == cudaSuccess) err = allow_smem(fa_bwd_dkv_sm90_kernel<D>, C::kSmem, &ready);
-  CUtensorMap tq, tk, tv, tdo;
-  if (err == cudaSuccess) err = tile_map(&tq, q, B, seq, heads, D, C::kBQ);
-  if (err == cudaSuccess) err = tile_map(&tk, k, B, seq, heads, D, C::kKeys);
-  if (err == cudaSuccess) err = tile_map(&tv, v, B, seq, heads, D, C::kKeys);
-  if (err == cudaSuccess) err = tile_map(&tdo, dout, B, seq, heads, D, C::kBQ);
+  cudaError_t err = allow_smem(fa_bwd_dq_sm90_kernel<D>, C::kSmem, &ready);
+  CUtensorMap m[4];  // q, k, v, dout
+  if (err == cudaSuccess)
+    err = tile_maps(m, {q, k, v, dout}, {C::kRows, C::kBK, C::kBK, C::kRows}, B, seq, heads, D);
+  if (err != cudaSuccess) return err;
+  fa_bwd_dq_sm90_kernel<D><<<dim3(B * heads, seq / C::kRows), kThreads, C::kSmem, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dq), seq, heads, scale,
+      causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dk, void* dv, int B, int seq,
+                    int heads, float scale, bool causal, cudaStream_t stream) {
+  using C = Dkv<D>;
+  static bool ready = false;
+  cudaError_t err = allow_smem(fa_bwd_dkv_sm90_kernel<D>, C::kSmem, &ready);
+  CUtensorMap m[4];  // q, k, v, dout
+  if (err == cudaSuccess)
+    err = tile_maps(m, {q, k, v, dout}, {C::kBQ, C::kKeys, C::kKeys, C::kBQ}, B, seq, heads, D);
   if (err != cudaSuccess) return err;
   fa_bwd_dkv_sm90_kernel<D><<<dim3(B * heads, seq / C::kKeys), kThreads, C::kSmem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), seq, heads, scale, causal);
   return cudaGetLastError();
 }
 
 // Sizes the kernels take: T a positive multiple of 128, B*H within the
-// grid's x limit and D in {64, 128, 256} (64 or 128 for dK/dV).
+// grid's x limit and D in {64, 128, 256} (64 or 128 for the backward).
 bool takes(int B, int seq, int heads) {
   return B >= 1 && heads >= 1 && static_cast<long long>(B) * heads <= 65535 && seq >= 128 &&
          seq % 128 == 0;
@@ -827,14 +1021,14 @@ bool takes(int B, int seq, int heads) {
 
 }  // namespace
 
-// True when flash_attention_sm90_bwd_dkv_launch takes head dim D.
-bool flash_attention_sm90_dkv_takes(int D) { return D == 64 || D == 128; }
+// True when the backward launches below (delta, dQ, dK/dV) take head dim D.
+bool flash_attention_sm90_bwd_takes(int D) { return D == 64 || D == 128; }
 
-// Called by flash_attention_op.cpp.  q, k, v, o, dout, dk, dv are
+// Called by flash_attention_op.cpp.  q, k, v, o, dout, dq, dk, dv are
 // contiguous, 16-byte aligned [B, T, H, D] bf16; lse and delta are
-// [B*H, T] f32 (delta is scratch the dK/dV launch fills first).  Each
-// returns cudaGetLastError() after its launches, or cudaErrorInvalidValue
-// for sizes the kernels do not take.
+// [B*H, T] f32 (the delta launch fills delta, which the dQ and dK/dV
+// launches read).  Each returns cudaGetLastError() after its launch, or
+// cudaErrorInvalidValue for sizes the kernels do not take.
 cudaError_t flash_attention_sm90_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                             float* lse, int B, int seq, int heads, int D,
                                             float scale, bool causal, cudaStream_t stream) {
@@ -847,18 +1041,43 @@ cudaError_t flash_attention_sm90_fwd_launch(const void* q, const void* k, const 
   }
 }
 
-cudaError_t flash_attention_sm90_bwd_dkv_launch(const void* q, const void* k, const void* v,
-                                                const void* o, const void* dout, const float* lse,
-                                                float* delta, void* dk, void* dv, int B, int seq,
-                                                int heads, int D, float scale, bool causal,
-                                                cudaStream_t stream) {
+cudaError_t flash_attention_sm90_bwd_delta_launch(const void* o, const void* dout, float* delta,
+                                                  int B, int seq, int heads, int D,
+                                                  cudaStream_t stream) {
+  if (!takes(B, seq, heads)) return cudaErrorInvalidValue;
+  switch (D) {
+    case 64: return bwd_delta<64>(o, dout, delta, B, seq, heads, stream);
+    case 128: return bwd_delta<128>(o, dout, delta, B, seq, heads, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t flash_attention_sm90_bwd_dq_launch(const void* q, const void* k, const void* v,
+                                               const void* dout, const float* lse,
+                                               const float* delta, void* dq, int B, int seq,
+                                               int heads, int D, float scale, bool causal,
+                                               cudaStream_t stream) {
   if (!takes(B, seq, heads)) return cudaErrorInvalidValue;
   switch (D) {
     case 64:
-      return bwd_dkv<64>(q, k, v, o, dout, lse, delta, dk, dv, B, seq, heads, scale, causal,
-                         stream);
+      return bwd_dq<64>(q, k, v, dout, lse, delta, dq, B, seq, heads, scale, causal, stream);
     case 128:
-      return bwd_dkv<128>(q, k, v, o, dout, lse, delta, dk, dv, B, seq, heads, scale, causal,
+      return bwd_dq<128>(q, k, v, dout, lse, delta, dq, B, seq, heads, scale, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t flash_attention_sm90_bwd_dkv_launch(const void* q, const void* k, const void* v,
+                                                const void* dout, const float* lse,
+                                                const float* delta, void* dk, void* dv, int B,
+                                                int seq, int heads, int D, float scale,
+                                                bool causal, cudaStream_t stream) {
+  if (!takes(B, seq, heads)) return cudaErrorInvalidValue;
+  switch (D) {
+    case 64:
+      return bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, seq, heads, scale, causal, stream);
+    case 128:
+      return bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, seq, heads, scale, causal,
                           stream);
     default: return cudaErrorInvalidValue;
   }

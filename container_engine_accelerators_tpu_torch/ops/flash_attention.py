@@ -11,10 +11,12 @@ flash_attention.py``.
   hand-written kernels, registered as
   ``torch.ops.cea_tpu_torch.flash_attention_{fwd,bwd_dq,bwd_dkv}`` by
   ``csrc/flash_attention_op.cpp`` and built with every other kernel of
-  the port at first use (``ops/build.py``): bf16 forwards and bf16 dK/dV
-  at D 64/128 run on the tensor cores (``csrc/flash_attention_sm90.cu``),
-  the rest on the CUDA cores (``csrc/flash_attention.cu``).  CPU tensors
-  go to the plain versions.  A CUDA call whose kernel cannot be built or
+  the port at first use (``ops/build.py``): bf16 forwards, and bf16 dQ
+  and dK/dV at D 64/128, run on the tensor cores
+  (``csrc/flash_attention_sm90.cu``; the dQ op runs the delta pre-pass
+  and hands delta to the dK/dV op, so it runs once per backward), the
+  rest on the CUDA cores (``csrc/flash_attention.cu``).  CPU tensors go
+  to the plain versions.  A CUDA call whose kernel cannot be built or
   launched raises: there is no fallback.
 - :func:`flash_attention_reference` and
   :func:`flash_attention_bwd_reference` are the plain versions, with the
@@ -118,9 +120,12 @@ def _backward(q, k, v, o, lse, do, causal, scale):
                                              scale)
     ops = load_ops()
     do = do.contiguous()
-    dq = ops.flash_attention_bwd_dq(q, k, v, o, do, lse, causal, scale)
+    # delta = rowsum(dO * O) from the dQ op (None where its kernel computes
+    # delta itself) goes on to the dK/dV op.
+    dq, delta = ops.flash_attention_bwd_dq(q, k, v, o, do, lse, causal, scale)
     LAUNCHES["flash_attention_bwd_dq"] += 1
-    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, o, do, lse, causal, scale)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, o, do, lse, causal, scale,
+                                         delta)
     LAUNCHES["flash_attention_bwd_dkv"] += 1
     return dq, dk, dv
 

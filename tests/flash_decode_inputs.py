@@ -68,3 +68,32 @@ def bwd_cast_inputs(b, t, h, d):
         (b, t, h, d), np.float32)
     lse = np.zeros((b * h, t), np.float32)
     return q, k, v, o, lse, do.astype(np.float32)
+
+
+def dq_cast_inputs(b, t, h, d):
+    """Flash-attention backward inputs (q, k, v, o, lse [B*H, T], do; f32
+    numpy, every value bf16-exact) on which the rule "dS is rounded to K's
+    dtype before dS.K" moves dQ's second column by 18%.  Non-causal, scale
+    d**-0.5 = 1/8 at d = 64.  Every query row has q = e0 and every key one
+    of two kinds by index parity: k[0] = 0 (score 0) on even keys and
+    -41/4096 / scale (score -41/4096) on odd ones, k[1] = +1 and -1, 0
+    elsewhere.  lse is 0 (the backward takes it as given), so P is 1 on
+    even keys and exp(-41/4096) = 0.99004 on odd ones.  V is 0, so dP = 0
+    and dS = -P delta scale, and O = -e0 with dO = 1 makes delta = -1: dS is
+    1/8 exactly on even keys and 0.123755 on odd ones, which bf16 rounds to
+    0.123535.  dQ[..., 1] = (T/2)(1/8 - dS_odd) is 0.0014648 T/2 with the
+    cast and 0.0012450 T/2 without; dQ[..., 2:] is 0.  Every product and
+    sum is exact in f32 in any order."""
+    scale = d ** -0.5
+    odd = np.arange(t) % 2 == 1
+    q = np.zeros((b, t, h, d), np.float32)
+    q[..., 0] = 1.0
+    k = np.zeros((b, t, h, d), np.float32)
+    k[:, odd, :, 0] = -41 / 4096 / scale
+    k[..., 1] = np.where(odd, -1.0, 1.0)[None, :, None]
+    v = np.zeros((b, t, h, d), np.float32)
+    o = np.zeros((b, t, h, d), np.float32)
+    o[..., 0] = -1.0
+    do = np.ones((b, t, h, d), np.float32)
+    lse = np.zeros((b * h, t), np.float32)
+    return q, k, v, o, lse, do

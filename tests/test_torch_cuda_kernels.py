@@ -19,7 +19,7 @@ in bf16; the designed cast inputs one bf16 step (2**-7 relative).
 
 import pytest
 import torch
-from flash_decode_inputs import bwd_cast_inputs, p_cast_inputs
+from flash_decode_inputs import bwd_cast_inputs, dq_cast_inputs, p_cast_inputs
 
 from container_engine_accelerators_tpu_torch.models import lm_train
 from container_engine_accelerators_tpu_torch.models.generate import (
@@ -188,9 +188,9 @@ FA_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (2e-2, 1e-1)}
 def test_flash_attention_kernels_match_plain_version(cuda, dtype, d, causal,
                                                       b, t, h):
     """Forward (o, lse) and backward (dq, dk, dv), each op once: in bf16
-    the forward and dK/dV run the tensor-core kernels
-    (flash_attention_sm90.cu, dK/dV at D 64 and 128), in f32 the CUDA-core
-    ones."""
+    the forward, dQ and dK/dV run the tensor-core kernels
+    (flash_attention_sm90.cu, dQ and dK/dV at D 64 and 128), in f32 the
+    CUDA-core ones."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     q, k, v, do = (torch.randn(b, t, h, d, device=cuda, generator=gen)
                    .to(dtype) for _ in range(4))
@@ -253,7 +253,58 @@ def test_flash_attention_casts_p_and_ds_like_the_plain_version(cuda):
     assert not dk[..., 1:].float().any()
 
 
-@pytest.mark.parametrize("op", ["fwd", "bwd_dkv"])
+def test_flash_attention_casts_ds_to_k_dtype_before_dq(cuda):
+    """tests/flash_decode_inputs.py's designed dQ inputs: the dQ kernel
+    agrees with the plain version to one bf16 step on dQ's second column
+    (its columns past the second are 0), and the same math with dS kept
+    in f32 does not."""
+    f32 = [torch.from_numpy(x).to(cuda)
+           for x in dq_cast_inputs(1, 2048, 8, 64)]
+    q, k, v, o, lse, do = (x if i == 4 else x.bfloat16()
+                           for i, x in enumerate(f32))
+    dq, _ = fa.load_ops().flash_attention_bwd_dq(q, k, v, o, do, lse, False,
+                                                 0.125)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)[0]
+    ctrl = fa.flash_attention_bwd_reference(*f32)[0]
+    torch.testing.assert_close(dq[..., 1].float(), want[..., 1].float(),
+                               rtol=2 ** -7, atol=0)
+    assert not torch.allclose(dq[..., 1].float(),
+                              ctrl[..., 1].bfloat16().float(), rtol=2 ** -7,
+                              atol=0)
+    assert not dq[..., 2:].float().any()
+
+
+def test_bf16_backward_runs_the_delta_pre_pass_once(cuda):
+    """The dQ op runs the delta pre-pass and returns delta = rowsum(dO * O)
+    in f32, and the dK/dV op takes it: one pre-pass launch per backward in
+    a profiler trace of ``_backward``.  On the CUDA-core route (f32) the
+    dQ op returns no delta."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(2, 256, 3, 64, device=cuda, generator=gen)
+                   .bfloat16() for _ in range(4))
+    o, lse = fa._forward(q, k, v, True, 0.125)
+    _, delta = fa.load_ops().flash_attention_bwd_dq(q, k, v, o, do, lse,
+                                                    True, 0.125)
+    want = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(6, 256)
+    torch.testing.assert_close(delta, want, atol=1e-5, rtol=1e-5)
+    _, none = fa.load_ops().flash_attention_bwd_dq(
+        *(x.float() for x in (q, k, v, o, do)), lse, True, 0.125)
+    assert none is None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa._backward(q, k, v, o, lse, do, True, 0.125)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("fa_bwd_delta" in n for n in names) == 1, names
+    assert sum("fa_bwd_dq_sm90" in n for n in names) == 1, names
+    assert sum("fa_bwd_dkv_sm90" in n for n in names) == 1, names
+
+
+@pytest.mark.parametrize("op", ["fwd", "bwd_dq", "bwd_dkv"])
 @pytest.mark.parametrize("bad", ["misaligned", "seq_len"])
 def test_flash_attention_tensor_core_path_raises_on_refused_input(cuda, op,
                                                                    bad):
@@ -273,6 +324,8 @@ def test_flash_attention_tensor_core_path_raises_on_refused_input(cuda, op,
     with pytest.raises((ValueError, RuntimeError)):
         if op == "fwd":
             ops.flash_attention_fwd(q, k, v, True, 0.125)
+        elif op == "bwd_dq":
+            ops.flash_attention_bwd_dq(q, k, v, o, do, lse, True, 0.125)
         else:
             ops.flash_attention_bwd_dkv(q, k, v, o, do, lse, True, 0.125)
     torch.cuda.synchronize()

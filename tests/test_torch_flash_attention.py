@@ -30,7 +30,7 @@ from container_engine_accelerators_tpu_torch.ops import flash_attention as fa
 from container_engine_accelerators_tpu_torch.parallel.seq import (
     dense_attention,
 )
-from flash_decode_inputs import bwd_cast_inputs, p_cast_inputs
+from flash_decode_inputs import bwd_cast_inputs, dq_cast_inputs, p_cast_inputs
 
 # The JAX ops package re-exports the function under the module's name.
 jfa = importlib.import_module("container_engine_accelerators_tpu.ops."
@@ -153,6 +153,29 @@ def test_p_and_ds_are_cast_like_the_jax_kernels():
             name
     assert np.all(want["dv"] == 1.5) and np.all(want["dk"] == -0.09375)
     assert not dk.float()[..., 1:].any()
+
+
+def test_ds_is_cast_to_k_dtype_before_dq_like_the_jax_kernel():
+    """tests/flash_decode_inputs.py's designed dQ inputs: rounding dS to
+    K's dtype before dS.K moves dQ's second column by 18% (0.0014648 T/2
+    with the cast, 0.0012450 T/2 without), every sum exact in f32.  The
+    port's backward agrees with the JAX dQ kernel to one bf16 step; the
+    same math with dS kept in f32 does not."""
+    q, k, v, o, lse, do = dq_cast_inputs(1, 256, 2, 64)
+    lanes = np.repeat(lse[..., None], jfa.LSE_LANES, axis=-1)
+    jdq, _, _ = jfa._fa_backward(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, o)),
+        jnp.asarray(lanes), jnp.asarray(do, jnp.bfloat16), False, 0.125, True,
+        jfa.BLOCK_Q, jfa.BLOCK_K)
+    want = _f32(jdq)
+    f32 = [torch.from_numpy(x) for x in (q, k, v, o, lse, do)]
+    bf16 = [x if i == 4 else x.bfloat16() for i, x in enumerate(f32)]
+    dq = fa._backward(*bf16, False, 0.125)[0].float().numpy()
+    ctrl = fa._backward(*f32, False, 0.125)[0].bfloat16().float().numpy()
+    np.testing.assert_allclose(dq[..., 1], want[..., 1], rtol=2 ** -7, atol=0)
+    assert not np.allclose(ctrl[..., 1], want[..., 1], rtol=2 ** -7, atol=0)
+    assert np.all(want[..., 1] == 128 * 3 / 2048)  # (T/2)(1/8 - 0.123535)
+    assert not dq[..., 2:].any() and not want[..., 2:].any()
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
