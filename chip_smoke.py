@@ -19,9 +19,13 @@ plain PyTorch version.  Phases, one JSON line each:
    every (cache, length) the server phase sends it (batch 1, 8 heads x
    64) with lengths 1 and full added, and at GQA groups 1-16, head dims
    40-256, batch 2-64, random lengths; a NaN tail past the length that
-   must never be read; and designed inputs on which rounding p to bf16
-   moves the output ~18%, where the kernel must match the plain version
-   to one bf16 step and the same math with p in f32 must not;
+   must never reach the output; and designed inputs on which rounding p
+   to bf16 moves the output ~18%, where the kernel must match the plain
+   version to one bf16 step and the same math with p in f32 must not;
+   then (``kernel_launch``) lengths 0 (NaN, as the plain version) and past
+   the cache, length 1 at the widest split (CTAs of a cluster with no
+   key), a CUDA graph of one call replayed twice to the eager call's
+   bits, and one call = one kernel in a ``torch.profiler`` trace;
 4. the full-width model with the kernel on and off: first decode step's
    logits (bf16 within 5e-2 of the largest logit, f32 within 1e-4) and,
    in f32, identical greedy tokens;
@@ -50,17 +54,21 @@ plain PyTorch version.  Phases, one JSON line each:
    within bf16 tolerance, and the steady-state step time and tokens/s;
 9. kernel times (CUDA graphs of launches over enough distinct inputs to
    miss the 50 MB L2, timed with CUDA events): flash decode at the
-   serving shape and at a 4096-token cache, beside the plain version,
-   the ``scaled_dot_product_attention`` yardstick and the HBM bound, and
-   the wall time per call of eager calls back to back (the host's
-   share); the three flash-attention kernels at the training shape
+   serving shape, at a 4096-token cache, at one KV head of 8 query heads
+   (batch 1, 4096 keys) and at a ragged GQA batch (B=8, KVH=2, lengths
+   from a seed over 1..4096), beside the plain version, the
+   ``scaled_dot_product_attention`` yardstick and the HBM bound, and the
+   wall time per call of eager calls
+   back to back (the host's share); the launch floor (a one-element add in
+   the same harness); the three flash-attention kernels at the training shape
    beside their plain versions, SDPA's forward and backward kernels and
    their FLOP bounds, with the achieved TFLOP/s and the share of the
    bound; and the port's whole bf16 backward (dQ op, then dK/dV op)
    beside SDPA's backward kernel, both in CUDA graphs;
 10. one greedy request through the server's ``run`` and one train step,
     each traced with ``torch.profiler``: device time against wall time
-    (the busy share), device time by kernel, and in the train step one
+    (the busy share), device time by kernel (and flash decode's per
+    call), and in the train step one
     delta pre-pass launch per layer (delta is computed once per
     backward);
 11. the ``{"kernels": [...]}`` summary line.
@@ -257,9 +265,12 @@ def check_kernel(fd, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     # (batch, cache length, KV heads, heads, head dim, lengths or None for
     # 1 / mid / full / random).  First the server's own calls (batch 1,
-    # its heads), then GQA groups 1-16, head dims 40-256 (40: the
-    # scalar-load path), and cache cuts of one chunk (batch 64) and of
-    # many chunks (batch 3).
+    # its heads), then GQA groups 1-16, head dims 40-256 (40: 80-byte rows
+    # through TMA in bf16), rows that are not whole 16-byte chunks (bf16
+    # D 20 and 255, f32 D 6 and 255: plain loads), few keys a CTA (batch
+    # 2 at a 32-slot cache), many row blocks (batch 64: 2 CTAs each), and
+    # batch 16 at G 8 and 12, where the plan keeps 8- (f32: 16-) row CTAs;
+    # at batch 3 and one or two KV heads it takes one row a CTA.
     serving = serving_shapes(args.max_new_tokens, args.max_prompt_len)
     cases = [(1, c, args.kv_heads or args.num_heads, args.num_heads,
               args.head_dim, [n]) for c, lens in serving for n in lens]
@@ -267,7 +278,9 @@ def check_kernel(fd, dev):
               for hd in (64, 128)]
     cases += [(3, 1056, 1, 16, 64, None), (3, 1056, 2, 8, 256, None),
               (3, 1056, 2, 6, 40, None), (2, 32, 8, 8, 64, None),
-              (64, 256, 8, 8, 64, None)]
+              (64, 256, 8, 8, 64, None), (3, 1056, 2, 8, 20, None),
+              (3, 300, 1, 6, 6, None), (3, 130, 1, 2, 255, None),
+              (16, 256, 2, 16, 64, None), (16, 256, 1, 12, 40, None)]
     worst, worst_to_max, control_to_max = {}, 0.0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for b, cache_len, kvh, h, hd, lens in cases:
@@ -299,8 +312,9 @@ def check_kernel(fd, dev):
                 control_to_max = max(control_to_max, (
                     (got.float() - control).abs().max()
                     / want.float().abs().max()).item())
-        # NaN tail right after a length that is not tile-aligned: the
-        # kernel must never read it.
+        # NaN tail right after a length that is not tile-aligned: TMA
+        # boxes bring some of it into shared memory, and none of it may
+        # reach the output.
         cache_len = 1056
         q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
                    for shape in ((1, 8, 64), (1, cache_len, 2, 64),
@@ -335,6 +349,85 @@ def check_kernel(fd, dev):
            p_cast_case={"kernel_output": got.max().item(),
                         "max_rel_diff": rel, "bound": 2 ** -7})
     return worst
+
+
+def check_kernel_launch(fd, dev):
+    """Phase 3b: what the one-launch design promises.  Length 0 gives NaN
+    (0/0, as the plain version) and a length past the cache counts as the
+    cache; at the server's shape with length 1 the widest split leaves 7
+    of 8 CTAs of every cluster without a key; a cache off a 16-byte
+    boundary (no TMA map) agrees with the plain version; a CUDA graph of
+    one call replays twice to the eager call's bits; and one call is one
+    kernel on the device."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    checked = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, cache_len, lens in ((4, 1056, [0, 1056 + 9, 1, 17]),
+                                   (1, 1056, [1]), (1, 4096, [4096])):
+            q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
+                       for shape in ((b, 8, 64), (b, cache_len, 8, 64),
+                                     (b, cache_len, 8, 64)))
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            want = fd.flash_decode_reference(q, k, v, lengths)
+            live = lengths > 0
+            got = fd.flash_decode(q, k, v, lengths)
+            torch.cuda.synchronize()
+            if not (torch.isnan(got[~live]).all()
+                    and torch.isnan(want[~live]).all()):
+                raise AssertionError(f"length 0 did not give NaN "
+                                     f"({_name(dtype)})")
+            _agrees(got[live], want[live], dtype)
+            checked.append({"dtype": _name(dtype), "B": b, "L": cache_len,
+                            "lengths": lens, "rows_splits": fd.plan(q, k, v)})
+    if checked[1]["rows_splits"] != (1, 8):  # one-row CTAs, widest cluster
+        raise AssertionError(f"serving shape at length 1: {checked[1]} "
+                             f"is not the widest split")
+    # A cache one element into its storage: off 16 bytes, no TMA map.
+    q = torch.randn((2, 8, 64), device=dev, generator=gen).bfloat16()
+    k, v = (torch.randn(2 * 1056 * 8 * 64 + 1, device=dev, generator=gen)
+            .bfloat16()[1:].view(2, 1056, 8, 64) for _ in range(2))
+    lengths = torch.tensor([731, 1056], dtype=torch.int32, device=dev)
+    got = fd.flash_decode(q, k, v, lengths)
+    torch.cuda.synchronize()
+    _agrees(got, fd.flash_decode_reference(q, k, v, lengths), torch.bfloat16)
+    # Graph replays at the server's shape.
+    q, k, v = (torch.randn(shape, device=dev, generator=gen).bfloat16()
+               for shape in ((1, 8, 64), (1, 1056, 8, 64), (1, 1056, 8, 64)))
+    lengths = torch.tensor([731], dtype=torch.int32, device=dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        eager = fd.flash_decode(q, k, v, lengths)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fd.flash_decode(q, k, v, lengths)
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(out.clone())
+    if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], eager)):
+        raise AssertionError("graph replays of flash_decode differ from each "
+                             "other or the eager call")
+    del graph
+    # One call, one kernel.
+    fd.flash_decode(q, k, v, lengths)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fd.flash_decode(q, k, v, lengths)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if len(names) != 1 or "flash_decode_kernel" not in names[0]:
+        raise AssertionError(f"one flash_decode call ran {names} on the "
+                             f"device, expected one flash_decode_kernel")
+    _phase("kernel_launch", edge_cases=checked, unaligned_cache="agrees",
+           graph_replay="2 replays identical to the eager call",
+           device_kernels_per_call=len(names), kernel=names[0][:90])
 
 
 def check_model(dev):
@@ -511,14 +604,16 @@ def profile_request(run):
 
     prompt = torch.randint(0, 32000, (1, 8), generator=torch.Generator().manual_seed(3))
     run(prompt, 5, 0.0, 0, False)
-    device_ms, wall_ms, by_name, _ = _traced(
+    device_ms, wall_ms, by_name, count = _traced(
         lambda: run(prompt, 5, 0.0, 0, False))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    fd_ms = sum(v for k, v in by_name.items() if "flash_decode" in k)
+    fd_calls = sum(v for k, v in count.items() if "flash_decode" in k)
     _phase("profile", request="greedy, 5-token prompt (bucket 8), 32 new",
            wall_ms=wall_ms, device_ms=device_ms,
            device_busy_share=device_ms / wall_ms,
-           flash_decode_ms=sum(v for k, v in by_name.items()
-                               if "flash_decode" in k),
+           flash_decode_ms=fd_ms, flash_decode_launches=fd_calls,
+           flash_decode_ms_per_call=fd_ms / max(fd_calls, 1),
            top=[[k[:70], v] for k, v in top])
 
 
@@ -552,26 +647,30 @@ def _graph_ms(fn, inputs, reps=7):
     return statistics.median(times)
 
 
-def time_kernel(fd, dev, cache_len, length, heads=8, kv_heads=8, head_dim=64):
-    """Phase 9 for flash decode at one shape (batch 1, bf16, the serving
-    dtype)."""
+def time_kernel(fd, dev, cache_len, lengths, heads=8, kv_heads=8,
+                head_dim=64):
+    """Phase 9 for flash decode at one shape (bf16, the serving dtype; one
+    sequence per entry of ``lengths``), beside the plain version, SDPA and
+    the bound."""
     import torch
     import torch.nn.functional as F
 
     dtype = torch.bfloat16
+    batch = len(lengths)
     gen = torch.Generator(device=dev).manual_seed(2)
-    per_input = 2 * cache_len * kv_heads * head_dim * 2
+    per_input = 2 * batch * cache_len * kv_heads * head_dim * 2
     n_inputs = max(4, math.ceil(2.5 * L2_BYTES / per_input))
-    lengths = torch.tensor([length], dtype=torch.int32, device=dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     inputs = [tuple(torch.randn(shape, device=dev, generator=gen).to(dtype)
-                    for shape in ((1, heads, head_dim),
-                                  (1, cache_len, kv_heads, head_dim),
-                                  (1, cache_len, kv_heads, head_dim)))
-              + (lengths,) for _ in range(n_inputs)]
+                    for shape in ((batch, heads, head_dim),
+                                  (batch, cache_len, kv_heads, head_dim),
+                                  (batch, cache_len, kv_heads, head_dim)))
+              + (lens,) for _ in range(n_inputs)]
     q, k, v, _ = inputs[0]
-    err, _ = _agrees(fd.flash_decode(q, k, v, lengths),
-                     fd.flash_decode_reference(q, k, v, lengths), dtype)
-    mask = (torch.arange(cache_len, device=dev) < length)[None, None, None, :]
+    want = fd.flash_decode_reference(q, k, v, lens)
+    err, _ = _agrees(fd.flash_decode(q, k, v, lens), want, dtype)
+    mask = (torch.arange(cache_len, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
 
     def sdpa(q, k, v, lengths):
         return F.scaled_dot_product_attention(
@@ -590,21 +689,39 @@ def time_kernel(fd, dev, cache_len, length, heads=8, kv_heads=8, head_dim=64):
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) * 1e3 / n_inputs
     # Least time for the same work: each input byte read once (only the
-    # `length` visible K/V rows are needed), the output written once.
-    nbytes = (2 * heads * head_dim * 2 + 4
-              + 2 * length * kv_heads * head_dim * 2)
-    flops = 4 * heads * head_dim * length
+    # visible K/V rows are needed), the output written once.
+    visible = sum(lengths)
+    nbytes = (2 * batch * heads * head_dim * 2 + 4 * batch
+              + 2 * visible * kv_heads * head_dim * 2)
+    flops = 4 * heads * head_dim * visible
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    row = {"shape": f"B=1 H={heads} KVH={kv_heads} D={head_dim} L={cache_len} "
-                    f"length={length} bf16",
-           "distinct_inputs": n_inputs, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms, "eager_ms": eager_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
+    spread = (f"length={lengths[0]}" if batch == 1 else
+              f"lengths {min(lengths)}..{max(lengths)} (sum {visible})")
+    row = {"shape": f"B={batch} H={heads} KVH={kv_heads} D={head_dim} "
+                    f"L={cache_len} {spread} bf16",
+           "rows_splits": fd.plan(q, k, v), "distinct_inputs": n_inputs,
+           "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "eager_ms": eager_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "share_of_bound": max(bytes_ms, ops_ms) / ms,
            "bytes": nbytes, "flops": flops}
     _phase("kernel_time", **row)
     return row
+
+
+def launch_floor(dev):
+    """Phase 9: the device time of the smallest kernel in the same graph
+    harness (an in-place add to one element): the part of a decode call's
+    time that no kernel design can remove."""
+    import torch
+
+    inputs = [(torch.zeros(1, device=dev),) for _ in range(64)]
+    ms = _graph_ms(lambda x: x.add_(1), inputs)
+    _phase("launch_floor", what="x.add_(1) on one f32 element, one CUDA "
+           "graph of 64 calls", ms=ms)
+    return ms
 
 
 def _fa_case(fa, q, k, v, do, causal):
@@ -1042,13 +1159,21 @@ def main():
                  "kernels, the host compiler for the TORCH_LIBRARY bindings")
 
     check_kernel(fd, dev)
+    check_kernel_launch(fd, dev)
     check_model(dev)
     fd_launches, run = serve(fd)
     check_fa_kernels(fa, dev)
     check_train_parity(dev)
     fa_launches = train(fa, dev, smi)
-    serving = time_kernel(fd, dev, cache_len=1056, length=731)
-    time_kernel(fd, dev, cache_len=4096, length=4096)
+    serving = time_kernel(fd, dev, cache_len=1056, lengths=[731])
+    time_kernel(fd, dev, cache_len=4096, lengths=[4096])
+    # One KV head at batch 1: 8-row CTAs would make one row block.
+    time_kernel(fd, dev, cache_len=4096, lengths=[4096], kv_heads=1)
+    # What the batched engine will send: ragged GQA, lengths from a seed.
+    ragged = torch.randint(1, 4097, (8,), generator=torch.Generator()
+                           .manual_seed(9)).tolist()
+    time_kernel(fd, dev, cache_len=4096, lengths=ragged, kv_heads=2)
+    launch_floor(dev)
     fa_rows = time_fa_kernels(fa, dev)
     # Last: once traced, the process timed its kernels slower.
     profile_request(run)

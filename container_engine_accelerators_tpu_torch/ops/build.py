@@ -1,7 +1,8 @@
 """Build of the port's hand-written CUDA kernels.
 
-Every kernel source under ``csrc/`` — flash decode and flash attention
-(two ``.cu``: the CUDA-core kernels and the tensor-core ones), each
+Every kernel source under ``csrc/`` — flash decode (two ``.cu``: bf16
+and f32 instantiations of one template) and flash attention (two
+``.cu``: the CUDA-core kernels and the tensor-core ones), each
 header-free beside a small ``*_op.cpp`` that registers the ops with
 ``TORCH_LIBRARY`` — goes into ONE library, compiled for
 ``sm_90a`` by one ``torch.utils.cpp_extension.load`` call (ninja runs
@@ -17,7 +18,7 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_decode.cu", "flash_decode_op.cpp",
+SOURCES = ("flash_decode.cu", "flash_decode_f32.cu", "flash_decode_op.cpp",
            "flash_attention.cu", "flash_attention_sm90.cu",
            "flash_attention_op.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"

@@ -1,15 +1,14 @@
 // PyTorch binding of the flash-decode kernel (flash_decode.cu): registers
 // torch.ops.cea_tpu_torch.flash_decode for CUDA tensors.  It checks what the
-// kernel takes, allocates the output and the f32 workspace of the chunks'
-// partials on the input's device, launches on PyTorch's current stream,
-// and raises if the launch failed.  The chunking (`chunk`, `splits`) comes
-// from split_plan in ops/flash_decode.py.
+// kernel takes, allocates the output on the input's device, launches on
+// PyTorch's current stream, and raises if the launch failed.  The kernel's
+// launcher makes the plan (make_plan in flash_decode_plan.h);
+// flash_decode_plan reports it for given shapes on the current device.
 //
 // Only the few headers below, not torch/extension.h, so the host compiler
 // builds this file while nvcc builds the kernel.
 
 #include <ATen/core/Tensor.h>
-#include <ATen/ops/empty.h>
 #include <ATen/ops/empty_like.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -17,12 +16,15 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <string>
+#include <vector>
 
 cudaError_t flash_decode_launch(bool bf16, const void* q, const void* k, const void* v,
-                                const int* lengths, void* out, float* workspace, int B, int H,
-                                int KVH, int L, int D, float scale, int chunk, int splits,
-                                cudaStream_t stream);
+                                const int* lengths, void* out, int B, int H, int KVH, int L, int D,
+                                float scale, cudaStream_t stream);
+int flash_decode_plan(bool bf16, int B, int H, int KVH, int L, int D, const void* k,
+                      const void* v, int* rows);
 
 namespace {
 
@@ -41,8 +43,7 @@ std::string shape(const at::Tensor& t) {
 }
 
 at::Tensor flash_decode_cuda(const at::Tensor& q, const at::Tensor& k_cache,
-                             const at::Tensor& v_cache, const at::Tensor& lengths, double scale,
-                             int64_t chunk, int64_t splits) {
+                             const at::Tensor& v_cache, const at::Tensor& lengths, double scale) {
   TORCH_CHECK_VALUE(q.dim() == 3 && k_cache.dim() == 4,
                     "flash_decode: q must be [B, H, D] and the caches [B, L, KVH, D]");
   const int64_t B = q.size(0), H = q.size(1), D = q.size(2);
@@ -72,23 +73,39 @@ at::Tensor flash_decode_cuda(const at::Tensor& q, const at::Tensor& k_cache,
 
   const c10::cuda::CUDAGuard guard(q.device());
   at::Tensor out = at::empty_like(q);
-  at::Tensor workspace = at::empty({B * H * splits * (D + 2)}, q.options().dtype(at::kFloat));
   const cudaError_t err = flash_decode_launch(
       q.scalar_type() == at::kBFloat16, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-      lengths.data_ptr<int>(), out.data_ptr(), workspace.data_ptr<float>(), (int)B, (int)H,
-      (int)KVH, (int)L, (int)D, (float)scale, (int)chunk, (int)splits,
-      c10::cuda::getCurrentCUDAStream(q.get_device()).stream());
+      lengths.data_ptr<int>(), out.data_ptr(), (int)B, (int)H, (int)KVH, (int)L, (int)D,
+      (float)scale, c10::cuda::getCurrentCUDAStream(q.get_device()).stream());
   TORCH_CHECK(err == cudaSuccess, "flash_decode kernel launch failed: ",
               cudaGetErrorString(err), " (cudaError ", to_string((int)err), ")");
   return out;
+}
+
+// (rows a CTA, CTAs a row block) that flash_decode would launch with on
+// these tensors; (0, 0) for sizes the kernel does not take.
+std::vector<int64_t> flash_decode_plan_cuda(const at::Tensor& q, const at::Tensor& k_cache,
+                                            const at::Tensor& v_cache) {
+  TORCH_CHECK_VALUE(q.dim() == 3 && k_cache.dim() == 4,
+                    "flash_decode_plan: q must be [B, H, D] and the caches [B, L, KVH, D]");
+  const c10::cuda::CUDAGuard guard(q.device());
+  int rows = 0;
+  const int splits = flash_decode_plan(
+      q.scalar_type() == at::kBFloat16, (int)q.size(0), (int)q.size(1), (int)k_cache.size(2),
+      (int)k_cache.size(1), (int)q.size(2), k_cache.data_ptr(), v_cache.data_ptr(), &rows);
+  return {rows, splits};
 }
 
 }  // namespace
 
 TORCH_LIBRARY(cea_tpu_torch, m) {
   m.def(
-      "flash_decode(Tensor q, Tensor k_cache, Tensor v_cache, Tensor lengths, float scale, "
-      "int chunk, int splits) -> Tensor");
+      "flash_decode(Tensor q, Tensor k_cache, Tensor v_cache, Tensor lengths, float scale) "
+      "-> Tensor");
+  m.def("flash_decode_plan(Tensor q, Tensor k_cache, Tensor v_cache) -> int[]");
 }
 
-TORCH_LIBRARY_IMPL(cea_tpu_torch, CUDA, m) { m.impl("flash_decode", &flash_decode_cuda); }
+TORCH_LIBRARY_IMPL(cea_tpu_torch, CUDA, m) {
+  m.impl("flash_decode", &flash_decode_cuda);
+  m.impl("flash_decode_plan", &flash_decode_plan_cuda);
+}

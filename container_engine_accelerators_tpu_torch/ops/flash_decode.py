@@ -12,7 +12,11 @@ layout ``[B, L, KVH, D]`` and GQA is handled in the kernel (query head
   and built for ``sm_90a`` with every other kernel of the port at first
   use (``ops/build.py``); a CPU tensor
   goes to :func:`flash_decode_reference`.  A CUDA call whose kernel cannot
-  be built or launched raises: there is no fallback.
+  be built or launched raises: there is no fallback.  One call is one
+  kernel launch: the CTAs that split a sequence's visible keys merge their
+  partials inside the kernel, through a thread-block cluster's distributed
+  shared memory.  The kernel's launcher sizes the CTAs and the cluster
+  from the shapes (:func:`plan` reports its choice).
 - :func:`flash_decode_reference` is the plain version, with the kernel's
   dtype rules: the scale multiplies the f32 scores, ``p`` is cast to V's
   dtype before P.V (f32 accumulation), masked slots are -1e30 and never
@@ -21,19 +25,12 @@ layout ``[B, L, KVH, D]`` and GQA is handled in the kernel (query head
   so a run can show that its decode steps went through the kernel.
 """
 
-import functools
-
 import torch
 
 from container_engine_accelerators_tpu_torch.ops.build import load_ops
 
 NEG_INF = -1e30
 BLOCK_K = 512
-
-_TILE = 32  # keys per tile in the CUDA kernel; a chunk is a whole number of tiles
-_ROWS_PER_CTA = 8  # query rows of one KV group per CTA
-# CTAs to aim for per SM: 48 registers x 256 threads let ~5 share one.
-_CTAS_PER_SM = 4
 
 LAUNCHES = {"flash_decode": 0}
 
@@ -42,8 +39,7 @@ def effective_block_k(cache_len: int, block_k: int = BLOCK_K) -> int:
     """Largest divisor of ``cache_len`` that is <= ``block_k``: the block
     the TPU kernel streams the cache in (any cache length works; a
     serving cache is bucket + max_new, not necessarily a multiple of
-    512).  The CUDA kernel walks 32-key tiles and stops at the length
-    itself, so it reads no more than this."""
+    512)."""
     for bk in range(min(block_k, cache_len), 0, -1):
         if cache_len % bk == 0:
             return bk
@@ -92,38 +88,25 @@ def flash_decode(q, k_cache, v_cache, lengths, *, scale=None):
 
 
 def _flash_decode_cuda(q, k_cache, v_cache, lengths, scale):
+    """The kernel, one launch."""
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError("flash_decode: q must be [B, H, D] and the caches "
                          "[B, L, KVH, D]")
     op = build()
-    b, h, d = q.shape
-    _, cache_len, kvh, _ = k_cache.shape
-    scale = d ** -0.5 if scale is None else scale
-    chunk, splits = split_plan(b, h, kvh, cache_len, _sm_count(q.device.index))
-    out = op(q, k_cache, v_cache, lengths, float(scale), chunk, splits)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    out = op(q, k_cache, v_cache, lengths, float(scale))
     LAUNCHES["flash_decode"] += 1
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def split_plan(b: int, h: int, kvh: int, cache_len: int, sms: int):
-    """How the CUDA kernel cuts the cache: (chunk, splits), chunk a whole
-    number of 32-key tiles and splits = ceil(cache_len / chunk), so that
-    the CTAs — one per (sequence, KV head, 8 query rows, chunk) — number
-    about ``_CTAS_PER_SM`` per multiprocessor.  Only the cache length is known
-    on the host (lengths stay on the device); chunks that start past a
-    sequence's length exit without reading."""
-    # max(1, ...): sizes the op refuses still get a plan, so that the op
-    # (not a ZeroDivisionError here) reports them.
-    ctas = max(1, b * kvh * -(-(h // max(kvh, 1)) // _ROWS_PER_CTA))
-    tiles = max(1, -(-cache_len // _TILE))
-    want = max(1, min(-(-_CTAS_PER_SM * sms // ctas), tiles))
-    chunk = -(-tiles // want) * _TILE
-    return chunk, -(-cache_len // chunk)
+def plan(q, k_cache, v_cache):
+    """(query rows a CTA, CTAs that share each row block's visible keys
+    and form one cluster) that the kernel's launcher would use for these
+    CUDA tensors on the current device (``make_plan`` in
+    ``csrc/flash_decode_plan.h``); (0, 0) for shapes the kernel does not
+    take."""
+    rows, splits = load_ops().flash_decode_plan(q, k_cache, v_cache)
+    return rows, splits
 
 
 def build():

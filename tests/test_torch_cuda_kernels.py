@@ -48,10 +48,14 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,cache_len,kvh,h,d", [
-    (1, 1056, 8, 8, 64),   # the server's decode shape: 33 one-tile chunks
-    (3, 1056, 2, 8, 64),   # many chunks
-    (64, 256, 8, 8, 64),   # one chunk per CTA
-    (2, 96, 1, 12, 40),    # G > 8 query rows, scalar loads (40 % 8 != 0)
+    (1, 1056, 8, 8, 64),   # the server's decode shape: 8-CTA clusters
+    (3, 1056, 2, 8, 64),   # 16 CTAs a row block
+    (64, 256, 8, 8, 64),   # two CTAs a row block (512 row blocks)
+    (2, 96, 1, 12, 40),    # 80-byte rows; few row blocks: one row a CTA
+    (2, 96, 2, 8, 20),     # bf16: 40-byte rows, no TMA box (plain loads)
+    (3, 300, 1, 6, 6),     # 12- / 24-byte rows: plain loads, padded chunks
+    (1, 130, 1, 2, 255),   # the widest rows that are not whole 16-byte chunks
+    (16, 256, 2, 16, 64),  # many row blocks: 8-row CTAs (f32: 16)
 ])
 def test_flash_decode_kernel_matches_plain_version(cuda, dtype, b, cache_len,
                                                     kvh, h, d):
@@ -71,7 +75,84 @@ def test_flash_decode_kernel_matches_plain_version(cuda, dtype, b, cache_len,
                                rtol=TOL[dtype])
 
 
-def test_flash_decode_kernel_never_reads_past_the_length(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_decode_lengths_zero_past_the_cache_and_empty_ctas(cuda, dtype):
+    """Length 0 gives 0/0 = NaN, as the plain version; a length past the
+    cache counts as the cache; at length 1 and 17 with the widest split
+    most CTAs of a cluster get no key and still reach its barriers."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+               for s in ((4, 8, 64), (4, 1056, 8, 64), (4, 1056, 8, 64)))
+    assert fd.plan(q, k, v) == (1, 8)  # one-row CTAs: the widest cluster
+    lengths = torch.tensor([0, 1056 + 9, 1, 17], dtype=torch.int32,
+                           device=cuda)
+    got = fd.flash_decode(q, k, v, lengths)
+    torch.cuda.synchronize()
+    want = fd.flash_decode_reference(q, k, v, lengths)
+    assert torch.isnan(got[0]).all() and torch.isnan(want[0]).all()
+    torch.testing.assert_close(got[1:].float(), want[1:].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(
+        got[1].float(), fd.flash_decode_reference(
+            q[1:2], k[1:2], v[1:2], lengths.new_tensor([1056]))[0].float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_decode_graph_replays_give_identical_output(cuda, dtype):
+    """A CUDA graph of one call, replayed twice on the same inputs, gives
+    the same bits as the eager call: the cluster merge keeps no state."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+               for s in ((2, 8, 64), (2, 1056, 2, 64), (2, 1056, 2, 64)))
+    lengths = torch.tensor([731, 1056], dtype=torch.int32, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        eager = fd.flash_decode(q, k, v, lengths)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fd.flash_decode(q, k, v, lengths)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    assert torch.equal(replays[0], replays[1])
+    assert torch.equal(replays[0], eager)
+    torch.testing.assert_close(
+        eager.float(), fd.flash_decode_reference(q, k, v, lengths).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_flash_decode_call_is_one_kernel_launch(cuda):
+    """One call of the op is one kernel on the device: the merge runs
+    inside it, and no memset or second kernel goes with it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen).bfloat16()
+               for s in ((1, 8, 64), (1, 1056, 8, 64), (1, 1056, 8, 64)))
+    lengths = torch.tensor([731], dtype=torch.int32, device=cuda)
+    fd.flash_decode(q, k, v, lengths)
+    torch.cuda.synchronize()
+    before = fd.LAUNCHES["flash_decode"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fd.flash_decode(q, k, v, lengths)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "flash_decode_kernel" in names[0], names
+    assert fd.LAUNCHES["flash_decode"] == before + 1
+
+
+def test_flash_decode_kernel_never_computes_with_slots_past_the_length(cuda):
+    """A NaN tail right after a length that is not tile-aligned: the TMA
+    boxes bring some of it into shared memory, and none of it may reach
+    the output."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     q, k, v = (torch.randn(s, device=cuda, generator=gen)
                for s in ((1, 8, 64), (1, 1056, 2, 64), (1, 1056, 2, 64)))
@@ -160,15 +241,33 @@ def test_decode_with_kernel_matches_einsum_path(cuda):
     assert torch.equal(toks[True], toks[False])
 
 
-def test_flash_decode_op_raises_on_a_refused_launch(cuda):
-    """A plan the kernel does not take (chunk not a whole number of
-    32-key tiles) comes back from cudaGetLastError as an exception."""
+@pytest.mark.parametrize("refused", ["batch", "kv_heads"])
+def test_flash_decode_op_raises_on_a_refused_launch(cuda, refused):
+    """A grid the card does not take (a batch or a count of KV heads past
+    65535 CTAs on its axis) comes back from the launch as an exception."""
     op = fd.build()
+    b, kvh = (65536, 1) if refused == "batch" else (1, 65536)
     q, k, v = (torch.zeros(s, device=cuda)
-               for s in ((1, 4, 16), (1, 64, 2, 16), (1, 64, 2, 16)))
-    lengths = torch.full((1,), 3, dtype=torch.int32, device=cuda)
+               for s in ((b, kvh, 4), (b, 2, kvh, 4), (b, 2, kvh, 4)))
+    lengths = torch.full((b,), 2, dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
-        op(q, k, v, lengths, 0.25, 16, 4)
+        op(q, k, v, lengths, 0.5)
+
+
+def test_flash_decode_unaligned_cache_takes_plain_loads(cuda):
+    """Caches that start off a 16-byte boundary (a view one element into
+    its storage) have no TMA map; the kernel copies their tiles with plain
+    loads and agrees with the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(2, 8, 64, device=cuda, generator=gen).bfloat16()
+    k, v = (torch.randn(2 * 200 * 2 * 64 + 1, device=cuda, generator=gen)
+            .bfloat16()[1:].view(2, 200, 2, 64) for _ in range(2))
+    assert k.data_ptr() % 16 and k.is_contiguous()
+    lengths = torch.tensor([57, 200], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(
+        fd.flash_decode(q, k, v, lengths).float(),
+        fd.flash_decode_reference(q, k, v, lengths).float(),
+        atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
 
 
 

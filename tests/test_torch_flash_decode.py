@@ -67,8 +67,8 @@ def test_matches_jax_kernel_across_groups_and_blocks(kvh, h, block_k, dtype):
 def test_nan_tail_is_never_read(dtype):
     """NaN K/V past the visible length must not reach the output.  The
     JAX kernel skips whole blocks only, so its NaN tail starts on a block
-    boundary; the port never touches any slot >= length, so a NaN tail
-    starting mid-block is inert too."""
+    boundary; the port never computes with a slot >= length, so a NaN
+    tail starting mid-block is inert too."""
     q, k, v = _mk(1, 128, 4, 2, 16, seed=2)
     tail = np.arange(128)[None, :, None, None] >= 64
     k_nan, v_nan = np.where(tail, np.nan, k), np.where(tail, np.nan, v)
@@ -99,17 +99,84 @@ def test_effective_block_k_matches_jax(cache_len, block_k, want):
     assert jfd.effective_block_k(cache_len, block_k) == want
 
 
+_PLAN_SHIM = """
+#include "flash_decode_plan.h"
+extern "C" {
+int plan_splits(int b, int h, int kvh, int d, int elem, int l, int sms) {
+  return make_plan(b, h, kvh, d, elem, l, sms, (d * elem) % 16 == 0).splits;
+}
+int plan_rows(int b, int h, int kvh, int d, int elem, int l, int sms) {
+  return make_plan(b, h, kvh, d, elem, l, sms, (d * elem) % 16 == 0).rows;
+}
+int group_rows(int g, int d, int elem) { return rows_per_cta(g, row_bytes(d, elem), elem); }
+int plan_keys(int d, int elem) { return kPasses * 32 / lanes_per_key(row_bytes(d, elem)); }
+int plan_cap(int rows) { return rows == 1 ? 8 : kMaxSplits; }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def plan(tmp_path_factory):
+    """The kernel's own plan (csrc/flash_decode_plan.h, plain C++), built
+    with the host compiler: the one definition the launcher uses."""
+    import ctypes
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    cxx = shutil.which("c++") or shutil.which("g++")
+    assert cxx, "no host C++ compiler"
+    out = tmp_path_factory.mktemp("plan")
+    (out / "shim.cpp").write_text(_PLAN_SHIM)
+    csrc = Path(fd.__file__).resolve().parent / "csrc"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(csrc),
+                    str(out / "shim.cpp"), "-o", str(out / "plan.so")],
+                   check=True)
+    return ctypes.CDLL(str(out / "plan.so"))
+
+
 @pytest.mark.parametrize("b,h,kvh,cache_len", [
     (1, 8, 8, 1056), (1, 8, 8, 4096), (1, 8, 8, 40), (3, 16, 1, 1056),
     (64, 8, 8, 1056), (66, 8, 8, 1056), (1, 8, 8, 1), (2, 8, 2, 97)])
-def test_split_plan_covers_the_cache_in_whole_tiles(b, h, kvh, cache_len):
-    chunk, splits = fd.split_plan(b, h, kvh, cache_len, sms=132)
-    assert chunk % 32 == 0 and chunk >= 32
-    assert (splits - 1) * chunk < cache_len <= splits * chunk
-    ctas = b * kvh * -(-(h // kvh) // 8) * splits
-    assert splits == 1 or ctas <= 4 * 132 + b * kvh * 8  # ~4 CTAs per SM
-    if b * kvh >= 4 * 132:
-        assert splits == 1  # enough CTAs already: one chunk each
+def test_split_plan_covers_the_cache_in_whole_tiles(plan, b, h, kvh,
+                                                     cache_len):
+    """The CTAs that share a row block's keys: about 4 a multiprocessor
+    where the row blocks alone are fewer, one cluster's worth at most (8
+    for one-row CTAs, else 16), never more than the cache has whole
+    tiles, and one CTA a row block once the row blocks fill the card 4
+    times over.  The rows a CTA: the group's (1, 4, or as many as a
+    lane's accumulator holds), or one where those row blocks would leave
+    SMs idle at the widest cluster, or where rows are not whole 16-byte
+    chunks (no TMA: the plain-load copy is built for one row).  Head dims
+    with and without whole 16-byte rows."""
+    for d, itemsize in ((64, 2), (40, 2), (256, 2), (64, 4), (256, 4),
+                        (20, 2), (6, 4), (255, 4)):
+        splits = plan.plan_splits(b, h, kvh, d, itemsize, cache_len, 132)
+        step = plan.plan_keys(d, itemsize)
+        assert step in (2, 4, 8, 16)
+        g = h // kvh
+        rows = plan.plan_rows(b, h, kvh, d, itemsize, cache_len, 132)
+        full = plan.group_rows(g, d, itemsize)
+        assert full in (1, 4, 8, 16) and (full == 1) == (g == 1)
+        tma = d * itemsize % 16 == 0  # else the one-row plain-load copy
+        assert rows == (full if tma else 1) or rows == 1
+        if rows != full and tma:  # the group's row blocks leave SMs idle
+            assert b * kvh * -(-g // full) * plan.plan_cap(full) < 132
+        assert 1 <= splits <= plan.plan_cap(rows) <= 16
+        assert splits <= -(-cache_len // step)  # every CTA can get a tile
+        groups = b * kvh * -(-g // rows)
+        assert splits == 1 or groups * (splits - 1) < 4 * 132  # ~4 a SM
+        if groups * 2 <= 4 * 132 and cache_len >= 2 * 16 * step:
+            assert splits >= 2  # the row blocks alone would leave SMs idle
+        if groups >= 4 * 132:
+            assert splits == 1  # enough CTAs already: one each
+    assert plan.plan_splits(1, 8, 8, 64, 2, 1056, 132) == 8  # serving
+    assert plan.plan_splits(8, 8, 2, 64, 2, 4096, 132) == 16  # ragged GQA
+    assert plan.plan_rows(8, 8, 2, 64, 2, 4096, 132) == 4
+    assert plan.plan_rows(8, 8, 2, 20, 2, 4096, 132) == 1  # 40-byte rows
+    # One KV head at batch 1: one row a CTA, 8 row blocks of 8 CTAs.
+    assert plan.plan_rows(1, 8, 1, 64, 2, 4096, 132) == 1
+    assert plan.plan_splits(1, 8, 1, 64, 2, 4096, 132) == 8
 
 
 def test_reference_guards():
