@@ -55,8 +55,10 @@ plain PyTorch version.  Phases, one JSON line each:
 9. kernel times (CUDA graphs of launches over enough distinct inputs to
    miss the 50 MB L2, timed with CUDA events): flash decode at the
    serving shape, at a 4096-token cache, at one KV head of 8 query heads
-   (batch 1, 4096 keys) and at a ragged GQA batch (B=8, KVH=2, lengths
-   from a seed over 1..4096), beside the plain version, the
+   (batch 1, 4096 keys), at a ragged GQA batch (B=8, KVH=2, lengths
+   from a seed over 1..4096) and at the ``--slots`` fleet's shape (B=8,
+   the server's heads, a 1056-slot lane, phase 11's prompt lengths + 16),
+   beside the plain version, the
    ``scaled_dot_product_attention`` yardstick and the HBM bound, and the
    wall time per call of eager calls
    back to back (the host's share); the launch floor (a one-element add in
@@ -71,9 +73,35 @@ plain PyTorch version.  Phases, one JSON line each:
     call), and in the train step one
     delta pre-pass launch per layer (delta is computed once per
     backward);
-11. the ``{"kernels": [...]}`` summary line.
+11. ``serve_slots``: the server with ``--slots 8`` (the continuous-
+    batching engine), launch counts reset: 8 concurrent greedy requests
+    with prompt lengths from a seed over 5..700 and a seeded sampled
+    request sent twice, launch counts read — every fleet step must have
+    launched flash decode once per layer (a ragged batch: one length per
+    lane); the sampled request must give the same tokens both times; the
+    same requests one by one through the per-request path beside them
+    (latency, the batch's wall time, aggregate decode tokens/s, and at
+    bf16 the share of tokens that agree); an f32 engine at full width
+    whose greedy and sampled tokens must equal per-request ``generate``'s;
+    and fleet steps of eight live lanes, ten timed on the host clock and
+    one traced (busy share, device time by kernel);
+12. ``train_resume``: the trainer at its defaults with
+    ``--checkpoint-dir``, 4 steps at an interval of 2, then a restart to
+    step 6, its losses beside phase 8's unbroken 6 steps (exact, or
+    within phase 8's bf16 tolerance, and which), the step times with and
+    without a save; then the server with ``--checkpoint-dir`` there, whose
+    weights must be the saved ones and whose greedy tokens must equal
+    ``generate``'s on them;
+13. ``profile_dir``: the trainer with ``--train-steps 21 --profile-dir``,
+    then ``cmd/trace_summary.py`` on its trace — 11 traced steps, the
+    forward kernel launched 2 x layers and each backward kernel layers
+    times a step, the device time a step within 10% of phase 10's traced
+    step, and the busy share;
+14. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
+    ``serve`` and ``serve_slots`` phases').
 
-The last line is ``{"ok": true, "device": {...}}``.  Any failure raises
+Each phase's seconds follow it on a ``timing`` line.  The last line is
+``{"ok": true, "device": {...}}``.  Any failure raises
 and the exit code is non-zero; without CUDA the script exits 2 before
 printing any result.  Run from the repository root:
 
@@ -82,9 +110,11 @@ printing any result.  Run from the repository root:
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -122,6 +152,12 @@ FA_KERNELS = {
 FA_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 1e-1)}
 TRAIN_STEPS = 6
 TRAIN_SHAPE = (8, 2048, 8, 64)  # the trainer's defaults: B, T, H, D
+SLOTS = 8
+SLOTS_SEED = 6  # prompt lengths and tokens of the serve_slots phase
+# The profile_dir phase: the trainer's traced window is steps 10-20.
+PROFILE_STEPS = 21
+TRACED_STEPS = 11
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def _phase(phase, **kw):
@@ -965,7 +1001,7 @@ def train(fa, dev, card):
            steady_step_ms=step_ms, steady_steps=len(steady),
            step_ms_each=[round(x * 1e3, 3) for x in steady],
            tokens_per_s=tokens / (step_ms / 1e3))
-    return launches
+    return launches, losses
 
 
 def time_fa_kernels(fa, dev):
@@ -1120,6 +1156,399 @@ def profile_train_step(dev):
                for name in names},
            flash_attention_launches=launches,
            top=[[k[:70], v] for k, v in top])
+    return device_ms
+
+
+def _http_server(handler):
+    from http.server import ThreadingHTTPServer
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    return srv, thread
+
+
+def _shutdown(srv, thread):
+    srv.shutdown()
+    srv.server_close()
+    thread.join(timeout=30)
+
+
+def _check_rows(name, prompts, rows, n_new, vocab):
+    for p, t in zip(prompts, rows):
+        if len(t) != len(p) + n_new or t[:len(p)] != p:
+            raise AssertionError(f"{name}: bad token row length or echo")
+        if not all(0 <= x < vocab for x in t):
+            raise AssertionError(f"{name}: token outside the vocab")
+
+
+def _agreement(rows, want, prompts):
+    """Share of generated tokens equal position by position, and rows
+    identical."""
+    same = total = 0
+    for p, a, b in zip(prompts, rows, want):
+        same += sum(x == y for x, y in zip(a[len(p):], b[len(p):]))
+        total += len(b) - len(p)
+    return {"tokens": same / total,
+            "rows_identical": sum(a == b for a, b in zip(rows, want)),
+            "rows": len(want)}
+
+
+def _solo_tokens(model, prompt_ids, n_new, max_prompt_len, temperature=0.0,
+                 seed=None):
+    """Per-request generate() as the server runs it: the prompt padded to
+    its bucket, the sampled path on a generator seeded with ``seed``."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models.batching import (
+        bucket_len,
+    )
+    from container_engine_accelerators_tpu_torch.models.generate import (
+        generate,
+    )
+
+    dev = model.embed.device
+    plen = len(prompt_ids)
+    bucket = bucket_len(plen, max_prompt_len)
+    prompt = torch.tensor([prompt_ids + [0] * (bucket - plen)], device=dev)
+    gen = (torch.Generator(device=dev).manual_seed(seed) if temperature
+           else None)
+    with torch.inference_mode():
+        out = generate(model, prompt, n_new, temperature=temperature,
+                       generator=gen, prompt_len=plen)
+    return out[0, :plen + n_new].tolist()
+
+
+def slot_prompt_lens():
+    """The serve_slots phase's prompt lengths, from a seed over 5..700."""
+    import numpy as np
+
+    return np.random.default_rng(SLOTS_SEED).integers(5, 701, SLOTS).tolist()
+
+
+def serve_slots(fd, dev, card):
+    """Phase 11: the server with --slots (the continuous-batching engine)
+    as main() wires it, beside the per-request path."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import serve_lm
+    from container_engine_accelerators_tpu_torch.models.batching import (
+        DecodeEngine,
+    )
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+
+    args = serve_lm.parse_args(SERVE_FLAGS + ["--slots", str(SLOTS),
+                                              "--port", "0"])
+    serve_lm.validate_args(args)
+    run = serve_lm.build_generate(args)
+    engine_loop = serve_lm.start_engine(run, args)
+    engine = engine_loop.engine
+    lens = slot_prompt_lens()
+    rng = np.random.default_rng(SLOTS_SEED + 1)
+    prompts = [rng.integers(0, args.vocab_size, n).tolist() for n in lens]
+    sampled = {"prompt_ids": [rng.integers(0, args.vocab_size, 12).tolist()],
+               "temperature": 0.8, "seed": 4321}
+    n_new = args.max_new_tokens
+    solo_srv = _http_server(serve_lm.make_handler(run, args))
+    slots_srv = _http_server(serve_lm.make_handler(run, args, engine_loop))
+    try:
+        # The per-request path: the same requests, one after another.
+        solo, solo_lat = [], []
+        t0 = time.perf_counter()
+        for p in prompts:
+            _, resp, _ = _post(solo_srv[0].server_address[1],
+                               {"prompt_ids": [p], "temperature": 0})
+            solo.append(resp["tokens"][0])
+            solo_lat.append(resp["latency_ms"])
+        solo_wall_ms = (time.perf_counter() - t0) * 1e3
+        solo_sampled = _post(solo_srv[0].server_address[1],
+                             sampled)[1]["tokens"]
+        # The slots path: all eight at once, launch counts around it.
+        for name in fd.LAUNCHES:
+            fd.LAUNCHES[name] = 0
+        steps0 = engine.steps
+        got, client_ms = [None] * SLOTS, [None] * SLOTS
+
+        def ask(i):
+            _, got[i], client_ms[i] = _post(slots_srv[0].server_address[1],
+                                            {"prompt_ids": [prompts[i]],
+                                             "temperature": 0})
+
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(SLOTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        slots_wall_ms = (time.perf_counter() - t0) * 1e3
+        if any(g is None or "tokens" not in g for g in got):
+            raise AssertionError(f"slots: a request failed: {got}")
+        twice = [_post(slots_srv[0].server_address[1], sampled)[1]["tokens"]
+                 for _ in range(2)]
+        launches = fd.LAUNCHES["flash_decode"]
+        fleet_steps = engine.steps - steps0
+    finally:
+        _shutdown(*solo_srv)
+        _shutdown(*slots_srv)
+        engine_loop.close()
+    rows = [g["tokens"][0] for g in got]
+    _check_rows("slots", prompts, rows, n_new, args.vocab_size)
+    _check_rows("per-request", prompts, solo, n_new, args.vocab_size)
+    _check_rows("sampled", sampled["prompt_ids"], twice[0], n_new,
+                args.vocab_size)
+    if twice[0] != twice[1]:
+        raise AssertionError("slots: the sampled request gave other tokens "
+                             "the second time")
+    if launches != args.num_layers * fleet_steps:
+        raise AssertionError(f"flash_decode launched {launches} times over "
+                             f"{fleet_steps} fleet steps of "
+                             f"{args.num_layers} layers")
+
+    # f32 at full width: the engine's tokens are per-request generate()'s.
+    model = TransformerLM(vocab_size=args.vocab_size,
+                          num_layers=args.num_layers,
+                          num_heads=args.num_heads, head_dim=args.head_dim,
+                          mlp_dim=args.mlp_dim, dtype=torch.float32,
+                          decode=True, use_flash_decode=True, device=dev)
+    model.load_state_dict(run.params)
+    eng32 = DecodeEngine(model, SLOTS, engine.max_len)
+    rids = [eng32.submit(p, n_new) for p in prompts]
+    eng32.run_until_drained()
+    s_ids = sampled["prompt_ids"][0]
+    rid = eng32.submit(s_ids, n_new, temperature=0.8, seed=4321)
+    eng32.run_until_drained()
+    for p, r in zip(prompts, rids):
+        if p + eng32.result(r) != _solo_tokens(model, p, n_new,
+                                               args.max_prompt_len):
+            raise AssertionError("f32 engine greedy tokens differ from "
+                                 "per-request generate")
+    if s_ids + eng32.result(rid) != _solo_tokens(
+            model, s_ids, n_new, args.max_prompt_len, 0.8, 4321):
+        raise AssertionError("f32 engine sampled tokens differ from "
+                             "per-request generate with the same seed")
+    del model, eng32
+
+    # Fleet steps of eight live lanes: ten timed on the host clock, then
+    # one traced.
+    for p in prompts:
+        engine.submit(p, n_new)
+    engine.step()
+    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        engine.step()  # reads its tokens: ends synchronized
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    device_ms, wall_ms, by_name, count = _traced(engine.step)
+    engine.run_until_drained()
+    fd_calls = sum(v for k, v in count.items() if "flash_decode" in k)
+    if fd_calls != args.num_layers:
+        raise AssertionError(f"a traced fleet step ran {fd_calls} flash "
+                             f"decode kernels, expected {args.num_layers}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    tokens = SLOTS * n_new
+    _phase("serve_slots", card=card,
+           flags=f"{' '.join(SERVE_FLAGS)} --slots {SLOTS}",
+           prompt_lens=lens, max_len=engine.max_len,
+           launches={"flash_decode": launches}, fleet_steps=fleet_steps,
+           expected_launches=f"{args.num_layers} layers x {fleet_steps} "
+                             f"fleet steps (8 greedy + 2 sampled requests)",
+           per_request_path={"latency_ms": solo_lat, "wall_ms": solo_wall_ms,
+                             "decode_tokens_per_s":
+                             tokens / (solo_wall_ms / 1e3)},
+           slots_path={"latency_ms": [g["latency_ms"] for g in got],
+                       "client_ms": client_ms,
+                       "batch_wall_ms": slots_wall_ms,
+                       "decode_tokens_per_s": tokens / (slots_wall_ms / 1e3)},
+           throughput_ratio=solo_wall_ms / slots_wall_ms,
+           bf16_greedy_agreement=_agreement(rows, solo, prompts),
+           sampled={"same_tokens_twice": True,
+                    "bf16_agreement_with_per_request":
+                    _agreement(twice[0], solo_sampled,
+                               sampled["prompt_ids"])},
+           f32_engine={"greedy_rows_identical_to_generate": SLOTS,
+                       "sampled_identical_to_generate": True},
+           fleet_step_ms={"median": statistics.median(step_ms),
+                          "each": step_ms},
+           fleet_step_profile={
+               "wall_ms": wall_ms, "device_ms": device_ms,
+               "device_busy_share": device_ms / wall_ms,
+               "flash_decode_ms": sum(v for k, v in by_name.items()
+                                      if "flash_decode" in k),
+               "flash_decode_launches": fd_calls,
+               "top": [[k[:70], v] for k, v in top]})
+    return launches
+
+
+def train_resume(dev, unbroken, card):
+    """Phase 12: the trainer checkpoints, is restarted and resumes; the
+    server then serves the saved weights."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import serve_lm, train_lm
+    from container_engine_accelerators_tpu_torch.models.checkpoint import (
+        STATE_FILE,
+        TrainCheckpointer,
+    )
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+
+    step_ms = []
+
+    def timer(run_name, interval):
+        last = []
+
+        def on_step(step, loss):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if last:
+                # This interval holds step `step` and, when the step before
+                # it ended an interval, that step's save.
+                step_ms.append({"run": run_name, "step": step,
+                                "ms": (now - last[0]) * 1e3,
+                                "after_save": step % interval == 0})
+            last[:] = [now]
+        return on_step
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        ck = os.path.join(tmp, "ckpt")
+        argv = ["--checkpoint-dir", ck, "--checkpoint-interval", "2",
+                "--steps-per-eval", "1"]
+        t0 = time.perf_counter()
+        first = train_lm.main(argv + ["--train-steps", "4"],
+                              on_step=timer("first", 2))
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = train_lm.main(argv + ["--train-steps", str(TRAIN_STEPS)],
+                                on_step=timer("resumed", 2))
+        resumed_s = time.perf_counter() - t0
+        saved_steps = TrainCheckpointer(ck).all_steps()
+        ckpt_bytes = os.path.getsize(os.path.join(ck, str(TRAIN_STEPS),
+                                                  STATE_FILE))
+        losses = first + resumed
+        if len(first) != 4 or len(resumed) != TRAIN_STEPS - 4:
+            raise AssertionError(f"resume ran {len(first)} + {len(resumed)} "
+                                 f"steps")
+        if saved_steps != [2, 4, TRAIN_STEPS]:
+            raise AssertionError(f"saved steps {saved_steps}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, unbroken))
+        if not rel <= 2e-2:
+            raise AssertionError(f"resumed losses {losses} vs unbroken "
+                                 f"{unbroken}")
+
+        # The server on that directory: the saved weights, and greedy
+        # tokens equal to generate()'s on them.
+        args = serve_lm.parse_args(SERVE_FLAGS + ["--checkpoint-dir", ck,
+                                                  "--port", "0"])
+        serve_lm.validate_args(args)
+        run = serve_lm.build_generate(args)
+        saved = torch.load(os.path.join(ck, str(TRAIN_STEPS), STATE_FILE),
+                           map_location="cpu", weights_only=True)["model"]
+    if saved.keys() != run.params.keys() or not all(
+            torch.equal(saved[k], run.params[k]) for k in saved):
+        raise AssertionError("the server's weights are not the checkpoint's")
+    model = TransformerLM(vocab_size=args.vocab_size,
+                          num_layers=args.num_layers,
+                          num_heads=args.num_heads, head_dim=args.head_dim,
+                          mlp_dim=args.mlp_dim, decode=True,
+                          use_flash_decode=True, device=dev)
+    model.load_state_dict(saved)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, args.vocab_size, n).tolist() for n in (9, 300)]
+    srv = _http_server(serve_lm.make_handler(run, args))
+    try:
+        rows = _post(srv[0].server_address[1],
+                     {"prompt_ids": prompts, "temperature": 0})[1]["tokens"]
+    finally:
+        _shutdown(*srv)
+    want = [_solo_tokens(model, p, args.max_new_tokens, args.max_prompt_len)
+            for p in prompts]
+    if rows != want:
+        raise AssertionError("the server's greedy tokens on the checkpoint "
+                             "differ from generate()'s on the saved weights")
+    nonsave = [r["ms"] for r in step_ms if not r["after_save"]]
+    _phase("train_resume", card=card,
+           entry="cmd/train_lm.py main() at its defaults with "
+                 "--checkpoint-dir, --checkpoint-interval 2: 4 steps, then "
+                 f"a restart to step {TRAIN_STEPS}",
+           losses=losses, unbroken_losses=unbroken,
+           losses_exact=losses == unbroken, max_rel_diff=rel,
+           tolerance="exact if equal, else within 2e-2 relative (the train "
+                     "phase's bf16 tolerance)",
+           saved_steps=saved_steps, checkpoint_bytes=ckpt_bytes,
+           run_seconds={"first": first_s, "resumed": resumed_s},
+           step_ms=step_ms,
+           median_step_ms_without_save=(statistics.median(nonsave)
+                                        if nonsave else None),
+           server={"loaded_step": TRAIN_STEPS, "weights": "equal to the "
+                   "checkpoint's", "greedy_rows_identical_to_generate":
+                   len(prompts)})
+
+
+def profile_dir(train_step_device_ms, card):
+    """Phase 13: the trainer's --profile-dir, read by cmd/trace_summary.py
+    as a user would run it."""
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as tmp:
+        t0 = time.perf_counter()
+        losses = train_lm.main(["--train-steps", str(PROFILE_STEPS),
+                                "--profile-dir", tmp])
+        train_s = time.perf_counter() - t0
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "container_engine_accelerators_tpu_torch.cmd.trace_summary",
+             tmp, "--top", "100000"],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"trace_summary failed: {proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        trace_bytes = os.path.getsize(summary["trace"])
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite profiled train loss: {losses}")
+    layers = train_lm.parse_args([]).num_layers
+    ops = summary["ops"]
+    launches = {name: sum(o["launches"] for o in ops if name in o["name"])
+                for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv",
+                             "fa_bwd_delta")}
+    want = {"fa_fwd": 2 * layers * TRACED_STEPS,
+            "fa_bwd_dq": layers * TRACED_STEPS,
+            "fa_bwd_dkv": layers * TRACED_STEPS,
+            "fa_bwd_delta": layers * TRACED_STEPS}
+    if summary["steps"] != TRACED_STEPS or launches != want:
+        raise AssertionError(f"trace of {summary['steps']} steps with "
+                             f"launches {launches}, expected "
+                             f"{TRACED_STEPS} steps and {want}")
+    per_step = summary["device_ms_per_step"]
+    rel = abs(per_step - train_step_device_ms) / train_step_device_ms
+    if not rel <= 0.1:
+        raise AssertionError(f"device ms a traced step {per_step} vs the "
+                             f"profile_train phase's {train_step_device_ms}")
+    _phase("profile_dir", card=card,
+           entry=f"cmd/train_lm.py main() at its defaults, --train-steps "
+                 f"{PROFILE_STEPS} --profile-dir; cmd/trace_summary.py",
+           train_seconds=train_s, trace_bytes=trace_bytes,
+           traced_steps=summary["steps"], window_ms=summary["window_ms"],
+           device_ms=summary["device_ms"],
+           device_ms_per_step=per_step,
+           profile_train_device_ms=train_step_device_ms,
+           rel_diff_to_profile_train=rel,
+           busy_share=summary["busy_share"], launches=launches,
+           expected_launches=want,
+           top=[[o["name"][:70], o["ms"], o["launches"]] for o in ops[:8]])
+
+
+def _timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _phase("timing", of=name, seconds=round(time.perf_counter() - t0, 3))
+    return out
 
 
 def main():
@@ -1158,26 +1587,38 @@ def main():
            route="one torch.utils.cpp_extension.load: nvcc sm_90a for the "
                  "kernels, the host compiler for the TORCH_LIBRARY bindings")
 
-    check_kernel(fd, dev)
-    check_kernel_launch(fd, dev)
-    check_model(dev)
-    fd_launches, run = serve(fd)
-    check_fa_kernels(fa, dev)
-    check_train_parity(dev)
-    fa_launches = train(fa, dev, smi)
+    _timed("kernel_check", check_kernel, fd, dev)
+    _timed("kernel_launch", check_kernel_launch, fd, dev)
+    _timed("model", check_model, dev)
+    fd_launches, run = _timed("serve", serve, fd)
+    _timed("fa_kernel_check", check_fa_kernels, fa, dev)
+    _timed("train_parity", check_train_parity, dev)
+    fa_launches, losses = _timed("train", train, fa, dev, smi)
+    t0 = time.perf_counter()
     serving = time_kernel(fd, dev, cache_len=1056, lengths=[731])
     time_kernel(fd, dev, cache_len=4096, lengths=[4096])
     # One KV head at batch 1: 8-row CTAs would make one row block.
     time_kernel(fd, dev, cache_len=4096, lengths=[4096], kv_heads=1)
-    # What the batched engine will send: ragged GQA, lengths from a seed.
+    # What the batched engine sends: ragged GQA, lengths from a seed.
     ragged = torch.randint(1, 4097, (8,), generator=torch.Generator()
                            .manual_seed(9)).tolist()
     time_kernel(fd, dev, cache_len=4096, lengths=ragged, kv_heads=2)
+    # The --slots fleet's calls: eight lanes of the server's heads at a
+    # 1056-slot lane, each at its own length (mid-request).
+    time_kernel(fd, dev, cache_len=1056,
+                lengths=[n + 16 for n in slot_prompt_lens()])
     launch_floor(dev)
-    fa_rows = time_fa_kernels(fa, dev)
-    # Last: once traced, the process timed its kernels slower.
-    profile_request(run)
-    profile_train_step(dev)
+    _phase("timing", of="kernel_time", seconds=round(time.perf_counter() - t0,
+                                                     3))
+    fa_rows = _timed("fa_kernel_time", time_fa_kernels, fa, dev)
+    # After the kernel timings: once traced, the process timed its
+    # kernels slower.
+    _timed("profile", profile_request, run)
+    del run
+    step_device_ms = _timed("profile_train", profile_train_step, dev)
+    fd_launches += _timed("serve_slots", serve_slots, fd, dev, smi)
+    _timed("train_resume", train_resume, dev, losses, smi)
+    _timed("profile_dir", profile_dir, step_device_ms, smi)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -7,10 +7,13 @@ which stays the reference) and mirrors its module names.  It imports
 points run on the card unless the caller passes ``device="cpu"``
 (``utils/device.py``).
 
-Ported so far: per-request LM serving in decode mode —
-``cmd/serve_lm.py`` -> ``models/generate.py`` -> ``models/transformer.py``
--> ``ops/flash_decode.py`` — and single-GPU LM training —
-``cmd/train_lm.py`` -> ``models/lm_train.py`` -> ``models/transformer.py``
-in train mode -> ``ops/flash_attention.py``.  Their kernels are
+Ported so far: LM serving in decode mode, per request or continuously
+batched — ``cmd/serve_lm.py`` -> ``models/generate.py`` /
+``models/batching.py`` -> ``models/transformer.py`` ->
+``ops/flash_decode.py`` — and single-GPU LM training that checkpoints,
+resumes and profiles itself — ``cmd/train_lm.py`` ->
+``models/lm_train.py`` (``models/checkpoint.py``) ->
+``models/transformer.py`` in train mode -> ``ops/flash_attention.py``,
+with ``cmd/trace_summary.py`` to read its traces.  The kernels are
 hand-written CUDA in ``ops/csrc/``, built together by ``ops/build.py``.
 """

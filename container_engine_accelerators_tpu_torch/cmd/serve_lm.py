@@ -1,7 +1,10 @@
 """Minimal LM generation server — PyTorch counterpart of ``cmd/serve_lm.py``.
 
-Per-request serving of autoregressive decode from the KV-cache path
-(``models/generate.py``) on one CUDA device (``--device cpu`` for tests):
+Serves autoregressive decode from the KV-cache path on one CUDA device
+(``--device cpu`` for tests): per request (``models/generate.py``), or
+with ``--slots N`` through the continuous-batching engine
+(``models/batching.py``), where the rows of all requests in flight share
+one decode step over N lanes:
 
     POST /generate  {"prompt_ids": [[...ints...], ...],
                      "max_new_tokens": N, "temperature": t, "seed": s,
@@ -10,10 +13,12 @@ Per-request serving of autoregressive decode from the KV-cache path
     GET  /healthz   -> ok
 
 Run: ``python -m container_engine_accelerators_tpu_torch.cmd.serve_lm
-[--flash-decode] [--weights bf16] ...``.  Weights are random, drawn from a
-seeded ``torch.Generator``.  The flags of the JAX server that this slice
-does not port yet (continuous batching, speculative decoding, the prefix
-cache, tensor parallelism, MoE, int8 weights, checkpoint loading,
+[--flash-decode] [--weights bf16] [--slots N] [--checkpoint-dir D] ...``.
+With ``--checkpoint-dir`` it serves the newest step the port's trainer
+saved there (``models/checkpoint.py``); without one, or before the first
+save, random weights drawn from a seeded ``torch.Generator``.  The flags
+of the JAX server that the port does not serve yet (speculative
+decoding, the prefix cache, tensor parallelism, MoE, int8 weights,
 chunked prefill) are accepted by the parser and rejected by
 :func:`validate_args` with a message naming the slice that brings them.
 """
@@ -21,6 +26,7 @@ chunked prefill) are accepted by the parser and rejected by
 import argparse
 import json
 import logging
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -66,9 +72,11 @@ def parse_args(argv=None):
                    help="tokens generated per prompt (pinned: requests "
                         "asking for more are capped, fewer are sliced)")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="orbax checkpoint dir (not ported yet)")
+                   help="serve the newest step the trainer saved here "
+                        "(cmd/train_lm.py --checkpoint-dir)")
     p.add_argument("--slots", type=int, default=0,
-                   help="continuous batching (not ported yet)")
+                   help="continuous batching over this many decode lanes "
+                        "(0: one request at a time)")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel degree (only 1 is ported)")
     p.add_argument("--speculative", type=int, default=0, metavar="K",
@@ -92,14 +100,17 @@ def validate_args(args):
                          "exclusive (the draft runs single-device)")
     if args.prefill_chunk < 0:
         raise SystemExit("--prefill-chunk must be >= 0")
+    if args.slots < 0:
+        raise SystemExit("--slots must be >= 0")
     unported = [
-        ("--slots (continuous batching)", args.slots),
+        ("--slots with --prefix-cache", args.slots and args.prefix_cache),
+        ("--slots with --speculative", args.slots and args.speculative),
+        ("--slots with --tp > 1", args.slots and args.tp > 1),
         ("--speculative", args.speculative),
         ("--prefix-cache", args.prefix_cache),
         ("--tp > 1 (tensor parallelism)", args.tp > 1),
         ("--num-experts (MoE)", args.num_experts),
         ("--weights int8", args.weights == "int8"),
-        ("--checkpoint-dir (orbax load)", args.checkpoint_dir),
         ("--prefill-chunk", args.prefill_chunk),
     ]
     for flag, on in unported:
@@ -107,11 +118,56 @@ def validate_args(args):
             raise SystemExit(f"{flag} {_LATER}")
 
 
+def load_params(args, model) -> dict:
+    """The f32 weights to serve, as a state dict on the CPU: the newest
+    step under ``--checkpoint-dir``, else random (seed 0).  The
+    checkpoint is read as the JAX server reads it, into the train-shaped
+    state the port's trainer saves (the model and its AdamW), whose
+    weights are then taken."""
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+        init_params,
+    )
+
+    if args.checkpoint_dir:
+        from container_engine_accelerators_tpu_torch.models.checkpoint import (
+            TrainCheckpointer,
+        )
+        from container_engine_accelerators_tpu_torch.models.lm_train import (
+            create_lm_train_state,
+        )
+
+        train_model = TransformerLM(
+            vocab_size=args.vocab_size, num_layers=args.num_layers,
+            num_heads=args.num_heads, head_dim=args.head_dim,
+            mlp_dim=args.mlp_dim, num_kv_heads=args.kv_heads or None,
+            device="cpu")
+        # The optimizer must match cmd/train_lm.py's (AdamW) so the
+        # checkpoint's optimizer state loads; serving reads the weights.
+        state = create_lm_train_state(
+            train_model, optimizer=torch.optim.AdamW(
+                train_model.parameters(), lr=3e-4, weight_decay=0.1))
+        ck = TrainCheckpointer(os.path.abspath(args.checkpoint_dir))
+        state, step = ck.restore_latest(state)
+        ck.close()
+        if step is not None:
+            log.info("loaded step-%d params from %s", step,
+                     args.checkpoint_dir)
+            return {k: v.detach() for k, v in
+                    train_model.state_dict().items()}
+        log.info("no checkpoint found; serving random params")
+    else:
+        log.info("serving randomly-initialized params (demo mode)")
+    return init_params(model, torch.Generator().manual_seed(0))
+
+
 def build_generate(args):
-    """Build the model on ``args.device`` with seeded random weights and
-    return ``run(prompt, prompt_len, temperature, seed, sample) -> [1,
-    bucket + max_new] tokens`` (on the CPU).  Calls are serialized under
-    one lock: the handler threads share the device."""
+    """Build the decode model on ``args.device`` with the weights of
+    :func:`load_params` and return ``run(prompt, prompt_len, temperature,
+    seed, sample) -> [1, bucket + max_new] tokens`` (on the CPU).  Calls
+    are serialized under one lock: the handler threads share the device.
+    ``run.model`` is the model and ``run.params`` its f32 weights (before
+    ``--weights``)."""
     from container_engine_accelerators_tpu_torch.models.generate import (
         generate,
     )
@@ -120,7 +176,6 @@ def build_generate(args):
     )
     from container_engine_accelerators_tpu_torch.models.transformer import (
         TransformerLM,
-        init_params,
     )
     from container_engine_accelerators_tpu_torch.utils.device import (
         resolve_device,
@@ -133,8 +188,7 @@ def build_generate(args):
         mlp_dim=args.mlp_dim, num_kv_heads=args.kv_heads or None,
         decode=True, use_flash_decode=args.flash_decode, device=device,
     )
-    params = init_params(model, torch.Generator().manual_seed(0))
-    log.info("serving randomly-initialized params (demo mode)")
+    params = f32_params = load_params(args, model)
     if args.weights != "f32":
         params = serving_params(params, args.weights)
         log.info("serving weights cast to %s", args.weights)
@@ -153,13 +207,43 @@ def build_generate(args):
             return out.cpu()
 
     run.model = model
+    run.params = f32_params
     # Warm up (builds the CUDA kernel with --flash-decode) before traffic.
     warm = bucket_len(1, args.max_prompt_len)
     run(torch.zeros((1, warm), dtype=torch.long), 1, 0.0, 0, False)
     return run
 
 
-def make_handler(run, args):
+def build_engine(run, args):
+    """Continuous-batching engine over ``run.model``, sized for this
+    server's admission bound: a lane holds the largest prompt bucket plus
+    ``--max-new-tokens``."""
+    from container_engine_accelerators_tpu_torch.models.batching import (
+        DecodeEngine,
+    )
+
+    prompt_bucket = bucket_len(args.max_prompt_len, args.max_prompt_len)
+    return DecodeEngine(run.model, max_slots=args.slots,
+                        max_len=prompt_bucket + args.max_new_tokens)
+
+
+def start_engine(run, args):
+    """With ``--slots``: the engine's stepper (an ``EngineLoop``), warmed
+    before traffic (max_new 2, so that a fleet step runs: a 1-token
+    request retires inside submit).  None without ``--slots``."""
+    if not args.slots:
+        return None
+    from container_engine_accelerators_tpu_torch.models.batching import (
+        EngineLoop,
+    )
+
+    engine_loop = EngineLoop(build_engine(run, args))
+    engine_loop.generate([0], 2)
+    log.info("continuous batching: %d decode slots", args.slots)
+    return engine_loop
+
+
+def make_handler(run, args, engine_loop=None):
     def pad_row(ids):
         """One request row -> (bucket-padded [1, bucket] tensor, true len)."""
         plen = len(ids)
@@ -213,12 +297,22 @@ def make_handler(run, args):
                 if prefix_ids:
                     clean = [(prefix_ids + ids)[: args.max_prompt_len]
                              for ids in clean]
-                toks = []
-                for i, ids in enumerate(clean):
-                    padded, plen = pad_row(ids)
-                    out = run(padded, plen, temperature, seed + i,
-                              temperature > 0)
-                    toks.append(out[0][: plen + max_new].tolist())
+                if engine_loop is not None:
+                    # Continuous batching: the request's rows join the
+                    # shared fleet concurrently, sampled rows as lanes on
+                    # their own generators (seed + i, as below).
+                    outs = engine_loop.generate_many(
+                        clean, max_new, temperature=temperature,
+                        seeds=[seed + i for i in range(len(clean))])
+                    toks = [ids + gen[:max_new]
+                            for ids, gen in zip(clean, outs)]
+                else:
+                    toks = []
+                    for i, ids in enumerate(clean):
+                        padded, plen = pad_row(ids)
+                        out = run(padded, plen, temperature, seed + i,
+                                  temperature > 0)
+                        toks.append(out[0][: plen + max_new].tolist())
                 dt = (time.perf_counter() - t0) * 1e3
                 self._send(200, {"tokens": toks,
                                  "latency_ms": round(dt, 2)})
@@ -235,8 +329,9 @@ def main(argv=None):
     args = parse_args(argv)
     validate_args(args)
     run = build_generate(args)
+    engine_loop = start_engine(run, args)
     server = ThreadingHTTPServer(("0.0.0.0", args.port),
-                                 make_handler(run, args))
+                                 make_handler(run, args, engine_loop))
     log.info("serving LM on :%d", server.server_address[1])
     server.serve_forever()
 

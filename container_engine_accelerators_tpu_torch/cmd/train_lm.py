@@ -5,18 +5,28 @@ compute with f32 params and AdamW, through the hand-written
 flash-attention kernels (``ops/flash_attention.py``) wherever the shape
 allows, on synthetic token streams (four rotated batches from a seeded
 numpy generator) or a token-shard dataset (``--data-dir``, the
-``data/tokens.py`` format).  SIGTERM finishes the current step and exits
-80 so a Kubernetes Job reschedules the pod (``utils/preempt.py``).
+``data/tokens.py`` format).
+
+With ``--checkpoint-dir`` it saves the step, the weights and the AdamW
+state every ``--checkpoint-interval`` steps and at the end
+(``models/checkpoint.py``), and a restart resumes at the newest saved
+step, on the batches that step would have seen.  SIGTERM finishes the
+current step, saves, and exits 80 so a Kubernetes Job reschedules the
+pod (``utils/preempt.py``).  With ``--profile-dir`` it traces steps
+10-20 with ``torch.profiler`` and writes a Chrome trace there, which
+``cmd/trace_summary.py`` reads.
 
 Run: ``python -m container_engine_accelerators_tpu_torch.cmd.train_lm
 [--train-steps N] ...``.  It takes the JAX trainer's flags; those of
 later slices of the port (``--seq-parallel``, ``--model-par > 1``,
-``--param-sharding fsdp``, ``--num-experts``, ``--checkpoint-dir``,
-``--profile-dir``) exit with a message naming the slice.
+``--param-sharding fsdp``, ``--num-experts``) exit with a message naming
+the slice.
 """
 
 import argparse
+import contextlib
 import logging
+import os
 import time
 
 import numpy as np
@@ -59,10 +69,12 @@ def parse_args(argv=None):
                    help="token-shard dataset dir (data/tokens.py format). "
                         "Default: synthetic token streams")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="checkpoint dir (not ported yet)")
+                   help="checkpoint dir: save every --checkpoint-interval "
+                        "steps and at the end, resume from the newest step")
     p.add_argument("--checkpoint-interval", type=int, default=100)
     p.add_argument("--profile-dir", default=None,
-                   help="profiler trace dir (not ported yet)")
+                   help="write a torch.profiler Chrome trace of steps "
+                        "10-20 here (read it with cmd/trace_summary.py)")
     return p.parse_args(argv)
 
 
@@ -78,8 +90,6 @@ def validate_args(args):
          _MULTI_GPU),
         ("--param-sharding fsdp", args.param_sharding == "fsdp", _MULTI_GPU),
         ("--num-experts (MoE)", args.num_experts, _LATER),
-        ("--checkpoint-dir", args.checkpoint_dir, _LATER),
-        ("--profile-dir", args.profile_dir, _LATER),
     ]
     for flag, on, why in unported:
         if on:
@@ -104,10 +114,43 @@ def synthetic_batches(args, n_batches=4):
     return out
 
 
+class ProfileWindow:
+    """``torch.profiler`` over a window of train steps (CPU activity, and
+    CUDA activity on the card), each step marked ``ProfilerStep#<n>``.
+    :meth:`stop` waits for the device, ends the trace and writes it into
+    ``directory`` as a Chrome trace (``*.pt.trace.json``)."""
+
+    def __init__(self, directory, device):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.directory, self.device = directory, device
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.path = None
+        self._prof = profile(activities=activities)
+        self._prof.start()
+
+    @staticmethod
+    def step(step):
+        return torch.profiler.record_function(f"ProfilerStep#{step}")
+
+    def stop(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        os.makedirs(self.directory, exist_ok=True)
+        self.path = os.path.join(self.directory,
+                                 f"train_lm.{os.getpid()}.pt.trace.json")
+        self._prof.export_chrome_trace(self.path)
+        log.info("wrote torch.profiler trace to %s", self.path)
+
+
 def main(argv=None, on_step=None):
-    """Train; return the per-step losses as floats.  ``on_step(step,
-    loss)``, if given, is called after each step is enqueued, with the
-    loss still a device tensor."""
+    """Train; return the losses of the steps this run took (from the
+    restored step on), as floats.  ``on_step(step, loss)``, if given, is
+    called after each step is enqueued, with the loss still a device
+    tensor."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = parse_args(argv)
@@ -143,11 +186,26 @@ def main(argv=None, on_step=None):
              sum(p.numel() for p in model.parameters()), args.seq_len,
              args.train_batch_size)
 
+    checkpointer = None
+    start_step = 0
+    if args.checkpoint_dir:
+        from container_engine_accelerators_tpu_torch.models.checkpoint import (
+            TrainCheckpointer,
+        )
+
+        checkpointer = TrainCheckpointer(os.path.abspath(args.checkpoint_dir))
+        state, restored_step = checkpointer.restore_latest(state)
+        if restored_step is not None:
+            start_step = restored_step
+            log.info("resuming from checkpoint at step %d", start_step)
+
     def on_device(toks, labels, mask):
         return (torch.from_numpy(toks).to(device, torch.long),
                 torch.from_numpy(labels).to(device, torch.long),
                 torch.from_numpy(mask).to(device))
 
+    # Both sources are pure functions of the step, so a resumed run sees
+    # the batches the unbroken run would have seen from start_step on.
     batch_iter = batches = None
     if args.data_dir:
         from container_engine_accelerators_tpu_torch.data import (
@@ -160,39 +218,57 @@ def main(argv=None, on_step=None):
                                   vocab_size=args.vocab_size)
         log.info("dataset: %d tokens (%d steps/epoch) from %s",
                  reader.total_tokens, loader.steps_per_epoch(), args.data_dir)
-        batch_iter = loader.iter_batches(0, args.train_steps)
+        batch_iter = loader.iter_batches(start_step,
+                                         args.train_steps - start_step)
     else:
         batches = [on_device(*b) for b in synthetic_batches(args)]
 
     losses = []
     tokens_per_batch = args.train_batch_size * args.seq_len
+    profile = None
     t0 = time.perf_counter()
     try:
         with PreemptionGuard() as guard:
-            for step in range(args.train_steps):
+            for step in range(start_step, args.train_steps):
+                # Trace steady-state steps (the JAX trainer's window).
+                if args.profile_dir and step == max(
+                        start_step, min(10, args.train_steps - 1)):
+                    profile = ProfileWindow(args.profile_dir, device)
                 if batch_iter is not None:
                     toks, labels, mask = on_device(*next(batch_iter))
                 else:
                     toks, labels, mask = batches[step % len(batches)]
-                state, metrics = step_fn(state, toks, labels, mask)
+                with (profile.step(step) if profile
+                      else contextlib.nullcontext()):
+                    state, metrics = step_fn(state, toks, labels, mask)
                 losses.append(metrics["loss"])
                 if on_step is not None:
                     on_step(step, metrics["loss"])
+                if profile and step >= min(20, args.train_steps - 1):
+                    profile.stop()
+                    profile = None
                 if (step + 1) % args.steps_per_eval == 0:
                     dt = time.perf_counter() - t0
                     log.info("step %d loss=%.4f tokens/sec=%.0f", step + 1,
                              float(metrics["loss"]),
-                             (step + 1) * tokens_per_batch / dt)
+                             (step + 1 - start_step) * tokens_per_batch / dt)
+                if checkpointer and (step + 1) % args.checkpoint_interval == 0:
+                    checkpointer.save(state)
                 if guard.should_stop:
-                    checkpoint_and_exit(None, state, step,
-                                        args.checkpoint_interval)
+                    checkpoint_and_exit(checkpointer, state, step,
+                                        args.checkpoint_interval, profile)
     finally:
         if batch_iter is not None:
             batch_iter.close()  # stops the prefetch thread
     losses = [float(x) for x in losses]  # waits for the last step
     total = time.perf_counter() - t0
-    log.info("done: %d steps, %.0f tokens/sec overall", args.train_steps,
-             args.train_steps * tokens_per_batch / max(total, 1e-9))
+    steps_run = args.train_steps - start_step
+    log.info("done: %d steps, %.0f tokens/sec overall", steps_run,
+             steps_run * tokens_per_batch / max(total, 1e-9))
+    if checkpointer:
+        if steps_run > 0:
+            checkpointer.save(state)
+        checkpointer.close()
     return losses
 
 

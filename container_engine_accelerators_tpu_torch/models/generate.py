@@ -42,7 +42,9 @@ def init_cache(model, batch: int, max_len: int, device=None) -> dict:
 
 
 def _rewind_cache_index(cache, position):
-    """Set every layer's ``cache_index`` to ``position`` (in place).
+    """Set every layer's ``cache_index`` to ``position`` (in place): a
+    scalar (an int or a 0-d tensor) for every lane, or a [B] tensor of
+    each lane's own position (the batching engine's fleet).
 
     After a prefill over a PADDED prompt the write cursor sits past the
     pad slots; rewinding it to the true prompt length makes decode
@@ -50,7 +52,11 @@ def _rewind_cache_index(cache, position):
     query position) hides any slot not yet overwritten — so pads never
     influence the continuation.
     """
-    cache["cache_index"].fill_(position)
+    idx = cache["cache_index"]
+    if torch.is_tensor(position) and position.dim():
+        idx.copy_(position.to(idx.dtype).expand_as(idx))
+    else:
+        idx.fill_(position)
     return cache
 
 
@@ -91,6 +97,19 @@ def prefill(model, prompt, prompt_len, max_len: int):
     return prefill_continue(model, cache, prompt, 0, prompt_len)
 
 
+def sample_token(logits, temperature, generator: torch.Generator):
+    """Gumbel-max categorical sample of f32 ``logits`` [B, V] at
+    ``temperature`` -> [B] (int64), drawing one ``torch.rand`` of the
+    logits' shape from ``generator``.  The per-request loop and the
+    batching engine's sampled lanes both sample through here, so a lane
+    that draws from its own generator at shape [1, V] gives per-request
+    sampling's tokens."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(
+        u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return (logits / temperature + gumbel).argmax(-1)
+
+
 def decode_loop(model, cache, last_logits, prompt_len, max_new_tokens: int,
                 temperature=0.0, generator: Optional[torch.Generator] = None,
                 dtype=torch.long):
@@ -105,10 +124,7 @@ def decode_loop(model, cache, last_logits, prompt_len, max_new_tokens: int,
     def sample_from(logits):
         if greedy:
             return logits.argmax(-1).to(dtype)
-        u = torch.rand(logits.shape, generator=generator, device=device)
-        gumbel = -torch.log(-torch.log(
-            u.clamp_min(torch.finfo(torch.float32).tiny)))
-        return (logits / temperature + gumbel).argmax(-1).to(dtype)
+        return sample_token(logits, temperature, generator).to(dtype)
 
     tok = sample_from(last_logits)
     toks = [tok]

@@ -1,1 +1,2 @@
-"""Device selection and graceful preemption for the PyTorch port."""
+"""Device selection, graceful preemption, and the retry budget and fault
+sites of the checkpointer, for the PyTorch port."""

@@ -14,11 +14,10 @@ Usage::
             state, metrics = step_fn(state, ...)
             if guard.should_stop:
                 checkpoint_and_exit(checkpointer, state, step,
-                                    args.checkpoint_interval)
+                                    args.checkpoint_interval, profiling)
 
-The port has no checkpointer yet (``--checkpoint-dir`` comes with a later
-slice), so its trainer passes None: progress is lost, and the exit code
-still asks for a restart.
+Without ``--checkpoint-dir`` the trainer passes None as the checkpointer:
+progress is lost, and the exit code still asks for a restart.
 """
 
 import logging
@@ -78,11 +77,15 @@ class PreemptionGuard:
 
 
 def checkpoint_and_exit(checkpointer, state, step: int,
-                        checkpoint_interval: int):
-    """The trainer's SIGTERM tail: wait for the device, save a final
-    checkpoint unless the interval save already covered ``step`` (the
-    loop index just completed), then exit for a Job restart.  Always
-    raises ``SystemExit`` with :data:`PREEMPTED_EXIT_CODE`."""
+                        checkpoint_interval: int, profiling=None):
+    """The trainer's SIGTERM tail: stop an active profile (``profiling``,
+    anything with a ``stop()`` that ends and writes the trace), wait for
+    the device, save a final checkpoint unless the interval save already
+    covered ``step`` (the loop index just completed), then exit for a Job
+    restart.  Always raises ``SystemExit`` with
+    :data:`PREEMPTED_EXIT_CODE`."""
+    if profiling:
+        profiling.stop()
     if checkpointer:
         if torch.cuda.is_available():
             torch.cuda.synchronize()

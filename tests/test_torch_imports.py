@@ -32,7 +32,8 @@ def test_port_imports_without_jax():
     slices = {"ops.flash_decode", "cmd.serve_lm", "ops.build",
               "ops.flash_attention", "parallel.seq", "models.train",
               "models.lm_train", "data.tokens", "data.loader",
-              "utils.preempt", "cmd.train_lm"}
+              "utils.preempt", "cmd.train_lm", "utils.retry", "utils.faults",
+              "models.checkpoint", "models.batching", "cmd.trace_summary"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys

@@ -1,6 +1,8 @@
 """The PyTorch port's LM server (container_engine_accelerators_tpu_torch/
 cmd/serve_lm.py) on the CPU: HTTP round trips through the real handler,
-the flag gates of this slice, and the device rule."""
+per request and through the continuous-batching engine (``--slots``), the
+weights of a trainer's checkpoint (``--checkpoint-dir``) against the JAX
+model's tokens, the flag gates, and the device rule."""
 
 import importlib.util
 import json
@@ -15,10 +17,26 @@ import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
-from container_engine_accelerators_tpu_torch.cmd import serve_lm
+from container_engine_accelerators_tpu.models import generate as jgen
+from container_engine_accelerators_tpu.models import transformer as jtr
+from container_engine_accelerators_tpu_torch.cmd import serve_lm, train_lm
+from container_engine_accelerators_tpu_torch.models.checkpoint import (
+    STATE_FILE,
+)
+from container_engine_accelerators_tpu_torch.models.convert import (
+    to_flax_params,
+)
+from container_engine_accelerators_tpu_torch.models.generate import generate
+from container_engine_accelerators_tpu_torch.models.transformer import (
+    TransformerLM,
+    init_params,
+)
 from container_engine_accelerators_tpu_torch.utils.device import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,8 +53,9 @@ def server(request):
     return args, serve_lm.build_generate(args)
 
 
-def _serve(args, run):
-    srv = ThreadingHTTPServer(("127.0.0.1", 0), serve_lm.make_handler(run, args))
+def _serve(args, run, engine_loop=None):
+    srv = ThreadingHTTPServer(("127.0.0.1", 0),
+                              serve_lm.make_handler(run, args, engine_loop))
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()
     return srv, t
@@ -117,12 +136,32 @@ def test_defaults_match_the_jax_server():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--slots", "2"], ["--speculative", "3"], ["--prefix-cache", "2"],
-    ["--tp", "2"], ["--num-experts", "4"], ["--weights", "int8"],
-    ["--checkpoint-dir", "/nonexistent"], ["--prefill-chunk", "16"]])
+    ["--slots", "2", "--prefix-cache", "2"], ["--speculative", "3"],
+    ["--prefix-cache", "2"], ["--tp", "2"], ["--num-experts", "4"],
+    ["--weights", "int8"], ["--slots", "2", "--speculative", "3"],
+    ["--prefill-chunk", "16"], ["--slots", "2", "--tp", "2"]])
 def test_unported_flags_exit(flags):
     with pytest.raises(SystemExit, match="later serving slice"):
         serve_lm.validate_args(serve_lm.parse_args(TINY + flags))
+
+
+@pytest.mark.parametrize("flags,combo", [
+    (["--prefix-cache", "2"], "--slots with --prefix-cache"),
+    (["--speculative", "3"], "--slots with --speculative"),
+    (["--tp", "2"], "--slots with --tp > 1")])
+def test_slots_with_later_features_name_the_combination(flags, combo):
+    with pytest.raises(SystemExit, match=re.escape(combo)):
+        serve_lm.validate_args(serve_lm.parse_args(TINY + ["--slots", "2"]
+                                                   + flags))
+
+
+def test_slots_and_checkpoint_dir_are_ported(tmp_path):
+    """Once rejected as a later slice's, now taken."""
+    args = serve_lm.parse_args(TINY + ["--slots", "2", "--checkpoint-dir",
+                                       str(tmp_path)])
+    serve_lm.validate_args(args)
+    with pytest.raises(SystemExit, match="--slots must be >= 0"):
+        serve_lm.validate_args(serve_lm.parse_args(TINY + ["--slots", "-1"]))
 
 
 def test_bf16_weights_serve():
@@ -164,6 +203,164 @@ def test_module_entry_point_serves():
             m = re.search(rb"serving LM on :(\d+)", log)
         body = _post(int(m.group(1)), {"prompt_ids": [[1, 2]]})
         assert len(body["tokens"][0]) == 6
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        proc.stderr.close()
+
+
+# The server's shapes, trained for a few steps.
+TRAIN = ["--device", "cpu", "--vocab-size", "64", "--num-layers", "1",
+         "--num-heads", "2", "--head-dim", "8", "--mlp-dim", "32",
+         "--seq-len", "16", "--train-batch-size", "2",
+         "--learning-rate", "3e-2"]
+JAX_CFG = dict(vocab_size=64, num_layers=1, num_heads=2, head_dim=8,
+               mlp_dim=32)
+
+
+def _decode_model(args, params, dtype=torch.bfloat16):
+    model = TransformerLM(**JAX_CFG, dtype=dtype, decode=True,
+                          use_flash_decode=args.flash_decode, device="cpu")
+    model.load_state_dict(params)
+    return model
+
+
+def _greedy(model, prompts, args):
+    """The port's generate() on bucket-padded prompts -> token rows."""
+    rows = []
+    for ids in prompts:
+        bucket = serve_lm.bucket_len(len(ids), args.max_prompt_len)
+        prompt = torch.tensor([ids + [0] * (bucket - len(ids))])
+        with torch.inference_mode():
+            out = generate(model, prompt, args.max_new_tokens,
+                           prompt_len=len(ids))
+        rows.append(out[0, :len(ids) + args.max_new_tokens].tolist())
+    return rows
+
+
+def _jax_greedy(flax_params, prompts, args):
+    """JAX generate() (f32) on bucket-padded prompts -> token rows."""
+    model = jtr.transformer_lm(**JAX_CFG, decode=True, dtype=jnp.float32)
+    rows = []
+    for ids in prompts:
+        bucket = serve_lm.bucket_len(len(ids), args.max_prompt_len)
+        prompt = jnp.asarray([ids + [0] * (bucket - len(ids))], jnp.int32)
+        out = np.asarray(jgen.generate(model, flax_params, prompt,
+                                       args.max_new_tokens,
+                                       prompt_len=len(ids)))
+        rows.append(out[0, :len(ids) + args.max_new_tokens].tolist())
+    return rows
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["einsum", "flash"])
+def test_checkpoint_dir_serves_the_trained_weights(tmp_path, caplog, flash):
+    """The trainer saves, the server loads the newest step: its weights
+    are the checkpoint's, its greedy tokens over HTTP are generate()'s on
+    the saved weights, and in f32 those weights give the JAX model's
+    greedy tokens."""
+    ckpt = str(tmp_path / "ckpt")
+    train_lm.main(TRAIN + ["--train-steps", "4", "--checkpoint-interval",
+                           "3", "--checkpoint-dir", ckpt])
+    args = serve_lm.parse_args(TINY + ["--checkpoint-dir", ckpt]
+                               + (["--flash-decode"] if flash else []))
+    serve_lm.validate_args(args)
+    with caplog.at_level("INFO"):
+        run = serve_lm.build_generate(args)
+    assert f"loaded step-4 params from {ckpt}" in caplog.text
+    saved = torch.load(os.path.join(ckpt, "4", STATE_FILE),
+                       weights_only=True)["model"]
+    assert saved.keys() == run.params.keys()
+    assert all(torch.equal(saved[k], run.params[k]) for k in saved)
+    random = init_params(run.model, torch.Generator().manual_seed(0))
+    assert not torch.equal(random["embed"], saved["embed"])
+    prompts = [[1, 2, 3], [9, 8, 7, 6, 5], [40]]
+    srv, t = _serve(args, run)
+    try:
+        got = _post(srv.server_address[1], {"prompt_ids": prompts})["tokens"]
+    finally:
+        _stop(srv, t)
+    assert got == _greedy(_decode_model(args, saved), prompts, args)
+    f32 = _decode_model(args, saved, torch.float32)
+    assert _greedy(f32, prompts, args) == _jax_greedy(to_flax_params(saved),
+                                                      prompts, args)
+
+
+def test_checkpoint_dir_without_a_checkpoint_serves_random_params(tmp_path,
+                                                                  caplog):
+    args = serve_lm.parse_args(TINY + ["--checkpoint-dir", str(tmp_path)])
+    with caplog.at_level("INFO"):
+        run = serve_lm.build_generate(args)
+    assert "no checkpoint found; serving random params" in caplog.text
+    want = init_params(run.model, torch.Generator().manual_seed(0))
+    assert all(torch.equal(want[k], run.params[k]) for k in want)
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["einsum", "flash"])
+def test_slots_answer_concurrent_requests_with_per_request_tokens(flash):
+    """``--slots``: concurrent HTTP requests (several rows each, greedy
+    and seeded sampled) through the engine give the per-request path's
+    tokens, on one model, in one server process.  (The server computes
+    in bf16, where a near-tie could flip between the fleet's products
+    and batch 1's; at this size none does.  The f32 identity is
+    ``tests/test_torch_batching.py``'s.)"""
+    args = serve_lm.parse_args(TINY + ["--slots", "3"]
+                               + (["--flash-decode"] if flash else []))
+    serve_lm.validate_args(args)
+    run = serve_lm.build_generate(args)
+    engine_loop = serve_lm.start_engine(run, args)
+    assert engine_loop.engine.max_len == 8 + 4
+    slots_srv, slots_t = _serve(args, run, engine_loop)
+    solo_srv, solo_t = _serve(args, run)
+    bodies = [{"prompt_ids": [[1, 2, 3], [5]], "max_new_tokens": 4},
+              {"prompt_ids": [[7, 8, 9, 10, 11, 12, 13]]},
+              {"prompt_ids": [[3, 1, 4], [1, 5]], "temperature": 0.9,
+               "seed": 77},
+              {"prompt_ids": [[2, 7]], "max_new_tokens": 2},
+              {"prompt_ids": [[6, 6, 6, 6]], "prefix_ids": [4, 4]}]
+    got = {}
+    try:
+        def ask(i):
+            got[i] = _post(slots_srv.server_address[1], bodies[i])
+
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+            assert not th.is_alive()
+        for i, body in enumerate(bodies):
+            want = _post(solo_srv.server_address[1], body)["tokens"]
+            assert got[i]["tokens"] == want, i
+        assert engine_loop.engine.steps > 0
+    finally:
+        _stop(slots_srv, slots_t)
+        _stop(solo_srv, solo_t)
+        engine_loop.close()
+    assert not engine_loop._thread.is_alive()
+
+
+def test_module_entry_point_serves_with_slots():
+    """``python -m ... serve_lm --slots 2``: main() wires the engine."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "container_engine_accelerators_tpu_torch.cmd.serve_lm"] + TINY
+        + ["--slots", "2"],
+        cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        deadline = time.monotonic() + 60
+        log, m = b"", None
+        while m is None:
+            left = deadline - time.monotonic()
+            assert left > 0, "server never reported its port"
+            ready, _, _ = select.select([proc.stderr], [], [], left)
+            chunk = os.read(proc.stderr.fileno(), 4096) if ready else b""
+            assert chunk or proc.poll() is None, f"server exited: {log!r}"
+            log += chunk
+            m = re.search(rb"serving LM on :(\d+)", log)
+        assert b"continuous batching: 2 decode slots" in log
+        body = _post(int(m.group(1)), {"prompt_ids": [[1, 2], [3]]})
+        assert [len(r) for r in body["tokens"]] == [6, 5]
     finally:
         proc.terminate()
         proc.wait(timeout=30)
