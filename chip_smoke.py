@@ -4,7 +4,9 @@
 Drives the port's two paths as a user would, at the default model width
 (12 layers, 8 heads x 64, mlp 2048, vocab 32000, random weights from a
 seed): serving — ``cmd/serve_lm.py``'s ``build_generate`` and
-``make_handler`` behind a real HTTP server with ``--flash-decode`` — and
+``make_handler`` behind a real HTTP server with ``--flash-decode``, then
+with each single-GPU feature (int8 weights, chunked prefill, the prefix
+cache, speculative decoding) per request and with ``--slots`` — and
 training — ``cmd/train_lm.py``'s ``main`` at its defaults (seq 2048,
 batch 8, bf16) — and holds every hand-written CUDA kernel against its
 plain PyTorch version.  Phases, one JSON line each:
@@ -97,8 +99,34 @@ plain PyTorch version.  Phases, one JSON line each:
     forward kernel launched 2 x layers and each backward kernel layers
     times a step, the device time a step within 10% of phase 10's traced
     step, and the busy share;
-14. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
-    ``serve`` and ``serve_slots`` phases').
+14. ``serve_int8``: the server with ``--weights int8``, per request (4
+    greedy prompts, beside the bf16 server on the original weights) and
+    with ``--slots 8`` (8 concurrent prompts), launch counts reset and
+    read around the two: decode latency, tokens/s and ``param_bytes``
+    int8 against bf16; greedy tokens identical to a bf16 model on the
+    dequantized weights (per request, and an engine fed the same
+    submits), and the share agreeing with the bf16 server;
+15. ``serve_chunked``: ``--prefill-chunk 256`` on prompts of 896..1024
+    tokens, per request and with ``--slots 8``: TTFT and the prefill's
+    peak memory, chunked against single-shot; request latency against the
+    unchunked server; in f32, chunked logits within 1e-4 of single-shot's
+    and identical greedy tokens;
+16. ``serve_prefix``: ``--prefix-cache 4``, 8 requests behind one
+    512-token ``prefix_ids`` with suffixes of 16..200 tokens, per request
+    and with ``--slots 8``: hit/miss stats, the first (missing) request's
+    latency against the later ones, a hit's TTFT against a cacheless
+    prefill, the block unchanged after the requests; in f32, the tokens of
+    the concatenated prompt, per request and through an engine;
+17. ``serve_spec``: ``--speculative 4`` with a random 3-layer draft
+    (acceptance ~0), then with the target's own weights saved by
+    ``TrainCheckpointer`` as a 12-layer draft (``--draft-checkpoint-dir``,
+    acceptance ~1), each per request and with ``--slots 8``: acceptance,
+    tokens per round, latency against plain decode, a seeded sampled
+    request that must repeat its tokens, and in f32 greedy tokens
+    identical to ``generate``'s; flash decode must have run draft layers x
+    (k + 1) times a round;
+18. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
+    ``serve`` and ``serve_slots`` phases' and phases 14-17').
 
 Each phase's seconds follow it on a ``timing`` line.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -1544,6 +1572,577 @@ def profile_dir(train_step_device_ms, card):
            top=[[o["name"][:70], o["ms"], o["launches"]] for o in ops[:8]])
 
 
+# ---- phases 14-17: the server's single-GPU features ------------------------
+
+FEATURE_SEED = 11  # prompts of the feature phases
+SPEC_K = 4
+INT8_LENS = [5, 64, 300, 700]  # per-request prompts of serve_int8/serve_spec
+CHUNK = 256  # serve_chunked's --prefill-chunk, on prompts of 7/8..1 x 1024
+PREFIX_LEN = 512
+SUFFIX_LENS = (16, 200)
+
+
+def _reset(fd):
+    for name in fd.LAUNCHES:
+        fd.LAUNCHES[name] = 0
+
+
+def _feature_server(flags):
+    """serve_lm with ``SERVE_FLAGS + flags`` as main() wires it with
+    ``--slots 8``: (args, run, engine loop, per-request server, slots
+    server)."""
+    from container_engine_accelerators_tpu_torch.cmd import serve_lm
+
+    args = serve_lm.parse_args(SERVE_FLAGS + flags + ["--slots", str(SLOTS),
+                                                      "--port", "0"])
+    serve_lm.validate_args(args)
+    run = serve_lm.build_generate(args)
+    engine_loop = serve_lm.start_engine(run, args)
+    return (args, run, engine_loop,
+            _http_server(serve_lm.make_handler(run, args)),
+            _http_server(serve_lm.make_handler(run, args, engine_loop)))
+
+
+def _close(engine_loop, *servers):
+    for srv in servers:
+        _shutdown(*srv)
+    engine_loop.close()
+
+
+def _ask_each(srv, bodies):
+    """Bodies one after another -> (each body's first token row, server
+    latencies ms)."""
+    rows, lat = [], []
+    for body in bodies:
+        status, resp, _ = _post(srv[0].server_address[1], body)
+        if status != 200 or "tokens" not in resp:
+            raise AssertionError(f"bad response {status} {resp}")
+        rows.append(resp["tokens"][0])
+        lat.append(resp["latency_ms"])
+    return rows, lat
+
+
+def _ask_all(srv, bodies):
+    """Bodies all at once -> (rows, latencies ms, the batch's wall ms)."""
+    got = [None] * len(bodies)
+
+    def ask(i):
+        got[i] = _post(srv[0].server_address[1], bodies[i])[1]
+
+    threads = [threading.Thread(target=ask, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if any(g is None or "tokens" not in g for g in got):
+        raise AssertionError(f"a concurrent request failed: {got}")
+    return ([g["tokens"][0] for g in got], [g["latency_ms"] for g in got],
+            wall_ms)
+
+
+def _greedy_bodies(prompts, **extra):
+    return [{"prompt_ids": [p], "temperature": 0, **extra} for p in prompts]
+
+
+def _twin(args, params, dev, dtype, **over):
+    """A decode model of the server's widths in ``dtype`` (flash decode
+    on) holding ``params``."""
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+
+    cfg = dict(vocab_size=args.vocab_size, num_layers=args.num_layers,
+               num_heads=args.num_heads, head_dim=args.head_dim,
+               mlp_dim=args.mlp_dim, dtype=dtype, decode=True,
+               use_flash_decode=True, device=dev)
+    cfg.update(over)
+    model = TransformerLM(**cfg)
+    model.load_state_dict(params)
+    return model.eval()
+
+
+def _padded(ids, max_prompt_len, dev):
+    """A prompt as the server pads it -> ([1, bucket] tensor, length)."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models.batching import (
+        bucket_len,
+    )
+
+    bucket = bucket_len(len(ids), max_prompt_len)
+    return torch.tensor([ids + [0] * (bucket - len(ids))], dtype=torch.long,
+                        device=dev), len(ids)
+
+
+def _engine_tokens(engine, prompts, n_new, prefix=None):
+    rids = [engine.submit(p, n_new, prefix=prefix) for p in prompts]
+    engine.run_until_drained()
+    return [p + engine.result(r) for p, r in zip(prompts, rids)]
+
+
+def _check_launches(fd, phase, want, what):
+    got = fd.LAUNCHES["flash_decode"]
+    if got != want:
+        raise AssertionError(f"{phase}: flash_decode launched {got} times, "
+                             f"expected {want} ({what})")
+    return {"flash_decode": got, "expected": want, "counted_as": what}
+
+
+def _ms_median(fn, reps=5):
+    """Median host ms of ``fn()``, which must end synchronized."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def serve_int8(fd, dev, card, plain):
+    """Phase 14: ``--weights int8`` per request and with --slots 8."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models.batching import (
+        DecodeEngine,
+    )
+    from container_engine_accelerators_tpu_torch.models.quant import (
+        dequantize_params,
+        param_bytes,
+        serving_params,
+    )
+
+    args, run, loop, solo, slots = _feature_server(["--weights", "int8"])
+    engine, n_new, layers = loop.engine, args.max_new_tokens, args.num_layers
+    rng = np.random.default_rng(FEATURE_SEED)
+    prompts = [rng.integers(0, args.vocab_size, n).tolist()
+               for n in INT8_LENS]
+    fleet_prompts = [rng.integers(0, args.vocab_size, n).tolist()
+                     for n in slot_prompt_lens()]
+    try:
+        _reset(fd)
+        steps0 = engine.steps
+        rows, lat = _ask_each(solo, _greedy_bodies(prompts))
+        srows, slat, swall = _ask_all(slots, _greedy_bodies(fleet_prompts))
+        fleet = engine.steps - steps0
+        launches = _check_launches(
+            fd, "serve_int8", layers * ((n_new - 1) * len(prompts) + fleet),
+            f"{layers} layers x ({n_new - 1} steps x {len(prompts)} requests "
+            f"+ {fleet} fleet steps)")
+        prows, plat = _ask_each(plain[1], _greedy_bodies(prompts))
+    finally:
+        _close(loop, solo, slots)
+    _check_rows("int8", prompts, rows, n_new, args.vocab_size)
+    _check_rows("int8 slots", fleet_prompts, srows, n_new, args.vocab_size)
+    # Exact: a bf16 model on the dequantized weights multiplies the same
+    # bf16 kernels (per request, and in a fleet fed the same submits).
+    q = serving_params(run.params, "int8")
+    deq = _twin(args, dequantize_params(q), dev, torch.bfloat16)
+    for p, r in zip(prompts, rows):
+        if r != _solo_tokens(deq, p, n_new, args.max_prompt_len):
+            raise AssertionError("int8 tokens differ from the dequantized "
+                                 "bf16 model's")
+    fleets = [_engine_tokens(DecodeEngine(m, SLOTS, engine.max_len),
+                             fleet_prompts, n_new)
+              for m in (run.model, deq)]
+    if fleets[0] != fleets[1]:
+        raise AssertionError("int8 fleet tokens differ from the dequantized "
+                             "bf16 fleet's")
+    plain_fleet = [_solo_tokens(plain[0].model, p, n_new,
+                                args.max_prompt_len) for p in fleet_prompts]
+    del deq
+    _phase("serve_int8", card=card,
+           flags=f"{' '.join(SERVE_FLAGS)} --weights int8 [--slots {SLOTS}]",
+           prompt_lens=INT8_LENS, launches=launches,
+           param_bytes={"int8": param_bytes(q),
+                        "bf16": param_bytes(serving_params(run.params,
+                                                           "bf16"))},
+           per_request={"int8_latency_ms": lat, "bf16_latency_ms": plat,
+                        "int8_decode_tokens_per_s":
+                        n_new * len(prompts) / (sum(lat) / 1e3),
+                        "bf16_decode_tokens_per_s":
+                        n_new * len(prompts) / (sum(plat) / 1e3)},
+           slots={"latency_ms": slat, "batch_wall_ms": swall,
+                  "decode_tokens_per_s": n_new * SLOTS / (swall / 1e3),
+                  "fleet_steps": fleet},
+           dequantized_bf16_identical={"per_request_rows": len(prompts),
+                                       "fleet_rows": SLOTS},
+           agreement_with_bf16_original_weights={
+               "per_request": _agreement(rows, prows, prompts),
+               "slots": _agreement(srows, plain_fleet, fleet_prompts)})
+    return launches["flash_decode"]
+
+
+def serve_chunked(fd, dev, card, plain):
+    """Phase 15: ``--prefill-chunk 256`` on ~1000-token prompts."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models.generate import (
+        generate,
+        prefill,
+        prefill_chunked,
+    )
+
+    chunk = CHUNK
+    args, run, loop, solo, slots = _feature_server(["--prefill-chunk",
+                                                    str(chunk)])
+    engine, n_new, layers = loop.engine, args.max_new_tokens, args.num_layers
+    rng = np.random.default_rng(FEATURE_SEED + 1)
+    low, high = args.max_prompt_len * 7 // 8, args.max_prompt_len + 1
+    lens = rng.integers(low, high, 3).tolist()
+    prompts = [rng.integers(0, args.vocab_size, n).tolist() for n in lens]
+    fleet_lens = rng.integers(low, high, SLOTS).tolist()
+    fleet_prompts = [rng.integers(0, args.vocab_size, n).tolist()
+                     for n in fleet_lens]
+    try:
+        _reset(fd)
+        steps0 = engine.steps
+        rows, lat = _ask_each(solo, _greedy_bodies(prompts))
+        srows, slat, swall = _ask_all(slots, _greedy_bodies(fleet_prompts))
+        fleet = engine.steps - steps0
+        launches = _check_launches(
+            fd, "serve_chunked",
+            layers * ((n_new - 1) * len(prompts) + fleet),
+            f"{layers} layers x ({n_new - 1} steps x {len(prompts)} requests "
+            f"+ {fleet} fleet steps); the 256-token pieces take the einsum")
+        prows, plat = _ask_each(plain[1], _greedy_bodies(prompts))
+    finally:
+        _close(loop, solo, slots)
+    _check_rows("chunked", prompts, rows, n_new, args.vocab_size)
+    _check_rows("chunked slots", fleet_prompts, srows, n_new,
+                args.vocab_size)
+
+    # TTFT in process (prefill + the first token read on the host) and the
+    # prefill's peak memory, single-shot vs chunked, on the served model.
+    x, plen = _padded(prompts[0], args.max_prompt_len, dev)
+    cache_len = x.shape[1] + n_new
+    ttft, peak = {}, {}
+    with torch.inference_mode():
+        for name, fn in (
+                ("single_shot", lambda: prefill(run.model, x, plen,
+                                                cache_len)),
+                ("chunked", lambda: prefill_chunked(run.model, x, plen,
+                                                    cache_len, chunk))):
+            fn()[1].argmax(-1).item()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ttft[name] = _ms_median(lambda: fn()[1].argmax(-1).item())
+            peak[name] = torch.cuda.max_memory_allocated() - base
+
+    # f32 at full width: chunked logits equal single-shot's within 1e-4
+    # (atol and rtol: the pieces' GEMMs may sum in another order), and the
+    # greedy tokens are identical.
+    m32 = _twin(args, run.params, dev, torch.float32)
+    worst = 0.0
+    with torch.inference_mode():
+        for p in prompts:
+            x, plen = _padded(p, args.max_prompt_len, dev)
+            c = prefill_chunked(m32, x, plen, x.shape[1] + n_new, chunk)[1]
+            s_ = prefill(m32, x, plen, x.shape[1] + n_new)[1]
+            worst = max(worst, (c - s_).abs().max().item())
+            if not torch.allclose(c, s_, atol=1e-4, rtol=1e-4):
+                raise AssertionError(f"f32 chunked prefill logits differ "
+                                     f"by {(c - s_).abs().max().item()}")
+            a = generate(m32, x, n_new, prompt_len=plen, prefill_chunk=chunk)
+            b = generate(m32, x, n_new, prompt_len=plen)
+            if not torch.equal(a[:, :plen + n_new], b[:, :plen + n_new]):
+                raise AssertionError("f32 chunked greedy tokens differ")
+    del m32
+    _phase("serve_chunked", card=card,
+           flags=f"{' '.join(SERVE_FLAGS)} --prefill-chunk {chunk} "
+                 f"[--slots {SLOTS}]",
+           prompt_lens=lens, fleet_prompt_lens=fleet_lens, launches=launches,
+           ttft_ms={"prompt_len": lens[0], **ttft},
+           prefill_peak_bytes=peak,
+           per_request={"chunked_latency_ms": lat,
+                        "unchunked_latency_ms": plat},
+           slots={"latency_ms": slat, "batch_wall_ms": swall,
+                  "decode_tokens_per_s": n_new * SLOTS / (swall / 1e3)},
+           f32={"max_abs_logit_diff": worst, "tolerance": 1e-4,
+                "greedy_rows_identical": len(prompts)},
+           bf16_agreement_with_unchunked=_agreement(rows, prows, prompts))
+    return launches["flash_decode"]
+
+
+def serve_prefix(fd, dev, card, plain):
+    """Phase 16: ``--prefix-cache`` — 8 requests behind one 512-token
+    prefix, per request and with --slots 8."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models.batching import (
+        DecodeEngine,
+    )
+    from container_engine_accelerators_tpu_torch.models.generate import (
+        generate,
+        init_cache,
+        prefill,
+        prefill_continue,
+        splice_prefix,
+    )
+    from container_engine_accelerators_tpu_torch.models.prefix_cache import (
+        PrefixCache,
+        generate_with_prefix,
+    )
+
+    args, run, loop, solo, slots = _feature_server(["--prefix-cache", "4"])
+    engine, n_new, layers = loop.engine, args.max_new_tokens, args.num_layers
+    rng = np.random.default_rng(FEATURE_SEED + 2)
+    prefix = rng.integers(0, args.vocab_size, PREFIX_LEN).tolist()
+    sfx_lens = rng.integers(SUFFIX_LENS[0], SUFFIX_LENS[1] + 1,
+                            SLOTS).tolist()
+    suffixes = [rng.integers(0, args.vocab_size, n).tolist()
+                for n in sfx_lens]
+    bodies = _greedy_bodies(suffixes, prefix_ids=prefix)
+    full = [prefix + s for s in suffixes]
+    try:
+        _reset(fd)
+        steps0 = engine.steps
+        rows, lat = _ask_each(solo, bodies)  # the first one misses
+        after_solo = run.prefix_cache.stats()
+        srows, slat, swall = _ask_all(slots, bodies)
+        fleet = engine.steps - steps0
+        launches = _check_launches(
+            fd, "serve_prefix", layers * ((n_new - 1) * SLOTS + fleet),
+            f"{layers} layers x ({n_new - 1} steps x {SLOTS} requests + "
+            f"{fleet} fleet steps); the prefix and suffix prefills take the "
+            f"einsum")
+        stats = run.prefix_cache.stats()
+        prows, plat = _ask_each(plain[1], _greedy_bodies(full))
+    finally:
+        _close(loop, solo, slots)
+    _check_rows("prefix", full, rows, n_new, args.vocab_size)
+    _check_rows("prefix slots", full, srows, n_new, args.vocab_size)
+    if after_solo["misses"] != 1 or stats["hits"] != 2 * SLOTS - 1:
+        raise AssertionError(f"prefix cache stats {after_solo} / {stats}")
+
+    # TTFT in process: a hit (copy the block, prefill the suffix) against a
+    # miss's work without the cache (prefill the whole prompt).
+    block, plen = run.prefix_cache.get_or_build(tuple(prefix))
+    before = {k: v.clone() for k, v in block.items()}
+    x, slen = _padded(suffixes[0], args.max_prompt_len, dev)
+    xf, flen = _padded(full[0], args.max_prompt_len, dev)
+
+    def hit():
+        cache = init_cache(run.model, 1, block["cached_key"].shape[2]
+                           + x.shape[1] + n_new, dev)
+        splice_prefix(cache, block, plen, 1)
+        return prefill_continue(run.model, cache, x, plen, plen + slen)[1]
+
+    with torch.inference_mode():
+        hit().argmax(-1).item()
+        ttft = {"hit": _ms_median(lambda: hit().argmax(-1).item()),
+                "no_cache": _ms_median(lambda: prefill(
+                    run.model, xf, flen, xf.shape[1] + n_new)[1]
+                    .argmax(-1).item())}
+    if not all(torch.equal(block[k], before[k]) for k in before):
+        raise AssertionError("a request changed the cached prefix block")
+
+    # f32 at full width: the spliced path's tokens are generate()'s over
+    # the concatenated prompt, per request and through an engine.
+    m32 = _twin(args, run.params, dev, torch.float32)
+    b32, p32 = PrefixCache(m32, args.max_prompt_len).get_or_build(
+        tuple(prefix))
+    want = []
+    with torch.inference_mode():
+        for s, f in zip(suffixes, full):
+            x, slen = _padded(s, args.max_prompt_len, dev)
+            got = generate_with_prefix(m32, b32, p32, x, n_new,
+                                       suffix_len=slen)
+            xf, flen = _padded(f, args.max_prompt_len, dev)
+            ref = generate(m32, xf, n_new, prompt_len=flen)
+            want.append(ref[0, :flen + n_new].tolist())
+            if prefix + got[0, :slen + n_new].tolist() != want[-1]:
+                raise AssertionError("f32 prefix tokens differ from the "
+                                     "concatenated prompt's")
+    fleet32 = _engine_tokens(DecodeEngine(m32, SLOTS, engine.max_len),
+                             suffixes, n_new, prefix=(b32, p32))
+    if [prefix + r for r in fleet32] != want:
+        raise AssertionError("f32 prefix engine tokens differ")
+    del m32, b32
+    later = lat[1:]
+    _phase("serve_prefix", card=card,
+           flags=f"{' '.join(SERVE_FLAGS)} --prefix-cache 4 "
+                 f"[--slots {SLOTS}]",
+           prefix_len=PREFIX_LEN, suffix_lens=sfx_lens, launches=launches,
+           cache_stats=stats,
+           per_request={"latency_ms": lat, "first_miss_ms": lat[0],
+                        "later_hits_median_ms": statistics.median(later),
+                        "no_cache_latency_ms": plat},
+           ttft_ms={"suffix_len": sfx_lens[0], **ttft},
+           slots={"latency_ms": slat, "batch_wall_ms": swall,
+                  "decode_tokens_per_s": n_new * SLOTS / (swall / 1e3)},
+           block_unchanged_after_requests=True,
+           f32={"per_request_rows_identical": SLOTS,
+                "engine_rows_identical": SLOTS},
+           bf16_agreement_with_no_cache={
+               "per_request": _agreement(rows, prows, full),
+               "slots": _agreement(srows, prows, full)})
+    return launches["flash_decode"]
+
+
+def _self_draft_checkpoint(directory, args):
+    """The target's own random weights (seed 0) saved by the port's
+    TrainCheckpointer, as the trainer saves a step."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models.checkpoint import (
+        TrainCheckpointer,
+    )
+    from container_engine_accelerators_tpu_torch.models.lm_train import (
+        create_lm_train_state,
+    )
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+
+    model = TransformerLM(vocab_size=args.vocab_size,
+                          num_layers=args.num_layers,
+                          num_heads=args.num_heads, head_dim=args.head_dim,
+                          mlp_dim=args.mlp_dim, device="cpu")
+    state = create_lm_train_state(model, torch.Generator().manual_seed(0))
+    state.step = 1
+    ck = TrainCheckpointer(directory)
+    ck.save(state)
+    ck.close()
+
+
+def _spec_case(fd, dev, name, flags, plain):
+    """One draft of phase 17: per request and with --slots 8."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import serve_lm
+    from container_engine_accelerators_tpu_torch.models.generate import (
+        generate,
+    )
+    from container_engine_accelerators_tpu_torch.models.speculative import (
+        generate_speculative,
+    )
+
+    args, run, loop, solo, slots = _feature_server(flags)
+    engine, n_new, k = loop.engine, args.max_new_tokens, args.speculative
+    d_layers = run.draft.num_layers
+    rng = np.random.default_rng(FEATURE_SEED + 3)
+    prompts = [rng.integers(0, args.vocab_size, n).tolist()
+               for n in INT8_LENS]
+    fleet_prompts = [rng.integers(0, args.vocab_size, n).tolist()
+                     for n in slot_prompt_lens()]
+    sampled = {"prompt_ids": [rng.integers(0, args.vocab_size, 12).tolist()],
+               "temperature": 0.8, "seed": 4321}
+    try:
+        _reset(fd)
+        r0, a0, d0 = run.spec_rounds, run.spec_accepted, run.spec_drafted
+        e0 = (engine.spec_rounds, engine.spec_accepted, engine.spec_drafted)
+        rows, lat = _ask_each(solo, _greedy_bodies(prompts))
+        per_req = {"rounds": run.spec_rounds - r0,
+                   "accepted": run.spec_accepted - a0,
+                   "drafted": run.spec_drafted - d0}
+        twice = _ask_each(solo, [sampled, sampled])[0]
+        srows, slat, swall = _ask_all(slots, _greedy_bodies(fleet_prompts))
+        fleet = {"rounds": engine.spec_rounds - e0[0],
+                 "accepted": engine.spec_accepted - e0[1],
+                 "drafted": engine.spec_drafted - e0[2]}
+        stwice = _ask_each(slots, [sampled, sampled])[0]
+        rounds = (run.spec_rounds - r0) + (engine.spec_rounds - e0[0])
+        launches = _check_launches(
+            fd, f"serve_spec ({name})", d_layers * (k + 1) * rounds,
+            f"{d_layers} draft layers x {k + 1} draft steps x {rounds} "
+            f"rounds (per request and fleet); verify chunks and prefills "
+            f"take the einsum")
+        prows, plat = _ask_each(plain[1], _greedy_bodies(prompts))
+    finally:
+        _close(loop, solo, slots)
+    _check_rows(name, prompts, rows, n_new, args.vocab_size)
+    _check_rows(f"{name} slots", fleet_prompts, srows, n_new,
+                args.vocab_size)
+    if twice[0] != twice[1] or stwice[0] != stwice[1]:
+        raise AssertionError(f"{name}: a sampled request gave other tokens "
+                             f"for the same seed")
+    plain_fleet = [_solo_tokens(plain[0].model, p, n_new,
+                                args.max_prompt_len) for p in fleet_prompts]
+
+    # f32 at full width: speculative greedy tokens are generate()'s.
+    m32 = _twin(args, run.params, dev, torch.float32)
+    d32 = _twin(args, serve_lm.load_draft_params(args), dev, torch.float32,
+                num_layers=d_layers)
+    f32_stats = {"accepted": 0, "drafted": 0}
+    with torch.inference_mode():
+        for p in prompts:
+            x, plen = _padded(p, args.max_prompt_len, dev)
+            got, st = generate_speculative(m32, d32, x, n_new, k=k,
+                                           prompt_len=plen)
+            ref = generate(m32, x, n_new, prompt_len=plen)
+            if not torch.equal(got[:, :plen + n_new], ref[:, :plen + n_new]):
+                raise AssertionError(f"{name}: f32 speculative tokens differ "
+                                     f"from generate's")
+            f32_stats["accepted"] += int(st["accepted"].sum())
+            f32_stats["drafted"] += int(st["drafted"].sum())
+    del m32, d32
+
+    def rate(st):
+        return st["accepted"] / max(st["drafted"], 1)
+
+    return {"draft_layers": d_layers, "k": k, "launches": launches,
+            "per_request": {"latency_ms": lat, "plain_latency_ms": plat,
+                            "acceptance": rate(per_req),
+                            "tokens_per_round": 1 + per_req["accepted"]
+                            / max(per_req["rounds"], 1), **per_req},
+            "slots": {"latency_ms": slat, "batch_wall_ms": swall,
+                      "decode_tokens_per_s": n_new * SLOTS / (swall / 1e3),
+                      "acceptance": rate(fleet),
+                      "tokens_per_lane_round": 1 + fleet["accepted"]
+                      / max(fleet["drafted"] / k, 1), **fleet},
+            "sampled_same_tokens_twice": {"per_request": True,
+                                          "slots": True},
+            "f32": {"greedy_rows_identical_to_generate": len(prompts),
+                    "acceptance": rate(f32_stats)},
+            "bf16_agreement_with_plain": {
+                "per_request": _agreement(rows, prows, prompts),
+                "slots": _agreement(srows, plain_fleet, fleet_prompts)}}
+
+
+def serve_spec(fd, dev, card, plain):
+    """Phase 17: ``--speculative 4`` with a random 3-layer draft
+    (acceptance ~0, the worst case), then with the target's own weights
+    as its draft through --draft-checkpoint-dir (acceptance ~1)."""
+    k = str(SPEC_K)
+    random = _spec_case(fd, dev, "random draft", [
+        "--speculative", k, "--draft-layers", "3"], plain)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_draft_") as tmp:
+        args = plain[0].args
+        _self_draft_checkpoint(tmp, args)
+        self_draft = _spec_case(fd, dev, "self draft", [
+            "--checkpoint-dir", tmp, "--speculative", k, "--draft-layers",
+            str(args.num_layers), "--draft-checkpoint-dir", tmp], plain)
+    if self_draft["per_request"]["acceptance"] < 0.5:
+        raise AssertionError("the self-draft accepted under half its "
+                             "proposals")
+    _phase("serve_spec", card=card,
+           flags=f"{' '.join(SERVE_FLAGS)} --speculative {SPEC_K} "
+                 f"[--slots {SLOTS}]",
+           prompt_lens=INT8_LENS, fleet_prompt_lens=slot_prompt_lens(),
+           random_draft=random, self_draft=self_draft)
+    return (random["launches"]["flash_decode"]
+            + self_draft["launches"]["flash_decode"])
+
+
+def _plain_server():
+    """The per-request server at SERVE_FLAGS (bf16 compute on the seed-0
+    weights): the feature phases' reference.  -> (run, server)."""
+    from container_engine_accelerators_tpu_torch.cmd import serve_lm
+
+    args = serve_lm.parse_args(SERVE_FLAGS + ["--port", "0"])
+    run = serve_lm.build_generate(args)
+    run.args = args
+    return run, _http_server(serve_lm.make_handler(run, args))
+
+
 def _timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1619,6 +2218,14 @@ def main():
     fd_launches += _timed("serve_slots", serve_slots, fd, dev, smi)
     _timed("train_resume", train_resume, dev, losses, smi)
     _timed("profile_dir", profile_dir, step_device_ms, smi)
+    plain = _plain_server()
+    for name, phase in (("serve_int8", serve_int8),
+                        ("serve_chunked", serve_chunked),
+                        ("serve_prefix", serve_prefix),
+                        ("serve_spec", serve_spec)):
+        fd_launches += _timed(name, phase, fd, dev, smi, plain)
+    _shutdown(*plain[1])
+    del plain
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

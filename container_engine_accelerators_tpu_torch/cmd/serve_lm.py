@@ -13,14 +13,22 @@ one decode step over N lanes:
     GET  /healthz   -> ok
 
 Run: ``python -m container_engine_accelerators_tpu_torch.cmd.serve_lm
-[--flash-decode] [--weights bf16] [--slots N] [--checkpoint-dir D] ...``.
+[--flash-decode] [--weights bf16|int8] [--slots N] [--checkpoint-dir D]
+[--prefill-chunk T] [--prefix-cache N] [--speculative K
+[--draft-layers L] [--draft-checkpoint-dir D]] ...``.
 With ``--checkpoint-dir`` it serves the newest step the port's trainer
 saved there (``models/checkpoint.py``); without one, or before the first
-save, random weights drawn from a seeded ``torch.Generator``.  The flags
-of the JAX server that the port does not serve yet (speculative
-decoding, the prefix cache, tensor parallelism, MoE, int8 weights,
-chunked prefill) are accepted by the parser and rejected by
-:func:`validate_args` with a message naming the slice that brings them.
+save, random weights drawn from a seeded ``torch.Generator``.
+
+The single-GPU features compose as in the JAX server: ``--weights int8``
+(``models/quant.py``) with everything; ``--prefix-cache``
+(``models/prefix_cache.py``: a request's ``prefix_ids`` are prefilled
+once and their block copied into each request's cache) and
+``--speculative`` (``models/speculative.py``) with each other and with
+``--slots``; ``--prefill-chunk`` (``generate.prefill_chunked``) with
+``--slots`` but not with those two.  The flags of the multi-GPU slice
+(``--tp > 1``, ``--num-experts``) are accepted by the parser and
+rejected by :func:`validate_args` with a message naming that slice.
 """
 
 import argparse
@@ -37,7 +45,8 @@ from container_engine_accelerators_tpu_torch.models.batching import bucket_len
 
 log = logging.getLogger("serve-lm")
 
-_LATER = "is not ported yet: it comes with a later serving slice of the PyTorch port"
+_LATER = ("is not ported yet: it comes with a later serving slice of the "
+          "PyTorch port (the multi-GPU slice)")
 
 
 def parse_args(argv=None):
@@ -55,11 +64,14 @@ def parse_args(argv=None):
                    help="GQA KV heads (0 = MHA); shrinks the KV cache and "
                         "the per-token cache read by heads/kv-heads")
     p.add_argument("--num-experts", type=int, default=0,
-                   help="MoE-LM decode (not ported yet)")
+                   help="MoE-LM decode (not ported yet: the multi-GPU "
+                        "slice)")
     p.add_argument("--weights", choices=("f32", "bf16", "int8"),
                    default="f32",
-                   help="serving weight precision (models/quant.py); "
-                        "int8 is not ported yet")
+                   help="serving weight precision (models/quant.py): bf16, "
+                        "or int8 kernels with f32 per-channel scales "
+                        "(quantized from the bf16 cast; the embedding and "
+                        "norms in bf16)")
     p.add_argument("--flash-decode", action="store_true",
                    help="hand-written CUDA cache-attention kernel for "
                         "decode steps (ops/flash_decode.py): streams the "
@@ -76,103 +88,180 @@ def parse_args(argv=None):
                         "(cmd/train_lm.py --checkpoint-dir)")
     p.add_argument("--slots", type=int, default=0,
                    help="continuous batching over this many decode lanes "
-                        "(0: one request at a time)")
+                        "(0: one request at a time); composes with "
+                        "--prefix-cache, --speculative (a speculative "
+                        "round per fleet step) and --prefill-chunk")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel degree (only 1 is ported)")
     p.add_argument("--speculative", type=int, default=0, metavar="K",
-                   help="speculative decoding (not ported yet)")
+                   help="speculative decoding (models/speculative.py): a "
+                        "draft proposes K tokens a round, the target "
+                        "verifies them in one forward; greedy requests "
+                        "give the target's own tokens, sampled ones its "
+                        "distribution (rejection sampling).  0 = off")
     p.add_argument("--draft-layers", type=int, default=0,
-                   help="draft depth for --speculative")
+                   help="draft depth for --speculative (0 = num_layers/4, "
+                        "min 1)")
     p.add_argument("--draft-checkpoint-dir", default=None,
-                   help="checkpoint for the --speculative draft model")
+                   help="the --speculative draft's weights: the newest step "
+                        "the trainer saved here (without one the draft is "
+                        "random and acceptance ~1/vocab)")
     p.add_argument("--prefill-chunk", type=int, default=0, metavar="T",
-                   help="chunked prefill (not ported yet)")
+                   help="prefill prompts in T-token pieces (bounds the "
+                        "[prompt x cache] score tensor; same tokens).  0 = "
+                        "single-shot; per request and in the --slots "
+                        "engine, not with --speculative or --prefix-cache")
     p.add_argument("--prefix-cache", type=int, default=0, metavar="N",
-                   help="prefix KV cache (not ported yet)")
+                   help="cache up to N shared prompt prefixes' KV blocks "
+                        "(models/prefix_cache.py): requests carrying "
+                        "\"prefix_ids\" prefill only their suffix after "
+                        "the first.  0 = off")
     return p.parse_args(argv)
 
 
 def validate_args(args):
-    """Flag gates: the JAX server's composition rules, plus every feature
-    this slice of the port does not serve yet."""
+    """Flag gates: the JAX server's composition rules, plus the features
+    of the multi-GPU slice, which the port does not serve yet."""
     if args.speculative and args.tp > 1:
         raise SystemExit("--speculative and --tp > 1 are mutually "
                          "exclusive (the draft runs single-device)")
     if args.prefill_chunk < 0:
         raise SystemExit("--prefill-chunk must be >= 0")
+    if args.prefill_chunk and (args.speculative or args.prefix_cache):
+        raise SystemExit("--prefill-chunk wires into the plain path only; "
+                         "the speculative and prefix-cache paths still run "
+                         "single-shot prefill, so combining would silently "
+                         "drop the promised memory bound — drop one flag")
     if args.slots < 0:
         raise SystemExit("--slots must be >= 0")
     unported = [
-        ("--slots with --prefix-cache", args.slots and args.prefix_cache),
-        ("--slots with --speculative", args.slots and args.speculative),
         ("--slots with --tp > 1", args.slots and args.tp > 1),
-        ("--speculative", args.speculative),
-        ("--prefix-cache", args.prefix_cache),
         ("--tp > 1 (tensor parallelism)", args.tp > 1),
         ("--num-experts (MoE)", args.num_experts),
-        ("--weights int8", args.weights == "int8"),
-        ("--prefill-chunk", args.prefill_chunk),
     ]
     for flag, on in unported:
         if on:
             raise SystemExit(f"{flag} {_LATER}")
 
 
-def load_params(args, model) -> dict:
-    """The f32 weights to serve, as a state dict on the CPU: the newest
-    step under ``--checkpoint-dir``, else random (seed 0).  The
+def _model_cfg(args, **over) -> dict:
+    cfg = dict(vocab_size=args.vocab_size, num_layers=args.num_layers,
+               num_heads=args.num_heads, head_dim=args.head_dim,
+               mlp_dim=args.mlp_dim, num_kv_heads=args.kv_heads or None)
+    cfg.update(over)
+    return cfg
+
+
+def _restore(directory, cfg):
+    """(f32 weights as a CPU state dict, step) of the newest step the
+    port's trainer saved under ``directory``, or (None, None).  The
     checkpoint is read as the JAX server reads it, into the train-shaped
-    state the port's trainer saves (the model and its AdamW), whose
-    weights are then taken."""
+    state (the model and its AdamW), whose weights are then taken."""
+    from container_engine_accelerators_tpu_torch.models.checkpoint import (
+        TrainCheckpointer,
+    )
+    from container_engine_accelerators_tpu_torch.models.lm_train import (
+        create_lm_train_state,
+    )
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+
+    train_model = TransformerLM(**cfg, device="cpu")
+    # The optimizer must match cmd/train_lm.py's (AdamW) so the
+    # checkpoint's optimizer state loads; serving reads the weights.
+    state = create_lm_train_state(train_model, optimizer=torch.optim.AdamW(
+        train_model.parameters(), lr=3e-4, weight_decay=0.1))
+    ck = TrainCheckpointer(os.path.abspath(directory))
+    state, step = ck.restore_latest(state)
+    ck.close()
+    if step is None:
+        return None, None
+    return {k: v.detach() for k, v in train_model.state_dict().items()}, step
+
+
+def _random_params(cfg, seed: int) -> dict:
+    """Random f32 weights for ``cfg``, drawn from a seeded generator."""
     from container_engine_accelerators_tpu_torch.models.transformer import (
         TransformerLM,
         init_params,
     )
 
-    if args.checkpoint_dir:
-        from container_engine_accelerators_tpu_torch.models.checkpoint import (
-            TrainCheckpointer,
-        )
-        from container_engine_accelerators_tpu_torch.models.lm_train import (
-            create_lm_train_state,
-        )
+    return init_params(TransformerLM(**cfg, decode=True, device="meta"),
+                       torch.Generator().manual_seed(seed))
 
-        train_model = TransformerLM(
-            vocab_size=args.vocab_size, num_layers=args.num_layers,
-            num_heads=args.num_heads, head_dim=args.head_dim,
-            mlp_dim=args.mlp_dim, num_kv_heads=args.kv_heads or None,
-            device="cpu")
-        # The optimizer must match cmd/train_lm.py's (AdamW) so the
-        # checkpoint's optimizer state loads; serving reads the weights.
-        state = create_lm_train_state(
-            train_model, optimizer=torch.optim.AdamW(
-                train_model.parameters(), lr=3e-4, weight_decay=0.1))
-        ck = TrainCheckpointer(os.path.abspath(args.checkpoint_dir))
-        state, step = ck.restore_latest(state)
-        ck.close()
+
+def load_params(args) -> dict:
+    """The f32 weights to serve, as a state dict on the CPU: the newest
+    step under ``--checkpoint-dir``, else random (seed 0)."""
+    cfg = _model_cfg(args)
+    if args.checkpoint_dir:
+        params, step = _restore(args.checkpoint_dir, cfg)
         if step is not None:
             log.info("loaded step-%d params from %s", step,
                      args.checkpoint_dir)
-            return {k: v.detach() for k, v in
-                    train_model.state_dict().items()}
+            return params
         log.info("no checkpoint found; serving random params")
     else:
         log.info("serving randomly-initialized params (demo mode)")
-    return init_params(model, torch.Generator().manual_seed(0))
+    return _random_params(cfg, 0)
+
+
+def _draft_cfg(args) -> dict:
+    """The ``--speculative`` draft: ``--draft-layers`` layers, else
+    ``max(1, num_layers // 4)``, at the target's widths."""
+    return _model_cfg(args, num_layers=args.draft_layers
+                      or max(1, args.num_layers // 4))
+
+
+def load_draft_params(args) -> dict:
+    """The draft's f32 weights: the newest step under
+    ``--draft-checkpoint-dir``, else random (seed 1)."""
+    cfg = _draft_cfg(args)
+    if args.draft_checkpoint_dir:
+        params, step = _restore(args.draft_checkpoint_dir, cfg)
+        log.info("draft: %s params from %s",
+                 f"step-{step}" if step is not None
+                 else "NO checkpoint found; random",
+                 args.draft_checkpoint_dir)
+        if params is not None:
+            return params
+    else:
+        log.info("draft: randomly-initialized %d-layer model (exact but "
+                 "acceptance ~1/vocab; train one with cmd/train_lm.py for "
+                 "real speedup)", cfg["num_layers"])
+    return _random_params(cfg, 1)
 
 
 def build_generate(args):
     """Build the decode model on ``args.device`` with the weights of
-    :func:`load_params` and return ``run(prompt, prompt_len, temperature,
-    seed, sample) -> [1, bucket + max_new] tokens`` (on the CPU).  Calls
-    are serialized under one lock: the handler threads share the device.
-    ``run.model`` is the model and ``run.params`` its f32 weights (before
-    ``--weights``)."""
+    :func:`load_params` (cast or quantized to ``--weights``), and with
+    ``--speculative`` its draft, and return ``run(prompt, prompt_len,
+    temperature, seed, sample, prefix=None) -> [1, bucket + max_new]
+    tokens`` (on the CPU) for a bucket-padded [1, bucket] prompt — with
+    ``prefix=(block, draft block or None, prefix_len)`` the prompt is the
+    suffix after a prefix-cache entry.  Calls are serialized under one
+    lock: the handler threads share the device.
+
+    ``run.model`` is the model, ``run.params`` its f32 weights (before
+    ``--weights``), ``run.draft`` the draft model or None;
+    ``run.spec_rounds`` / ``spec_drafted`` / ``spec_accepted`` count the
+    per-request speculative rounds.  With ``--prefix-cache``,
+    ``run.prefix_cache`` (and ``run.draft_prefix_cache`` with
+    ``--speculative``) hold the prefix blocks."""
     from container_engine_accelerators_tpu_torch.models.generate import (
         generate,
     )
+    from container_engine_accelerators_tpu_torch.models.prefix_cache import (
+        PrefixCache,
+        generate_with_prefix,
+    )
     from container_engine_accelerators_tpu_torch.models.quant import (
         serving_params,
+    )
+    from container_engine_accelerators_tpu_torch.models.speculative import (
+        generate_speculative,
+        generate_speculative_sampled,
     )
     from container_engine_accelerators_tpu_torch.models.transformer import (
         TransformerLM,
@@ -182,33 +271,82 @@ def build_generate(args):
     )
 
     device = resolve_device(args.device)
-    model = TransformerLM(
-        vocab_size=args.vocab_size, num_layers=args.num_layers,
-        num_heads=args.num_heads, head_dim=args.head_dim,
-        mlp_dim=args.mlp_dim, num_kv_heads=args.kv_heads or None,
-        decode=True, use_flash_decode=args.flash_decode, device=device,
-    )
-    params = f32_params = load_params(args, model)
+    model = TransformerLM(**_model_cfg(args), decode=True,
+                          quant=args.weights == "int8",
+                          use_flash_decode=args.flash_decode, device=device)
+    params = f32_params = load_params(args)
     if args.weights != "f32":
         params = serving_params(params, args.weights)
         log.info("serving weights cast to %s", args.weights)
     model.load_state_dict(params)  # casts to the compute dtype once
     model.eval()
 
-    lock = threading.Lock()
+    # Speculative decoding: greedy requests draft/verify with the
+    # argmax-match rule (the target's own greedy tokens); sampled
+    # requests with distribution-exact rejection sampling.  The draft
+    # keeps f32 weights cast to the compute dtype whatever --weights says,
+    # as the JAX server's does.
+    draft = None
+    if args.speculative:
+        draft = TransformerLM(**_draft_cfg(args), decode=True,
+                              use_flash_decode=args.flash_decode,
+                              device=device)
+        draft.load_state_dict(load_draft_params(args))
+        draft.eval()
 
-    def run(prompt, prompt_len, temperature, seed, sample):
+    lock = threading.Lock()
+    n_new = args.max_new_tokens
+
+    def run(prompt, prompt_len, temperature, seed, sample, prefix=None):
         with lock, torch.inference_mode():
+            prompt = prompt.to(device)
+            sample = sample and temperature > 0
             gen = (torch.Generator(device=device).manual_seed(seed)
                    if sample else None)
-            out = generate(model, prompt.to(device), args.max_new_tokens,
-                           temperature=temperature if sample else 0.0,
-                           generator=gen, prompt_len=prompt_len)
+            if draft is not None:
+                if sample:
+                    out, stats = generate_speculative_sampled(
+                        model, draft, prompt, n_new, k=args.speculative,
+                        temperature=temperature, generator=gen,
+                        prompt_len=prompt_len, prefix=prefix)
+                else:
+                    out, stats = generate_speculative(
+                        model, draft, prompt, n_new, k=args.speculative,
+                        prompt_len=prompt_len, prefix=prefix)
+                run.spec_rounds += stats["rounds"]
+                run.spec_drafted += int(stats["drafted"].sum())
+                run.spec_accepted += int(stats["accepted"].sum())
+                log.debug("spec acceptance: %d/%d", run.spec_accepted,
+                          run.spec_drafted)
+            elif prefix is not None:
+                out = generate_with_prefix(
+                    model, prefix[0], prefix[2], prompt, n_new,
+                    temperature=temperature if sample else 0.0,
+                    generator=gen, suffix_len=prompt_len)
+            else:
+                out = generate(model, prompt, n_new,
+                               temperature=temperature if sample else 0.0,
+                               generator=gen, prompt_len=prompt_len,
+                               prefill_chunk=args.prefill_chunk or None)
             return out.cpu()
 
     run.model = model
     run.params = f32_params
-    # Warm up (builds the CUDA kernel with --flash-decode) before traffic.
+    run.draft = draft
+    run.spec_rounds = run.spec_drafted = run.spec_accepted = 0
+    # Prefix caching: requests that mark their shared system prompt
+    # ("prefix_ids") prefill only the suffix once its block is cached.
+    run.prefix_cache = run.draft_prefix_cache = None
+    if args.prefix_cache:
+        run.prefix_cache = PrefixCache(model, args.max_prompt_len,
+                                       args.prefix_cache)
+        if draft is not None:
+            # The draft needs its OWN block for the shared prompt.
+            run.draft_prefix_cache = PrefixCache(draft, args.max_prompt_len,
+                                                 args.prefix_cache)
+    # Warm up (builds the CUDA kernels with --flash-decode) before
+    # traffic: the greedy path, which is the speculative one with
+    # --speculative.
     warm = bucket_len(1, args.max_prompt_len)
     run(torch.zeros((1, warm), dtype=torch.long), 1, 0.0, 0, False)
     return run
@@ -217,14 +355,24 @@ def build_generate(args):
 def build_engine(run, args):
     """Continuous-batching engine over ``run.model``, sized for this
     server's admission bound: a lane holds the largest prompt bucket plus
-    ``--max-new-tokens``."""
+    ``--max-new-tokens``, plus another prompt bucket with the prefix cache
+    (prefix bucket + suffix bucket), plus ``k`` tail slots with
+    ``--speculative`` (a final verify round can overshoot).  With
+    ``--speculative`` it is a ``SpecDecodeEngine`` over ``run.draft``."""
     from container_engine_accelerators_tpu_torch.models.batching import (
         DecodeEngine,
+        SpecDecodeEngine,
     )
 
     prompt_bucket = bucket_len(args.max_prompt_len, args.max_prompt_len)
-    return DecodeEngine(run.model, max_slots=args.slots,
-                        max_len=prompt_bucket + args.max_new_tokens)
+    max_len = (prompt_bucket + args.max_new_tokens
+               + (prompt_bucket if args.prefix_cache else 0)
+               + args.speculative)
+    if args.speculative:
+        return SpecDecodeEngine(run.model, run.draft, max_slots=args.slots,
+                                max_len=max_len, k=args.speculative)
+    return DecodeEngine(run.model, max_slots=args.slots, max_len=max_len,
+                        prefill_chunk=args.prefill_chunk or None)
 
 
 def start_engine(run, args):
@@ -239,7 +387,9 @@ def start_engine(run, args):
 
     engine_loop = EngineLoop(build_engine(run, args))
     engine_loop.generate([0], 2)
-    log.info("continuous batching: %d decode slots", args.slots)
+    log.info("continuous batching: %d decode slots%s", args.slots,
+             f" (speculative, k={args.speculative})" if args.speculative
+             else "")
     return engine_loop
 
 
@@ -289,15 +439,49 @@ def make_handler(run, args, engine_loop=None):
                      for t in p][: args.max_prompt_len] or [0]
                     for p in prompts
                 ]
-                # Optional shared system prompt: without the prefix cache
+                # Optional shared system prompt.  With the prefix cache
+                # on, its block is prefilled once and copied into each
+                # request's cache; otherwise (cache off, prefix too long)
                 # it is plain concatenation — same tokens, full prefill.
-                # The combined context is capped at --max-prompt-len.
+                # The combined context is capped at --max-prompt-len on
+                # every path, so the tokens do not depend on the path.
                 prefix_ids = [int(t) % args.vocab_size
                               for t in (req.get("prefix_ids") or [])]
-                if prefix_ids:
+                use_prefix = (run.prefix_cache is not None
+                              and 0 < len(prefix_ids) < args.max_prompt_len)
+                if prefix_ids and not use_prefix:
                     clean = [(prefix_ids + ids)[: args.max_prompt_len]
                              for ids in clean]
-                if engine_loop is not None:
+                if use_prefix:
+                    room = args.max_prompt_len - len(prefix_ids)
+                    key = tuple(prefix_ids)
+                    block, pfx_len = run.prefix_cache.get_or_build(key)
+                    d_block = (None if run.draft_prefix_cache is None
+                               else run.draft_prefix_cache.get_or_build(
+                                   key)[0])
+                    rows = [ids[:room] for ids in clean]
+                    if engine_loop is not None:
+                        # The lanes start from copies of the block (the
+                        # speculative engine's draft lanes from the
+                        # draft's); sampled rows on seed + i, as below.
+                        pfx = ((block, pfx_len) if d_block is None
+                               else (block, d_block, pfx_len))
+                        outs = engine_loop.generate_many(
+                            rows, max_new, prefix=pfx,
+                            temperature=temperature,
+                            seeds=[seed + i for i in range(len(rows))])
+                        toks = [prefix_ids + ids + gen[:max_new]
+                                for ids, gen in zip(rows, outs)]
+                    else:
+                        toks = []
+                        for i, ids in enumerate(rows):
+                            padded, plen = pad_row(ids)
+                            out = run(padded, plen, temperature, seed + i,
+                                      temperature > 0,
+                                      (block, d_block, pfx_len))
+                            toks.append(prefix_ids
+                                        + out[0][: plen + max_new].tolist())
+                elif engine_loop is not None:
                     # Continuous batching: the request's rows join the
                     # shared fleet concurrently, sampled rows as lanes on
                     # their own generators (seed + i, as below).

@@ -1,7 +1,7 @@
 """Continuous-batching decode engine (slot-based serving) — counterpart of
 ``container_engine_accelerators_tpu/models/batching.py`` (``bucket_len``,
-``DecodeEngine`` and ``EngineLoop``; its prefix-cache and mesh branches,
-and ``SpecDecodeEngine``, come with later serving slices of the port).
+``DecodeEngine`` with its prefix-cache branch, ``SpecDecodeEngine`` and
+``EngineLoop``; the mesh branch comes with the multi-GPU slice).
 
 Per-request ``generate()`` leaves the card idle between requests and pays
 each request's decode serially.  This engine keeps one single-token step
@@ -27,6 +27,12 @@ flip (the JAX module's own caveat).  A sampled lane draws from its own
 ``torch.Generator``, seeded at submit, one [1, V] ``torch.rand`` per
 token, as per-request sampling does: its tokens do not depend on what
 else shares the fleet.
+
+A request may start from a cached prefix block (``submit(prefix=)``):
+its lane is the block copied into a fresh lane, and its prompt ids are
+the suffix.  ``SpecDecodeEngine`` runs speculative rounds over the fleet
+(``models/speculative.py::spec_round``) with a parallel draft-cache
+fleet.
 """
 
 import collections
@@ -41,7 +47,14 @@ from container_engine_accelerators_tpu_torch.models.generate import (
     _rewind_cache_index,
     init_cache,
     prefill,
+    prefill_chunked,
+    prefill_continue,
+    prefix_bucket_len,
     sample_token,
+    splice_prefix,
+)
+from container_engine_accelerators_tpu_torch.models.speculative import (
+    spec_round,
 )
 
 log = logging.getLogger(__name__)
@@ -64,19 +77,22 @@ def _lane_put(full, one, slot):
     return full
 
 
-def _prefill_slot(model, prompt, prompt_len, max_len):
+def _prefill_lane(model, prompt, prompt_len, max_len, prefix=None,
+                  chunk=None):
     """Batch-1 prefill of a bucket-padded prompt into a fresh one-lane
-    cache -> (cache cued at ``prompt_len``, greedy first token [1])."""
-    cache, last = prefill(model, prompt, prompt_len, max_len)
-    return cache, last.argmax(-1)
-
-
-def _prefill_slot_sampled(model, prompt, prompt_len, max_len, generator,
-                          temperature):
-    """As :func:`_prefill_slot`, the first token drawn from the request's
-    own generator, exactly as per-request sampling draws it."""
-    cache, last = prefill(model, prompt, prompt_len, max_len)
-    return cache, sample_token(last, temperature, generator)
+    cache -> (cache cued at the request's depth, last logits [1, V]).
+    With ``prefix=(block, prefix_len)`` the block is copied into the lane
+    and ``prompt`` is the suffix (the one copy of the splice rule for
+    lanes); else ``chunk`` prefills in pieces (``prefill_chunked``)."""
+    if prefix is not None:
+        block, prefix_len = prefix
+        cache = init_cache(model, 1, max_len, prompt.device)
+        splice_prefix(cache, block, prefix_len, 1)
+        return prefill_continue(model, cache, prompt, prefix_len,
+                                prefix_len + prompt_len)
+    if chunk:
+        return prefill_chunked(model, prompt, prompt_len, max_len, chunk)
+    return prefill(model, prompt, prompt_len, max_len)
 
 
 def _insert_slot(cache, pos, last_tok, active, slot_cache, tok0, slot,
@@ -119,19 +135,29 @@ class DecodeEngine:
     ``TransformerLM`` (which holds its weights).
 
     ``max_len`` is each slot's cache length: every request needs
-    ``bucket(prompt) <= max_len`` and ``prompt_len + max_new <= max_len``.
-    The engine is single-threaded (:class:`EngineLoop` serializes access)
-    and runs under ``torch.inference_mode``, which each method enters
-    itself: grad mode is per thread.  ``steps`` counts fleet steps.
+    ``bucket(prompt) <= max_len`` and ``prompt_len + max_new <= max_len``
+    (plus the prefix's depth, and ``_margin``).  ``prefill_chunk``
+    prefills a prompt without a prefix in pieces of that many tokens
+    (same tokens).  The engine is single-threaded (:class:`EngineLoop`
+    serializes access) and runs under ``torch.inference_mode``, which
+    each method enters itself: grad mode is per thread.  ``steps``
+    counts fleet steps.
     """
 
+    # Extra tail slots a request must leave free in its lane; the
+    # speculative subclass sets this to k (a final verify round may
+    # write up to k positions past the last emitted token).
+    _margin = 0
+
     def __init__(self, model, max_slots: int, max_len: int,
-                 eos_id: Optional[int] = None):
+                 eos_id: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None):
         if not getattr(model, "decode", False):
             raise ValueError("DecodeEngine needs a model with decode=True")
         self.model = model
         self.max_slots, self.max_len = max_slots, max_len
         self.eos_id = eos_id
+        self.prefill_chunk = prefill_chunk
         self.device = model.embed.device
         with torch.inference_mode():
             self.cache = init_cache(model, max_slots, max_len, self.device)
@@ -157,11 +183,16 @@ class DecodeEngine:
         return len(self._req)
 
     @torch.inference_mode()
-    def submit(self, prompt_ids: List[int], max_new: int,
+    def submit(self, prompt_ids: List[int], max_new: int, prefix=None,
                temperature: float = 0.0, seed: int = 0) -> int:
         """Claim a free slot, prefill it, emit the first token.  Returns a
         request id; raises if the fleet is full or the request does not
         fit a slot.
+
+        ``prefix`` is an optional ``(block, prefix_len)`` entry of a
+        ``PrefixCache`` on this engine's model: the lane starts from a
+        copy of the block and ``prompt_ids`` are the SUFFIX — the
+        per-request prefix path's tokens.
 
         ``temperature > 0`` makes this a sampled lane on its own
         ``torch.Generator`` seeded with ``seed``: its tokens equal
@@ -172,28 +203,44 @@ class DecodeEngine:
             raise RuntimeError("no free slot — step() until one drains")
         plen = len(prompt_ids)
         bucket = bucket_len(plen, self.max_len)
+        start = 0
+        if prefix is not None:
+            start = int(prefix[1])
+            # The suffix block writes slots [start, start + bucket); the
+            # port's cache write raises past the lane, so an over-long
+            # request is refused up front.
+            pfx_bucket = prefix_bucket_len(prefix[0])
+            if pfx_bucket > self.max_len or start + bucket > self.max_len:
+                raise ValueError(
+                    f"spliced request needs prefix bucket {pfx_bucket} and "
+                    f"suffix bucket slots [{start}, {start + bucket}); slot "
+                    f"holds {self.max_len}")
         # The capacity guard is also the frozen-cursor invariant: the
-        # lane's cursor ends at plen + max_new - 1 < max_len, and a
-        # retired lane keeps writing at that cursor every fleet step.
-        if plen > bucket or plen + max_new > self.max_len:
-            raise ValueError(f"request needs {plen}+{max_new} tokens; slot "
-                             f"holds {self.max_len}")
+        # lane's cursor ends below start + plen + max_new + _margin <=
+        # max_len, and a retired lane keeps writing at that cursor every
+        # fleet step.
+        if (plen > bucket
+                or start + plen + max_new + self._margin > self.max_len):
+            raise ValueError(f"request needs {start}+{plen}+{max_new}+"
+                             f"{self._margin} tokens; slot holds "
+                             f"{self.max_len}")
         slot = self._free.pop()
         prompt = torch.tensor([list(prompt_ids) + [0] * (bucket - plen)],
                               dtype=torch.long, device=self.device)
+        slot_cache, last = _prefill_lane(self.model, prompt, plen,
+                                         self.max_len, prefix,
+                                         self.prefill_chunk)
         sampled = bool(temperature and temperature > 0)
         generator = None
         if sampled:
             generator = torch.Generator(device=self.device).manual_seed(
                 int(seed))
-            slot_cache, tok0 = _prefill_slot_sampled(
-                self.model, prompt, plen, self.max_len, generator,
-                temperature)
+            tok0 = sample_token(last, temperature, generator)
         else:
-            slot_cache, tok0 = _prefill_slot(self.model, prompt, plen,
-                                             self.max_len)
+            tok0 = last.argmax(-1)
         _insert_slot(self.cache, self.pos, self.last_tok, self.active,
-                     slot_cache, tok0, slot, plen)
+                     slot_cache, tok0, slot, start + plen)
+        self._insert_aux(slot, prompt, plen)
         rid = self._next_id
         self._next_id += 1
         first = int(tok0[0])
@@ -204,6 +251,10 @@ class DecodeEngine:
         if self._req[slot]["remaining"] <= 0 or first == self.eos_id:
             self._retire(slot)
         return rid
+
+    def _insert_aux(self, slot: int, prompt, plen) -> None:
+        """Subclass hook: extra per-lane state for a freshly claimed slot
+        (the speculative engine prefills its draft lane here)."""
 
     def _retire(self, slot: int):
         req = self._req.pop(slot)
@@ -248,6 +299,103 @@ class DecodeEngine:
         servers must take, not peek, or finished requests accumulate for
         the process lifetime."""
         return self._results.pop(rid, None)
+
+
+class SpecDecodeEngine(DecodeEngine):
+    """Speculative continuous batching: each :meth:`step` is one
+    speculative round for every live slot — the draft fleet proposes
+    ``k`` tokens per slot (k+1 single-token steps over a parallel
+    draft-cache fleet, through flash decode on ragged lanes), the target
+    verifies all slots in ONE [slots, k+1] forward, and each slot accepts
+    its longest matching prefix plus the target's own token — the
+    per-slot form of ``generate_speculative``'s round
+    (``speculative.spec_round``), so the fleet's greedy tokens are the
+    per-request path's.
+
+    Cursor discipline: ``pos[slot]`` advances by ``m+1``; both caches'
+    cursors are set to each lane's position before every round, stale
+    draft/verify writes past it being dead slots.  A final round may
+    write up to ``k`` positions past the last token a request keeps, so
+    admission reserves ``_margin = k`` tail slots; a lane that is not
+    live is parked at position 0 for the round, so its writes stay inside
+    the lane (the port's cache write raises past it, where flax clamps).
+
+    ``prefix`` in :meth:`submit` is ``(target_block, draft_block,
+    prefix_len)`` — each model's own block, as in
+    ``generate_speculative(prefix=)``.  Sampled lanes (``temperature >
+    0``) run the rejection round on their own generators, greedy lanes
+    the argmax round, in one fleet.  ``spec_rounds`` / ``spec_drafted``
+    / ``spec_accepted`` accumulate the acceptance telemetry (live slots
+    only).
+    """
+
+    def __init__(self, model, draft_model, max_slots: int, max_len: int,
+                 k: int = 4, eos_id: Optional[int] = None):
+        if k < 1:
+            raise ValueError("k must be >= 1")
+        if not getattr(draft_model, "decode", False):
+            raise ValueError("SpecDecodeEngine needs a decode=True draft")
+        self.draft_model = draft_model
+        self.k = k
+        self._margin = k
+        self._draft_prefix = None  # a submit's (draft block, prefix_len)
+        super().__init__(model, max_slots, max_len, eos_id)
+        with torch.inference_mode():
+            self.d_cache = init_cache(draft_model, max_slots, max_len,
+                                      self.device)
+        self.spec_rounds = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+
+    def submit(self, prompt_ids: List[int], max_new: int, prefix=None,
+               temperature: float = 0.0, seed: int = 0) -> int:
+        self._draft_prefix = None
+        if prefix is not None:
+            t_block, d_block, prefix_len = prefix
+            self._draft_prefix = (d_block, prefix_len)
+            prefix = (t_block, prefix_len)
+        return super().submit(prompt_ids, max_new, prefix=prefix,
+                              temperature=temperature, seed=seed)
+
+    def _insert_aux(self, slot: int, prompt, plen) -> None:
+        lane, _ = _prefill_lane(self.draft_model, prompt, plen, self.max_len,
+                                self._draft_prefix)
+        _lane_put(self.d_cache, lane, slot)
+
+    @torch.inference_mode()
+    def step(self) -> int:
+        """One speculative round for the whole fleet; returns the live
+        slot count."""
+        if not self._req:
+            return 0
+        sampled = {slot: (r["generator"], r["temperature"])
+                   for slot, r in self._req.items()
+                   if r["generator"] is not None}
+        pos = torch.where(self.active, self.pos, torch.zeros_like(self.pos))
+        _rewind_cache_index(self.cache, pos)
+        _rewind_cache_index(self.d_cache, pos)
+        tokens, m = spec_round(self.model, self.draft_model, self.cache,
+                               self.d_cache, pos, self.last_tok, self.k,
+                               sampled)
+        nxt = tokens.gather(1, m[:, None])[:, 0]
+        self.pos = torch.where(self.active, self.pos + m.to(self.pos.dtype)
+                               + 1, self.pos)
+        self.last_tok = torch.where(self.active, nxt, self.last_tok)
+        self.steps += 1
+        self.spec_rounds += 1
+        rows, accepts = tokens.tolist(), m.tolist()
+        for slot in list(self._req):
+            req = self._req[slot]
+            acc = accepts[slot]
+            self.spec_drafted += self.k
+            self.spec_accepted += acc
+            for tok in rows[slot][:acc + 1]:
+                req["tokens"].append(tok)
+                req["remaining"] -= 1
+                if req["remaining"] <= 0 or tok == self.eos_id:
+                    self._retire(slot)
+                    break
+        return len(self._req)
 
 
 class EngineLoop:
@@ -310,6 +458,7 @@ class EngineLoop:
         for job in jobs:
             try:
                 rid = self.engine.submit(job["prompt"], job["max_new"],
+                                         prefix=job["prefix"],
                                          temperature=job["temperature"],
                                          seed=job["seed"])
             except ValueError as e:
@@ -325,24 +474,28 @@ class EngineLoop:
         return done
 
     def generate(self, prompt_ids: List[int], max_new: int,
-                 timeout: float = 300.0, temperature: float = 0.0,
-                 seed: int = 0) -> List[int]:
+                 timeout: float = 300.0, prefix=None,
+                 temperature: float = 0.0, seed: int = 0) -> List[int]:
         """Submit and block until done; returns the generated tokens."""
         return self.generate_many([prompt_ids], max_new, timeout,
-                                  temperature=temperature, seeds=[seed])[0]
+                                  prefix=prefix, temperature=temperature,
+                                  seeds=[seed])[0]
 
     def generate_many(self, prompts: List[List[int]], max_new: int,
-                      timeout: float = 300.0, temperature: float = 0.0,
+                      timeout: float = 300.0, prefix=None,
+                      temperature: float = 0.0,
                       seeds=None) -> List[List[int]]:
         """Run several prompts CONCURRENTLY across the fleet and return
         their generated tokens in input order.  Each prompt joins as soon
         as a slot frees (earlier prompts keep decoding meanwhile), so k
         prompts on a k-slot engine cost about one request's wall clock,
-        not k.  ``temperature > 0`` makes every prompt a sampled lane on
-        its own ``seeds[i]`` generator."""
+        not k.  ``prefix`` (the engine's ``submit`` form) starts every
+        prompt from a cached prefix block, the prompts being suffixes.
+        ``temperature > 0`` makes every prompt a sampled lane on its own
+        ``seeds[i]`` generator."""
         if seeds is None:
             seeds = list(range(len(prompts)))
-        jobs = [{"prompt": list(p), "max_new": max_new,
+        jobs = [{"prompt": list(p), "max_new": max_new, "prefix": prefix,
                  "temperature": temperature, "seed": s, "tokens": None}
                 for p, s in zip(prompts, seeds)]
         deadline = time.monotonic() + timeout

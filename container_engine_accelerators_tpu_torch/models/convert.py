@@ -17,6 +17,11 @@ The state dict is f32, the flax params' dtype: it loads as it is into a
 train-mode model (f32 leaves) and, cast once, into a decode-mode one.
 :func:`to_flax_params` is the inverse, for comparing the two packages'
 params leaf by leaf (after a train step, say).
+
+The int8 serving tree (``models/quant.py::quantize_params``) converts
+too: a flax kernel's ``{kernel_q, scale}`` becomes the port's
+``<name>.kernel_q`` (int8) and ``<name>.scale`` (f32), for a
+``quant=True`` model.
 """
 
 from collections.abc import Mapping
@@ -45,18 +50,37 @@ def _leaves(tree, prefix=()):
             yield prefix + (key,), val
 
 
+def _layer_leaves(quant: bool) -> dict:
+    """Per-layer flax paths -> port names; with ``quant`` every kernel is
+    its ``kernel_q`` and ``scale`` pair."""
+    if not quant:
+        return _LAYER_LEAVES
+    out = {}
+    for path, name in _LAYER_LEAVES.items():
+        if path[-1] == "kernel":
+            out[path[:-1] + ("kernel_q",)] = f"{name}.kernel_q"
+            out[path[:-1] + ("scale",)] = f"{name}.scale"
+        else:
+            out[path] = name
+    return out
+
+
 def _tensor(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+    """An int8 leaf as int8, any other as f32."""
+    dtype = np.int8 if np.asarray(x).dtype == np.int8 else np.float32
+    return torch.from_numpy(np.array(x, dtype=dtype))
 
 
 def from_flax_params(params: Mapping) -> dict:
-    """Convert a flax param tree (nested dicts of numpy arrays) to an f32
-    state dict for ``TransformerLM`` (either mode).  Raises
-    ``ValueError`` on leaves the dense model does not have (MoE, int8
-    kernels)."""
-    expected = ({("embed", "embedding"), ("ln_f", "scale")}
-                | {("blocks", "block") + k for k in _LAYER_LEAVES})
+    """Convert a flax param tree (nested dicts of numpy arrays) to a state
+    dict for ``TransformerLM``: f32 for a float tree (either mode), int8
+    kernels and f32 elsewhere for an int8 tree (``quant=True``).  Raises
+    ``ValueError`` on leaves the dense model does not have (MoE)."""
     got = dict(_leaves(params))
+    layer_leaves = _layer_leaves(
+        ("blocks", "block", "attn", "q", "kernel_q") in got)
+    expected = ({("embed", "embedding"), ("ln_f", "scale")}
+                | {("blocks", "block") + k for k in layer_leaves})
     if set(got) != expected:
         extra = sorted(".".join(k) for k in set(got) - expected)
         missing = sorted(".".join(k) for k in expected - set(got))
@@ -65,7 +89,7 @@ def from_flax_params(params: Mapping) -> dict:
     out = {"embed": _tensor(got["embed", "embedding"]),
            "ln_f.scale": _tensor(got["ln_f", "scale"])}
     num_layers = np.shape(got["blocks", "block", "ln_attn", "scale"])[0]
-    for path, name in _LAYER_LEAVES.items():
+    for path, name in layer_leaves.items():
         stacked = np.asarray(got[("blocks", "block") + path])
         for i in range(num_layers):
             out[f"blocks.{i}.{name}"] = _tensor(stacked[i])
@@ -74,15 +98,18 @@ def from_flax_params(params: Mapping) -> dict:
 
 def to_flax_params(state_dict: Mapping) -> dict:
     """The port's state dict (any dtype, any device) -> the flax param
-    tree as nested dicts of f32 numpy arrays, per-layer leaves stacked
-    along a leading layer axis as ``nn.scan`` keeps them."""
+    tree as nested dicts of numpy arrays (int8 kernels as int8, every
+    other leaf f32), per-layer leaves stacked along a leading layer axis
+    as ``nn.scan`` keeps them."""
     def arr(t):
-        return t.detach().to("cpu", torch.float32).numpy()
+        t = t.detach().cpu()
+        return (t if t.dtype == torch.int8 else t.float()).numpy()
 
     num_layers = 1 + max(int(name.split(".")[1]) for name in state_dict
                          if name.startswith("blocks."))
     block = {}
-    for path, name in _LAYER_LEAVES.items():
+    for path, name in _layer_leaves(
+            "blocks.0.attn.q.kernel_q" in state_dict).items():
         node = block
         for key in path[:-1]:
             node = node.setdefault(key, {})

@@ -13,6 +13,13 @@ Generation is two-phase:
    device value on the host, so the steps queue without host round
    trips.
 
+``prefill_chunked`` runs phase 1 in fixed-size pieces (a Python loop
+where the JAX package scans), and ``splice_prefix`` starts a cache from
+a stored prefix block (``models/prefix_cache.py``).  The port's forward
+writes the cache in place, so a splice copies the block into the
+request's own cache: a cached block is never aliased, or the first
+request's suffix would overwrite it.
+
 ``prompt_len`` and ``start`` may be Python ints or 0-d integer tensors.
 Sampling draws from an explicit ``torch.Generator``: it cannot reproduce
 ``jax.random.categorical``'s stream, so only greedy output is held
@@ -60,6 +67,22 @@ def _rewind_cache_index(cache, position):
     return cache
 
 
+def splice_prefix(cache, prefix_kv, prefix_len, batch: int):
+    """Copy a stored prefix KV block (a one-lane cache, [layers, 1, PFX,
+    KVH, hd]) into slots [0, PFX) of every lane of ``cache`` and cue the
+    cursor at ``prefix_len`` (in place).  A copy, never an alias: the
+    forward then writes the suffix into ``cache`` alone."""
+    pfx = prefix_bucket_len(prefix_kv)
+    for name in ("cached_key", "cached_value"):
+        cache[name][:, :batch, :pfx] = prefix_kv[name]
+    return _rewind_cache_index(cache, prefix_len)
+
+
+def prefix_bucket_len(prefix_kv) -> int:
+    """Bucket (slot-axis) length of a stored prefix KV block."""
+    return prefix_kv["cached_key"].shape[2]
+
+
 def _positions(start, n: int, device):
     return start + torch.arange(n, dtype=torch.int32, device=device)
 
@@ -95,6 +118,36 @@ def prefill(model, prompt, prompt_len, max_len: int):
     """Batched prefill -> (cache cued at ``prompt_len``, last logits)."""
     cache = init_cache(model, prompt.shape[0], max_len, prompt.device)
     return prefill_continue(model, cache, prompt, 0, prompt_len)
+
+
+def prefill_chunked(model, prompt, prompt_len, max_len: int, chunk: int):
+    """Prefill in ``chunk``-token pieces -> (cache cued at ``prompt_len``,
+    last logits), the same result as :func:`prefill` (each piece attends
+    the cache written so far).  The einsum prefill's score tensor is [B,
+    H, P, L]; pieces cap it at [B, H, chunk, L].
+
+    Every piece advances the cursor to its own end and yields its
+    candidate for the hidden row of token ``prompt_len - 1``; ascending
+    pieces make "take the candidate whenever ``prompt_len - 1 >= start``"
+    select the piece that holds it.  The cursor then rewinds to
+    ``prompt_len``, as after a padded single-shot prefill."""
+    b, plen = prompt.shape
+    if chunk < 1:
+        raise ValueError("chunk must be >= 1")
+    if chunk >= plen:
+        return prefill(model, prompt, prompt_len, max_len)
+    cache = init_cache(model, b, max_len, prompt.device)
+    last = torch.as_tensor(prompt_len, device=prompt.device) - 1
+    h_last = None
+    for start in range(0, plen, chunk):
+        piece = prompt[:, start:start + chunk]
+        cache, hidden = _forward_chunk(model, cache, piece, start)
+        row = (last - start).clamp(0, piece.shape[1] - 1).reshape(1)
+        cand = hidden.index_select(1, row)[:, 0]
+        h_last = cand if h_last is None else torch.where(
+            last >= start, cand, h_last)
+    _rewind_cache_index(cache, prompt_len)
+    return cache, _project_last(model, h_last)
 
 
 def sample_token(logits, temperature, generator: torch.Generator):
@@ -139,7 +192,8 @@ def decode_loop(model, cache, last_logits, prompt_len, max_new_tokens: int,
 
 
 def generate(model, prompt, max_new_tokens: int, temperature=0.0,
-             generator: Optional[torch.Generator] = None, prompt_len=None):
+             generator: Optional[torch.Generator] = None, prompt_len=None,
+             prefill_chunk: Optional[int] = None):
     """Generate ``max_new_tokens`` past ``prompt`` [B, P] -> [B, P+N].
 
     ``prompt_len`` (optional) is the number of leading ``prompt`` tokens
@@ -153,6 +207,9 @@ def generate(model, prompt, max_new_tokens: int, temperature=0.0,
     ``[prompt_len, prompt_len + max_new_tokens)`` are generated; with
     bucket padding the tail beyond that is meaningless — consumers slice
     ``[:, :prompt_len + max_new_tokens]``.
+
+    ``prefill_chunk`` prefills in pieces of that many tokens
+    (:func:`prefill_chunked`), with the same tokens.
     """
     if not getattr(model, "decode", False):
         raise ValueError("generate() needs a model built with decode=True")
@@ -161,7 +218,12 @@ def generate(model, prompt, max_new_tokens: int, temperature=0.0,
         prompt_len = plen
     if isinstance(prompt_len, int) and not 0 < prompt_len <= plen:
         raise ValueError(f"prompt_len {prompt_len} outside (0, {plen}]")
-    cache, last = prefill(model, prompt, prompt_len, plen + max_new_tokens)
+    if prefill_chunk:
+        cache, last = prefill_chunked(model, prompt, prompt_len,
+                                      plen + max_new_tokens, prefill_chunk)
+    else:
+        cache, last = prefill(model, prompt, prompt_len,
+                              plen + max_new_tokens)
     gen = decode_loop(model, cache, last, prompt_len, max_new_tokens,
                       temperature, generator, prompt.dtype)
     out = torch.cat([prompt, torch.zeros((b, max_new_tokens),

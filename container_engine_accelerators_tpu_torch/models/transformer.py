@@ -8,7 +8,9 @@ modes:
   (``parallel/seq.py::dense_attention``), each block under activation
   checkpointing when ``remat`` (the JAX model's ``nn.remat``);
 - **decode mode** (``decode=True``): the serving forward over a KV cache,
-  optionally through the flash-decode kernel.
+  optionally through the flash-decode kernel, and with ``quant=True`` on
+  int8 projection kernels (``models/quant.py::QDense``, the JAX model's
+  ``QDenseGeneral``).
 
 Numerics follow the flax model under its ``dtype`` (the compute dtype):
 projections and the embedding run in the compute dtype, RMSNorm computes
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from container_engine_accelerators_tpu_torch.models.quant import QDense
 from container_engine_accelerators_tpu_torch.ops.flash_attention import (
     flash_attention,
     supports_flash,
@@ -85,6 +88,23 @@ def _param(*shape, dtype, device, train):
         requires_grad=train)
 
 
+def _kernel(shape, n_contract, quant, dtype, device, train):
+    """A projection kernel: a float weight (:func:`_param`), or with
+    ``quant`` an int8 ``QDense`` whose ``n_contract`` leading dims
+    contract."""
+    if quant:
+        return QDense(shape, n_contract, device)
+    return _param(*shape, dtype=dtype, device=device, train=train)
+
+
+def _w(kernel, dtype):
+    """The compute-dtype kernel a projection multiplies: a float weight
+    cast, or an int8 one dequantized in f32 and then cast."""
+    if isinstance(kernel, QDense):
+        return kernel.weight(dtype)
+    return kernel.to(dtype)
+
+
 class RMSNorm(nn.Module):
     """f32 math, eps 1e-6, output in the compute dtype.  The scale stays
     f32 whatever the compute dtype (bf16 serving weights load exactly)."""
@@ -108,7 +128,7 @@ class Attention(nn.Module):
     the K/V heads repeated up to the query heads."""
 
     def __init__(self, dim, num_heads, head_dim, dtype=torch.bfloat16,
-                 num_kv_heads=None, device=None, train=False):
+                 num_kv_heads=None, device=None, train=False, quant=False):
         super().__init__()
         kv_heads = num_kv_heads or num_heads
         if num_heads % kv_heads:
@@ -117,22 +137,22 @@ class Attention(nn.Module):
         self.num_heads, self.kv_heads, self.head_dim = (
             num_heads, kv_heads, head_dim)
         self.dtype = dtype
-        w = dict(dtype=dtype, device=device, train=train)
-        self.q = _param(dim, num_heads, head_dim, **w)
-        self.k = _param(dim, kv_heads, head_dim, **w)
-        self.v = _param(dim, kv_heads, head_dim, **w)
-        self.out = _param(num_heads, head_dim, dim, **w)
+        w = dict(quant=quant, dtype=dtype, device=device, train=train)
+        self.q = _kernel((dim, num_heads, head_dim), 1, **w)
+        self.k = _kernel((dim, kv_heads, head_dim), 1, **w)
+        self.v = _kernel((dim, kv_heads, head_dim), 1, **w)
+        self.out = _kernel((num_heads, head_dim, dim), 2, **w)
 
     def forward(self, x, positions, cache=None, use_flash_decode=False,
                 use_flash=None):
         b, t, _ = x.shape
         dt = self.dtype
-        q = (x @ self.q.to(dt).flatten(1)).view(b, t, self.num_heads,
-                                                 self.head_dim)
-        k = (x @ self.k.to(dt).flatten(1)).view(b, t, self.kv_heads,
-                                                 self.head_dim)
-        v = (x @ self.v.to(dt).flatten(1)).view(b, t, self.kv_heads,
-                                                 self.head_dim)
+        q = (x @ _w(self.q, dt).flatten(1)).view(b, t, self.num_heads,
+                                                  self.head_dim)
+        k = (x @ _w(self.k, dt).flatten(1)).view(b, t, self.kv_heads,
+                                                  self.head_dim)
+        v = (x @ _w(self.v, dt).flatten(1)).view(b, t, self.kv_heads,
+                                                  self.head_dim)
         q = rotary_embedding(q, positions)
         k = rotary_embedding(k, positions)
         if cache is not None:
@@ -140,7 +160,7 @@ class Attention(nn.Module):
                                     use_flash_decode)
         else:
             o = self._train_attend(q, k, v, use_flash)
-        return o.reshape(b, t, -1) @ self.out.to(dt).flatten(0, 1)
+        return o.reshape(b, t, -1) @ _w(self.out, dt).flatten(0, 1)
 
     def _train_attend(self, q, k, v, use_flash):
         """Causal attention over the whole sequence.  The kernels take
@@ -205,18 +225,18 @@ class Block(nn.Module):
     """Pre-norm block: attention, then a SwiGLU MLP."""
 
     def __init__(self, num_heads, head_dim, mlp_dim, dtype=torch.bfloat16,
-                 num_kv_heads=None, device=None, train=False):
+                 num_kv_heads=None, device=None, train=False, quant=False):
         super().__init__()
         dim = num_heads * head_dim
         self.dtype = dtype
         self.ln_attn = RMSNorm(dim, dtype, device, train)
         self.attn = Attention(dim, num_heads, head_dim, dtype, num_kv_heads,
-                              device, train)
+                              device, train, quant)
         self.ln_mlp = RMSNorm(dim, dtype, device, train)
-        w = dict(dtype=dtype, device=device, train=train)
-        self.gate = _param(dim, mlp_dim, **w)
-        self.up = _param(dim, mlp_dim, **w)
-        self.down = _param(mlp_dim, dim, **w)
+        w = dict(quant=quant, dtype=dtype, device=device, train=train)
+        self.gate = _kernel((dim, mlp_dim), 1, **w)
+        self.up = _kernel((dim, mlp_dim), 1, **w)
+        self.down = _kernel((mlp_dim, dim), 1, **w)
 
     def forward(self, x, positions, cache=None, use_flash_decode=False,
                 use_flash=None):
@@ -224,8 +244,8 @@ class Block(nn.Module):
         x = x + self.attn(self.ln_attn(x), positions, cache, use_flash_decode,
                           use_flash)
         y = self.ln_mlp(x)
-        return x + (F.silu(y @ self.gate.to(dt)) * (y @ self.up.to(dt))
-                    ) @ self.down.to(dt)
+        return x + (F.silu(y @ _w(self.gate, dt)) * (y @ _w(self.up, dt))
+                    ) @ _w(self.down, dt)
 
 
 class TransformerLM(nn.Module):
@@ -240,7 +260,9 @@ class TransformerLM(nn.Module):
     False = dense.  ``remat`` recomputes each block's activations in the
     backward instead of keeping them (``torch.utils.checkpoint``), as the
     JAX model's default ``nn.remat`` does: the flash forward then runs
-    twice per layer and step."""
+    twice per layer and step.  ``quant`` (decode mode only, as in JAX)
+    holds every projection as int8 + f32 scales (``models/quant.py``);
+    load ``serving_params(params, "int8")`` into it."""
 
     def __init__(self, vocab_size=32_000, num_layers=12, num_heads=8,
                  head_dim=64, mlp_dim=2048, dtype=torch.bfloat16,
@@ -252,9 +274,9 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 f"MoE (num_experts > 0) "
                 f"{_LATER_SERVING if decode else _LATER_TRAINING}")
-        if quant:
-            raise NotImplementedError(f"int8 weights (quant=True) "
-                                      f"{_LATER_SERVING}")
+        if quant and not decode:
+            raise ValueError("int8 weights (quant=True) serve only: build "
+                             "the model with decode=True")
         self.vocab_size, self.num_layers = vocab_size, num_layers
         self.num_heads, self.head_dim = num_heads, head_dim
         self.num_kv_heads = num_kv_heads or num_heads
@@ -267,9 +289,10 @@ class TransformerLM(nn.Module):
         train = not decode
         self.embed = _param(vocab_size, num_heads * head_dim, dtype=dtype,
                             device=device, train=train)
+        self.quant = quant
         self.blocks = nn.ModuleList(
             Block(num_heads, head_dim, mlp_dim, dtype, num_kv_heads, device,
-                  train)
+                  train, quant)
             for _ in range(num_layers))
         self.ln_f = RMSNorm(num_heads * head_dim, dtype, device, train)
 
@@ -303,7 +326,12 @@ def init_params(model: TransformerLM, generator: torch.Generator) -> dict:
     ``generator``: the flax initializers' law (truncated normal at two
     standard deviations, variance 1/fan_in — lecun_normal for the
     kernels, the embedding's fan-in being its vocab axis), norm scales
-    1.  Load with ``model.load_state_dict``, which casts once."""
+    1.  Load with ``model.load_state_dict``, which casts once.  A
+    ``quant=True`` model takes ``quant.serving_params`` of a float
+    model's weights instead."""
+    if model.quant:
+        raise ValueError("init_params draws float weights: call it on the "
+                         "float model and quantize (models/quant.py)")
     out = {}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]

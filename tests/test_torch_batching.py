@@ -4,7 +4,11 @@ interleaved slot-based decoding is token-identical to per-request
 ``generate()`` (f32) — requests joining mid-flight, at other depths, with
 slot reuse, change nothing about any request's output — and, on weights
 converted from flax, identical to the JAX package's own ``DecodeEngine``
-fed the same submits.
+fed the same submits.  The same holds for lanes that start from a cached
+prefix (``submit(prefix=)``) and for ``SpecDecodeEngine``'s speculative
+rounds (against per-request ``generate_speculative`` and JAX's
+``SpecDecodeEngine``); sampled speculative lanes equal per-request
+``generate_speculative_sampled`` on the same seed.
 
 Flash decode runs its plain version here (CPU tensors): the fleet sends
 it one length per lane, the ragged batch of the ``--slots`` path.
@@ -21,9 +25,11 @@ import torch
 
 from container_engine_accelerators_tpu.models import batching as jbatching
 from container_engine_accelerators_tpu.models import transformer as jtr
+from container_engine_accelerators_tpu.models import prefix_cache as jpc
 from container_engine_accelerators_tpu_torch.models.batching import (
     DecodeEngine,
     EngineLoop,
+    SpecDecodeEngine,
 )
 from container_engine_accelerators_tpu_torch.models.convert import (
     from_flax_params,
@@ -32,6 +38,14 @@ from container_engine_accelerators_tpu_torch.models.generate import (
     _rewind_cache_index,
     generate,
     init_cache,
+)
+from container_engine_accelerators_tpu_torch.models.prefix_cache import (
+    PrefixCache,
+    generate_with_prefix,
+)
+from container_engine_accelerators_tpu_torch.models.speculative import (
+    generate_speculative,
+    generate_speculative_sampled,
 )
 from container_engine_accelerators_tpu_torch.models.transformer import (
     TransformerLM,
@@ -318,3 +332,196 @@ def test_greedy_tokens_match_the_jax_engine(flash):
         out.append([eng.result(r) for r in rids])
     assert out[0] == out[1]
     assert [len(r) for r in out[1]] == [9, 6, 5, 12, 4]
+
+
+# ---- prefix lanes, chunked prefill, speculative rounds --------------------
+
+DRAFT = dict(CFG, num_layers=1)
+
+
+@pytest.fixture(scope="module")
+def flax_pair():
+    """(target flax, draft flax, target sd, draft sd), converted."""
+    t = jtr.transformer_lm(**CFG).init(
+        jax.random.PRNGKey(15), jnp.zeros((1, 8), jnp.int32))["params"]
+    d = jtr.transformer_lm(**DRAFT).init(
+        jax.random.PRNGKey(16), jnp.zeros((1, 8), jnp.int32))["params"]
+    return (t, d) + tuple(from_flax_params(jax.tree_util.tree_map(
+        np.asarray, p)) for p in (t, d))
+
+
+def _draft(sd, flash=False):
+    model = TransformerLM(**DRAFT, decode=True, dtype=torch.float32,
+                          use_flash_decode=flash, device="cpu")
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def _run_script(eng, script, prefix=None):
+    rids = []
+    for op in script:
+        if op[0] == "submit":
+            kw = dict(op[3]) if len(op) > 3 else {}
+            rids.append(eng.submit(op[1], max_new=op[2], prefix=prefix, **kw))
+        elif op[0] == "step":
+            eng.step()
+        else:
+            eng.run_until_drained()
+    return [eng.result(r) for r in rids]
+
+
+SCRIPT = [("submit", [5, 17, 42], 9), ("step",), ("submit", [88, 3], 6),
+          ("step",), ("submit", [7, 9, 11, 2, 6], 5), ("drain",),
+          ("submit", [60, 1, 2, 3, 4, 5, 6], 8), ("submit", [33], 4),
+          ("drain",)]
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["einsum", "flash"])
+def test_prefix_lanes_match_per_request_and_the_jax_engine(flax_pair, flash):
+    """Lanes that start from a copy of one cached prefix block (bucket 4,
+    three real tokens) give per-request ``generate_with_prefix``'s tokens
+    and the JAX engine's on the same submits; the block is unchanged."""
+    t_flax, _, t_sd, _ = flax_pair
+    model = _model(t_sd, flash=flash)
+    pfx = (11, 22, 33)
+    block, plen = PrefixCache(model, 8).get_or_build(pfx)
+    before = {k: v.clone() for k, v in block.items()}
+    got = _run_script(DecodeEngine(model, 3, 8 + 8 + 12), SCRIPT,
+                      (block, plen))
+    for op, toks in zip([o for o in SCRIPT if o[0] == "submit"], got):
+        with torch.inference_mode():
+            solo = generate_with_prefix(model, block, plen,
+                                        torch.tensor([op[1]]), op[2])
+        assert toks == solo[0, len(op[1]):].tolist()
+    assert all(torch.equal(block[k], before[k]) for k in before)
+    jmodel = jtr.transformer_lm(**CFG, decode=True, dtype=jnp.float32,
+                                use_flash_decode=flash)
+    jentry = jpc.PrefixCache(jmodel, t_flax, 8).get_or_build(pfx)
+    want = _run_script(jbatching.DecodeEngine(jmodel, t_flax, 3, 8 + 8 + 12),
+                       SCRIPT, jentry)
+    assert got == want
+
+
+def test_prefix_lane_admission_guards(params):
+    model = _model(params)
+    block, plen = PrefixCache(model, 8).get_or_build((1, 2, 3, 4, 5))
+    eng = DecodeEngine(model, 1, 16)
+    with pytest.raises(ValueError, match="spliced request"):
+        eng.submit([1] * 12, 1, prefix=(block, plen))  # suffix bucket 16
+    with pytest.raises(ValueError, match="slot holds"):
+        eng.submit([1, 2], 10, prefix=(block, plen))  # 5 + 2 + 10 > 16
+    rid = eng.submit([1, 2], 9, prefix=(block, plen))  # fills the lane
+    eng.run_until_drained()
+    assert len(eng.result(rid)) == 9
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_engine_chunked_prefill_same_tokens(params, chunk):
+    model = _model(params, flash=True)
+    plain = _run_script(DecodeEngine(model, 3, 24), SCRIPT)
+    chunked = _run_script(DecodeEngine(model, 3, 24, prefill_chunk=chunk),
+                          SCRIPT)
+    assert chunked == plain
+
+
+@pytest.mark.parametrize("prefix", [False, True], ids=["plain", "prefix"])
+@pytest.mark.parametrize("flash", [False, True], ids=["einsum", "flash"])
+def test_spec_engine_matches_per_request_and_the_jax_engine(flax_pair, flash,
+                                                            prefix):
+    """Greedy speculative lanes (k=3, a random 1-layer draft): the fleet
+    gives per-request ``generate_speculative``'s tokens — the target's
+    greedy tokens — and the JAX ``SpecDecodeEngine``'s, with the same
+    acceptance telemetry, with and without a spliced prefix."""
+    t_flax, d_flax, t_sd, d_sd = flax_pair
+    model, draft = _model(t_sd, flash=flash), _draft(d_sd, flash)
+    pfx = (11, 22, 33)
+    entry = None
+    if prefix:
+        t_kv, plen = PrefixCache(model, 8).get_or_build(pfx)
+        d_kv, _ = PrefixCache(draft, 8).get_or_build(pfx)
+        entry = (t_kv, d_kv, plen)
+    eng = SpecDecodeEngine(model, draft, 3, 8 + 8 + 12 + 3, k=3)
+    got = _run_script(eng, SCRIPT, entry)
+    for op, toks in zip([o for o in SCRIPT if o[0] == "submit"], got):
+        with torch.inference_mode():
+            solo, _ = generate_speculative(model, draft,
+                                           torch.tensor([op[1]]), op[2], k=3,
+                                           prefix=entry)
+            ctx = list(pfx if prefix else ()) + op[1]
+            plain = generate(model, torch.tensor([ctx]), op[2])
+        assert toks == solo[0, len(op[1]):].tolist()
+        assert toks == plain[0, len(ctx):].tolist()
+    jmodel = jtr.transformer_lm(**CFG, decode=True, dtype=jnp.float32,
+                                use_flash_decode=flash)
+    jdraft = jtr.transformer_lm(**DRAFT, decode=True, dtype=jnp.float32,
+                                use_flash_decode=flash)
+    jentry = None
+    if prefix:
+        jt, jplen = jpc.PrefixCache(jmodel, t_flax, 8).get_or_build(pfx)
+        jd, _ = jpc.PrefixCache(jdraft, d_flax, 8).get_or_build(pfx)
+        jentry = (jt, jd, jplen)
+    jeng = jbatching.SpecDecodeEngine(jmodel, t_flax, jdraft, d_flax, 3,
+                                      8 + 8 + 12 + 3, k=3)
+    assert got == _run_script(jeng, SCRIPT, jentry)
+    assert (eng.spec_rounds, eng.spec_drafted, eng.spec_accepted) == (
+        jeng.spec_rounds, jeng.spec_drafted, jeng.spec_accepted)
+
+
+def test_spec_engine_sampled_lanes_match_per_request_sampling(flax_pair):
+    """Sampled lanes, mixed with greedy ones, run the rejection round on
+    their own generators: each equals per-request (batch-1)
+    ``generate_speculative_sampled`` on the same seed."""
+    _, _, t_sd, d_sd = flax_pair
+    model, draft = _model(t_sd, flash=True), _draft(d_sd, True)
+    script = [("submit", [5, 17, 42], 9, dict(temperature=0.8, seed=3)),
+              ("step",), ("submit", [88, 3], 6),
+              ("submit", [7, 9, 11], 7, dict(temperature=1.2, seed=4)),
+              ("drain",)]
+    got = _run_script(SpecDecodeEngine(model, draft, 3, 32, k=3), script)
+    for op, toks in zip([o for o in script if o[0] == "submit"], got):
+        kw = op[3] if len(op) > 3 else {}
+        with torch.inference_mode():
+            if kw:
+                solo, _ = generate_speculative_sampled(
+                    model, draft, torch.tensor([op[1]]), op[2], k=3,
+                    temperature=kw["temperature"],
+                    generator=torch.Generator().manual_seed(kw["seed"]))
+            else:
+                solo, _ = generate_speculative(
+                    model, draft, torch.tensor([op[1]]), op[2], k=3)
+        assert toks == solo[0, len(op[1]):].tolist()
+
+
+def test_spec_engine_margin_and_parked_lanes(flax_pair):
+    """Admission reserves k tail slots; a retired lane is parked at
+    position 0 for the rounds that follow, so every write stays inside
+    its lane while the others run on (a self-draft accepts k a round and
+    overshoots max_new by up to k)."""
+    _, _, t_sd, _ = flax_pair
+    model = _model(t_sd, flash=True)
+    eng = SpecDecodeEngine(model, model, 2, 16, k=3)
+    with pytest.raises(ValueError, match=r"\+3 tokens"):
+        eng.submit([1, 2, 3], 11)  # 3 + 11 + 3 > 16
+    short = eng.submit([1, 2, 3], 2)
+    long_ = eng.submit([4, 5], 11)  # 2 + 11 + 3 == 16: fills the lane
+    eng.run_until_drained()
+    assert eng.result(short) == _solo(model, [1, 2, 3], 2)
+    assert eng.result(long_) == _solo(model, [4, 5], 11)
+    assert eng.spec_accepted == eng.spec_drafted
+    with pytest.raises(ValueError, match="k must be"):
+        SpecDecodeEngine(model, model, 1, 8, k=0)
+
+
+def test_engine_loop_serves_prefix_and_spec_lanes(flax_pair):
+    _, _, t_sd, d_sd = flax_pair
+    model, draft = _model(t_sd), _draft(d_sd)
+    block, plen = PrefixCache(model, 8).get_or_build((9, 9))
+    d_block, _ = PrefixCache(draft, 8).get_or_build((9, 9))
+    loop = EngineLoop(SpecDecodeEngine(model, draft, 2, 32, k=2))
+    try:
+        outs = loop.generate_many([[1, 2], [3], [4, 5, 6]], 5,
+                                  prefix=(block, d_block, plen))
+    finally:
+        loop.close()
+    for p, got in zip([[1, 2], [3], [4, 5, 6]], outs):
+        assert got == _solo(model, [9, 9] + p, 5)

@@ -33,7 +33,8 @@ def test_port_imports_without_jax():
               "ops.flash_attention", "parallel.seq", "models.train",
               "models.lm_train", "data.tokens", "data.loader",
               "utils.preempt", "cmd.train_lm", "utils.retry", "utils.faults",
-              "models.checkpoint", "models.batching", "cmd.trace_summary"}
+              "models.checkpoint", "models.batching", "cmd.trace_summary",
+              "models.quant", "models.prefix_cache", "models.speculative"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys

@@ -136,23 +136,41 @@ def test_defaults_match_the_jax_server():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--slots", "2", "--prefix-cache", "2"], ["--speculative", "3"],
-    ["--prefix-cache", "2"], ["--tp", "2"], ["--num-experts", "4"],
-    ["--weights", "int8"], ["--slots", "2", "--speculative", "3"],
-    ["--prefill-chunk", "16"], ["--slots", "2", "--tp", "2"]])
+    ["--tp", "2"], ["--num-experts", "4"], ["--slots", "2", "--tp", "2"]])
 def test_unported_flags_exit(flags):
     with pytest.raises(SystemExit, match="later serving slice"):
         serve_lm.validate_args(serve_lm.parse_args(TINY + flags))
 
 
+@pytest.mark.parametrize("flags", [
+    ["--slots", "2", "--prefix-cache", "2"], ["--speculative", "3"],
+    ["--prefix-cache", "2"], ["--weights", "int8"],
+    ["--slots", "2", "--speculative", "3"], ["--prefill-chunk", "16"],
+    ["--slots", "2", "--prefill-chunk", "4"],
+    ["--speculative", "2", "--prefix-cache", "2", "--slots", "2",
+     "--weights", "int8"]])
+def test_ported_flags_are_taken(flags):
+    """Once rejected as a later slice's, now taken, alone and with
+    --slots, as the JAX server takes them."""
+    serve_lm.validate_args(serve_lm.parse_args(TINY + flags))
+
+
 @pytest.mark.parametrize("flags,combo", [
-    (["--prefix-cache", "2"], "--slots with --prefix-cache"),
-    (["--speculative", "3"], "--slots with --speculative"),
     (["--tp", "2"], "--slots with --tp > 1")])
 def test_slots_with_later_features_name_the_combination(flags, combo):
     with pytest.raises(SystemExit, match=re.escape(combo)):
         serve_lm.validate_args(serve_lm.parse_args(TINY + ["--slots", "2"]
                                                    + flags))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--prefill-chunk", "4", "--speculative", "2"],
+    ["--prefill-chunk", "4", "--prefix-cache", "2"]])
+def test_prefill_chunk_refuses_the_paths_it_does_not_bound(flags):
+    """The JAX server's rule: the speculative and prefix-cache paths
+    prefill single-shot, so the memory bound would silently drop."""
+    with pytest.raises(SystemExit, match="--prefill-chunk wires"):
+        serve_lm.validate_args(serve_lm.parse_args(TINY + flags))
 
 
 def test_slots_and_checkpoint_dir_are_ported(tmp_path):
@@ -361,6 +379,213 @@ def test_module_entry_point_serves_with_slots():
         assert b"continuous batching: 2 decode slots" in log
         body = _post(int(m.group(1)), {"prompt_ids": [[1, 2], [3]]})
         assert [len(r) for r in body["tokens"]] == [6, 5]
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        proc.stderr.close()
+
+
+# ---- the single-GPU serving features over HTTP ----------------------------
+
+FEATURE_BODIES = [
+    {"prompt_ids": [[1, 2, 3], [5]], "max_new_tokens": 4},
+    {"prompt_ids": [[7, 8, 9, 10, 11, 12, 13]]},
+    {"prompt_ids": [[3, 1, 4], [1, 5]], "temperature": 0.9, "seed": 77},
+    {"prompt_ids": [[6, 6, 6, 6], [2]], "prefix_ids": [4, 4, 9]},
+    {"prompt_ids": [[6, 1]], "prefix_ids": [4, 4, 9], "temperature": 0.7,
+     "seed": 5},
+    {"prompt_ids": [[2, 7]], "prefix_ids": list(range(1, 9))},  # too long
+]
+
+
+def _tokens_both_ways(flags, bodies=FEATURE_BODIES):
+    """(per-request tokens, --slots 3 tokens, run) for ``bodies`` sent to
+    two servers of ``flags`` in one process, on one model."""
+    args = serve_lm.parse_args(TINY + flags + ["--slots", "3"])
+    serve_lm.validate_args(args)
+    run = serve_lm.build_generate(args)
+    engine_loop = serve_lm.start_engine(run, args)
+    solo_srv, solo_t = _serve(args, run)
+    slots_srv, slots_t = _serve(args, run, engine_loop)
+    try:
+        solo = [_post(solo_srv.server_address[1], b)["tokens"] for b in bodies]
+        got = {}
+
+        def ask(i):
+            got[i] = _post(slots_srv.server_address[1], bodies[i])["tokens"]
+
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+            assert not th.is_alive()
+    finally:
+        _stop(solo_srv, solo_t)
+        _stop(slots_srv, slots_t)
+        engine_loop.close()
+    return solo, [got[i] for i in range(len(bodies))], run
+
+
+def _plain_tokens(bodies=FEATURE_BODIES, flags=()):
+    """The tokens of a server without the features (same random
+    weights), prefix_ids concatenated."""
+    args = serve_lm.parse_args(TINY + list(flags))
+    run = serve_lm.build_generate(args)
+    srv, t = _serve(args, run)
+    try:
+        return [_post(srv.server_address[1], b)["tokens"] for b in bodies]
+    finally:
+        _stop(srv, t)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--weights", "int8"], ["--prefill-chunk", "2"], ["--prefix-cache", "2"],
+    ["--speculative", "2"], ["--speculative", "3", "--prefix-cache", "2"],
+    ["--weights", "int8", "--speculative", "2", "--prefix-cache", "2"]],
+    ids=["int8", "chunk", "prefix", "spec", "spec-prefix", "int8-spec-prefix"])
+@pytest.mark.parametrize("flash", [False, True], ids=["einsum", "flash"])
+def test_feature_slots_give_the_per_request_tokens(flags, flash):
+    """Each feature, per request and through ``--slots`` (greedy rows,
+    seeded sampled rows, rows after a prefix, a prefix too long for the
+    cache): the engine gives the per-request path's tokens.  (bf16, as
+    the server computes; at this size no near-tie flips.)"""
+    flags = flags + (["--flash-decode"] if flash else [])
+    solo, slots, run = _tokens_both_ways(flags)
+    assert slots == solo
+    for body, rows in zip(FEATURE_BODIES, solo):
+        prompts = body["prompt_ids"]
+        assert len(rows) == len(prompts)
+        pfx = body.get("prefix_ids", [])
+        for p, row in zip(prompts, rows):
+            ctx = (pfx + p)[:8]
+            assert row[:len(ctx)] == ctx and len(row) == len(ctx) + 4
+    if "--prefix-cache" in flags:
+        assert run.prefix_cache.stats()["hits"] > 0
+
+
+@pytest.mark.parametrize("flags", [["--prefill-chunk", "2"],
+                                   ["--prefix-cache", "2"]],
+                         ids=["chunk", "prefix"])
+def test_feature_gives_the_plain_servers_greedy_tokens(flags):
+    """Chunked prefill and the prefix cache change no greedy token: the
+    plain server's (prefix_ids concatenated)."""
+    greedy = [b for b in FEATURE_BODIES if not b.get("temperature")]
+    solo, _, _ = _tokens_both_ways(flags + ["--flash-decode"], greedy)
+    assert solo == _plain_tokens(greedy, ["--flash-decode"])
+
+
+def test_int8_server_equals_a_bf16_model_on_the_dequantized_weights():
+    """``--weights int8``: the model holds int8 kernels and f32 scales,
+    and its greedy tokens are those of a bf16 model loaded with the
+    dequantized weights (the same arithmetic)."""
+    from container_engine_accelerators_tpu_torch.models.quant import (
+        dequantize_params,
+        serving_params,
+    )
+
+    args = serve_lm.parse_args(TINY + ["--weights", "int8", "--flash-decode"])
+    run = serve_lm.build_generate(args)
+    assert run.model.blocks[0].attn.q.kernel_q.dtype == torch.int8
+    dense = _decode_model(args, dequantize_params(
+        serving_params(run.params, "int8")))
+    prompts = [[1, 2, 3], [9, 8, 7, 6, 5], [40]]
+    srv, t = _serve(args, run)
+    try:
+        got = _post(srv.server_address[1], {"prompt_ids": prompts})["tokens"]
+    finally:
+        _stop(srv, t)
+    assert got == _greedy(dense, prompts, args)
+
+
+def test_spec_server_counts_rounds_and_logs_its_draft(caplog):
+    args = serve_lm.parse_args(TINY + ["--speculative", "3",
+                                       "--num-layers", "4"])
+    with caplog.at_level("INFO"):
+        run = serve_lm.build_generate(args)
+    assert "draft: randomly-initialized 1-layer model" in caplog.text
+    assert run.draft.num_layers == 1  # max(1, 4 // 4)
+    rounds = run.spec_rounds  # the warm-up's
+    assert rounds > 0 and run.spec_drafted == 3 * rounds
+    run(torch.tensor([[1, 2, 3, 0]]), 3, 0.0, 0, False)
+    assert run.spec_rounds > rounds
+    assert 0 <= run.spec_accepted <= run.spec_drafted
+
+
+@pytest.mark.parametrize("saved", [True, False], ids=["saved", "empty"])
+def test_draft_checkpoint_dir_loads_the_saved_draft(tmp_path, caplog, saved):
+    """``--draft-checkpoint-dir``: the draft serves the trainer's newest
+    step.  The target's own checkpoint as its draft (a self-draft)
+    accepts every proposal and gives the plain greedy tokens; an empty
+    directory leaves the draft random, and says so."""
+    ckpt = str(tmp_path / "ckpt")
+    if saved:
+        train_lm.main(TRAIN + ["--train-steps", "2", "--checkpoint-dir",
+                               ckpt])
+    args = serve_lm.parse_args(TINY + [
+        "--checkpoint-dir", ckpt, "--speculative", "3", "--draft-layers", "1",
+        "--draft-checkpoint-dir", ckpt, "--flash-decode"])
+    with caplog.at_level("INFO"):
+        run = serve_lm.build_generate(args)
+    if not saved:
+        assert f"draft: NO checkpoint found; random params from {ckpt}" \
+            in caplog.text
+        return
+    assert f"draft: step-2 params from {ckpt}" in caplog.text
+    assert all(torch.equal(run.draft.state_dict()[k],
+                           run.model.state_dict()[k])
+               for k in run.model.state_dict())
+    prompts = [[1, 2, 3], [9, 8, 7, 6, 5]]
+    srv, t = _serve(args, run)
+    try:
+        got = _post(srv.server_address[1], {"prompt_ids": prompts})["tokens"]
+    finally:
+        _stop(srv, t)
+    assert run.spec_accepted == run.spec_drafted > 0
+    assert got == _greedy(_decode_model(args, run.params), prompts, args)
+
+
+def test_prefix_cache_server_reuses_its_blocks():
+    args = serve_lm.parse_args(TINY + ["--prefix-cache", "2"])
+    run = serve_lm.build_generate(args)
+    srv, t = _serve(args, run)
+    try:
+        for sfx in ([1], [2, 3], [4]):
+            _post(srv.server_address[1], {"prompt_ids": [sfx],
+                                          "prefix_ids": [5, 6, 7]})
+        # As long as --max-prompt-len: concatenated, not cached.
+        _post(srv.server_address[1], {"prompt_ids": [[1]],
+                                      "prefix_ids": list(range(8))})
+    finally:
+        _stop(srv, t)
+    assert run.prefix_cache.stats() == {"entries": 1, "hits": 2, "misses": 1,
+                                        "evictions": 0}
+
+
+def test_module_entry_point_serves_speculative_slots():
+    """``python -m ... serve_lm --slots 2 --speculative 2 --prefix-cache
+    2``: main() wires the speculative engine."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "container_engine_accelerators_tpu_torch.cmd.serve_lm"] + TINY
+        + ["--slots", "2", "--speculative", "2", "--prefix-cache", "2"],
+        cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        deadline = time.monotonic() + 60
+        log, m = b"", None
+        while m is None:
+            left = deadline - time.monotonic()
+            assert left > 0, "server never reported its port"
+            ready, _, _ = select.select([proc.stderr], [], [], left)
+            chunk = os.read(proc.stderr.fileno(), 4096) if ready else b""
+            assert chunk or proc.poll() is None, f"server exited: {log!r}"
+            log += chunk
+            m = re.search(rb"serving LM on :(\d+)", log)
+        assert b"continuous batching: 2 decode slots (speculative, k=2)" in log
+        body = _post(int(m.group(1)), {"prompt_ids": [[1, 2], [3]],
+                                       "prefix_ids": [4, 5]})
+        assert [len(r) for r in body["tokens"]] == [8, 7]
     finally:
         proc.terminate()
         proc.wait(timeout=30)

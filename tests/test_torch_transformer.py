@@ -30,6 +30,7 @@ from container_engine_accelerators_tpu_torch.models.generate import (
     generate,
     init_cache,
     prefill,
+    prefill_chunked,
 )
 from container_engine_accelerators_tpu_torch.models.quant import (
     serving_params,
@@ -206,11 +207,22 @@ def test_convert_rejects_foreign_trees(params):
 @pytest.mark.parametrize("kwargs,match", [
     (dict(decode=False, num_experts=4), "training slice"),
     (dict(decode=True, num_experts=4), "later serving slice"),
-    (dict(decode=True, quant=True), "later serving slice"),
 ])
 def test_unported_modes_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         TransformerLM(**BASE, device="meta", **kwargs)
+
+
+def test_int8_decode_mode_is_ported_and_train_mode_refused():
+    """Once rejected as a later slice's, now taken in decode mode; the
+    JAX package has no quantized training, so train mode refuses it."""
+    model = TransformerLM(**BASE, decode=True, quant=True, device="meta")
+    assert model.blocks[0].attn.out.kernel_q.dtype == torch.int8
+    assert model.blocks[0].attn.out.scale.shape == (32,)
+    with pytest.raises(ValueError, match="decode=True"):
+        TransformerLM(**BASE, quant=True, device="meta")
+    with pytest.raises(ValueError, match="float weights"):
+        init_params(model, torch.Generator())
 
 
 def test_serving_params():
@@ -219,8 +231,10 @@ def test_serving_params():
     assert serving_params(sd, "f32") is sd
     bf = serving_params(sd, "bf16")
     assert all(t.dtype == torch.bfloat16 for t in bf.values())
-    with pytest.raises(NotImplementedError, match="later serving slice"):
-        serving_params(sd, "int8")
+    q = serving_params(sd, "int8")
+    assert q["blocks.0.up.kernel_q"].dtype == torch.int8
+    assert q["blocks.0.up.scale"].dtype == torch.float32
+    assert q["embed"].dtype == q["ln_f.scale"].dtype == torch.bfloat16
     with pytest.raises(ValueError):
         serving_params(sd, "fp8")
 
@@ -259,3 +273,45 @@ def test_generate_rejects_bad_prompt_len(params):
     with pytest.raises(ValueError, match="prompt_len"):
         generate(model, torch.zeros((1, 4), dtype=torch.long), 2,
                  prompt_len=5)
+
+
+# Chunked prefill: the same cache and last logits as the single-shot
+# prefill, in pieces (f32 within 1e-5: the pieces' products round as the
+# whole prompt's may not), and as JAX's prefill_chunked (1e-4, this file's
+# f32 tolerance); greedy tokens identical.  True lengths 5, 11 and 16 in a
+# 16-token bucket; chunk 16 or more is the single-shot path.
+@pytest.mark.parametrize("true_len", [5, 11, 16])
+@pytest.mark.parametrize("chunk", [1, 3, 4, 7])
+def test_prefill_chunked_matches_single_shot_and_jax(params, chunk, true_len):
+    flax_p, sd = params["gqa"]
+    rng = np.random.default_rng(chunk * 31 + true_len)
+    prompt = np.zeros((2, 16), np.int32)
+    prompt[:, :true_len] = rng.integers(1, BASE["vocab_size"], (2, true_len))
+    model = _port_model("gqa", sd, "f32", flash=True)
+    x = torch.from_numpy(prompt).long()
+    with torch.inference_mode():
+        c_cache, c_last = prefill_chunked(model, x, true_len, 16 + MAX_NEW,
+                                          chunk)
+        s_cache, s_last = prefill(model, x, true_len, 16 + MAX_NEW)
+    assert (c_cache["cache_index"] == true_len).all()
+    torch.testing.assert_close(c_last, s_last, atol=1e-5, rtol=1e-5)
+    for k in ("cached_key", "cached_value"):
+        torch.testing.assert_close(c_cache[k], s_cache[k], atol=1e-5,
+                                   rtol=1e-5)
+    jm = jtr.transformer_lm(**CFGS["gqa"], decode=True, dtype=jnp.float32)
+    _, j_last = jgen.prefill_chunked(jm, flax_p, jnp.asarray(prompt),
+                                     true_len, 16 + MAX_NEW, chunk)
+    np.testing.assert_allclose(c_last.numpy(), np.asarray(j_last),
+                               atol=1e-4, rtol=1e-4)
+    with torch.inference_mode():
+        chunked = generate(model, x, MAX_NEW, prompt_len=true_len,
+                           prefill_chunk=chunk)
+        whole = generate(model, x, MAX_NEW, prompt_len=true_len)
+    n = true_len + MAX_NEW
+    assert torch.equal(chunked[:, :n], whole[:, :n])
+
+
+def test_prefill_chunked_rejects_a_zero_chunk(params):
+    model = _port_model("mha", params["mha"][1])
+    with pytest.raises(ValueError, match="chunk"):
+        prefill_chunked(model, torch.zeros((1, 8), dtype=torch.long), 8, 8, 0)
