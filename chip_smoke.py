@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's two paths as a user would, at the default model width
-(12 layers, 8 heads x 64, mlp 2048, vocab 32000, random weights from a
-seed): serving — ``cmd/serve_lm.py``'s ``build_generate`` and
+Drives the port's paths as a user would: the LM paths at the default
+model width (12 layers, 8 heads x 64, mlp 2048, vocab 32000, random
+weights from a seed), serving — ``cmd/serve_lm.py``'s ``build_generate`` and
 ``make_handler`` behind a real HTTP server with ``--flash-decode``, then
 with each single-GPU feature (int8 weights, chunked prefill, the prefix
 cache, speculative decoding) per request and with ``--slots`` — and
 training — ``cmd/train_lm.py``'s ``main`` at its defaults (seq 2048,
-batch 8, bf16) — and holds every hand-written CUDA kernel against its
-plain PyTorch version.  Phases, one JSON line each:
+batch 8, bf16) — and the image paths, ``cmd/train_resnet.py`` and
+``cmd/serve_resnet.py`` at their defaults (ResNet-50, 224x224, batch
+128, bf16 with cuDNN) and Inception-v3; and holds every hand-written CUDA
+kernel against its plain PyTorch version.  Phases, one JSON line each:
 
 1. the card (``nvidia-smi`` name and power limit, printed verbatim too);
 2. the build of every kernel from ``ops/csrc/`` in one
@@ -125,7 +127,36 @@ plain PyTorch version.  Phases, one JSON line each:
     request that must repeat its tokens, and in f32 greedy tokens
     identical to ``generate``'s; flash decode must have run draft layers x
     (k + 1) times a round;
-18. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
+18. ``resnet_parity``: ResNet-50 at full width, 224x224, batch 8 (seed-0
+    weights, every BatchNorm value drawn from the seed) on the card
+    against the same model on the CPU: eval logits in f32 with TF32 off
+    (1e-4 of the largest); one train step in f64 (loss 1e-9 relative,
+    every gradient and running statistic 1e-6 of its leaf's largest) and
+    in f32 (loss 1e-4, running statistics 1e-4, and the card's gradients
+    no more than 2x as far from the f64 ones as the CPU's: this step's
+    f32 gradients are ill-conditioned), no parameter moved by step 0 (lr
+    0); bf16 eval logits against f32's: top-1 agreement and the largest
+    difference;
+19. ``train_resnet``: ``cmd/train_resnet.py``'s ``main`` at its defaults
+    (ResNet-50, batch 128, 224x224, bf16, channels_last) for 30 steps
+    with ``--profile-dir`` (steps 10-20 traced, read by
+    ``cmd/trace_summary.py``) and ``--model-dir``: finite losses, step ms
+    and images/s outside the traced window, peak memory, the busy share
+    and the top kernels, FLOPs an image counted from the model's shapes
+    and the share of the card's bf16 peak; then ``--model inception-v3``
+    at 299x299 for 6 steps;
+20. ``train_resnet_resume``: 12 steps unbroken against a run with
+    ``--checkpoint-dir`` SIGTERMed in step 5 (exit 80, a checkpoint at 6)
+    and restarted, with cuDNN's default algorithms and with
+    ``torch.backends.cudnn.deterministic`` — exact or within 2e-2
+    relative, and which, and the step ms of each;
+21. ``serve_resnet``: ``cmd/serve_resnet.py`` behind a real HTTP server,
+    20 requests each of ``{"batch": 1}`` and ``{"batch": 8}`` (latency),
+    predictions equal to a direct eval forward and to an ``inputs``
+    request of the same array, then ``--model-dir`` from phase 19 (the
+    saved params, the initial running statistics); phases 18-21 launch
+    none of the port's kernels (every counter checked unchanged);
+22. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
     ``serve`` and ``serve_slots`` phases' and phases 14-17').
 
 Each phase's seconds follow it on a ``timing`` line.  The last line is
@@ -139,6 +170,7 @@ printing any result.  Run from the repository root:
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -2132,6 +2164,503 @@ def serve_spec(fd, dev, card, plain):
             + self_draft["launches"]["flash_decode"])
 
 
+# ---- phases 18-21: the image-model path (ResNet-50, Inception-v3) ----------
+
+IMAGE_BATCH, IMAGE_SIZE = 8, 224  # resnet_parity's batch and images
+IMAGE_STEPS = 30  # train_resnet: steps 10-20 traced (--profile-dir)
+IMAGE_TRACED = range(10, 21)
+INCEPTION_STEPS = 6
+RESUME_STEPS, RESUME_AT = 12, 6
+SERVE_REQUESTS = 20
+IMAGE_TOL = {"logits_to_max": 1e-4, "loss_rel": 1e-4, "stats_to_leaf_max": 1e-4,
+             "f64_loss_rel": 1e-9, "f64_to_leaf_max": 1e-6,
+             # The card's f32 gradients may sit no more than this many
+             # times farther from the f64 ones than the CPU's f32 do.
+             "f32_grad_vs_cpu_f32": 2.0}
+
+
+def _bf16_peak(card_name):
+    """NVIDIA's dense bf16 peak for an H100 by its name (the data sheet:
+    SXM 989 TFLOP/s, PCIe 756), else None."""
+    if "H100" not in card_name:
+        return None
+    return 756e12 if "PCIe" in card_name else 989e12
+
+
+def _kernel_counts():
+    """Every launch counter of the port's kernels, for the phases that
+    must launch none of them."""
+    from container_engine_accelerators_tpu_torch.ops import flash_attention
+    from container_engine_accelerators_tpu_torch.ops import flash_decode
+
+    return {**flash_decode.LAUNCHES, **flash_attention.LAUNCHES}
+
+
+def _launches_none(phase, before):
+    after = _kernel_counts()
+    if after != before:
+        raise AssertionError(f"{phase} launched the port's kernels: "
+                             f"{before} -> {after}")
+
+
+def _drawn_image_state(model, gen):
+    """init_params's values, then every BatchNorm scale, bias and running
+    statistic drawn from ``gen``: the zero-initialised last scale of each
+    block would zero that branch and every gradient behind it."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models.resnet import (
+        init_params,
+    )
+
+    state = init_params(model, gen)
+    for name, t in state.items():
+        if t.ndim != 1 or name.startswith("head."):
+            continue
+        if name.endswith(("weight", "running_var")):
+            state[name] = torch.rand(t.shape, generator=gen) * 0.4 + 0.8
+        else:
+            state[name] = torch.randn(t.shape, generator=gen) * 0.1
+    return state
+
+
+def _leaf_max_errs(got, want):
+    """{name: max |got - want| / max |want|} over two state-like dicts."""
+    return {k: ((got[k].float().cpu() - want[k].float()).abs().max()
+                / want[k].float().abs().max().clamp_min(1e-30)).item()
+            for k in want}
+
+
+def resnet_parity(dev, card):
+    """Phase 18: ResNet-50 at full width on the card against the same
+    model on the CPU — eval logits in f32 with TF32 off, one train step
+    (loss, every gradient, the running statistics) in f64 and in f32 —
+    and the card's bf16 eval logits against its f32 ones."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models import train as ptrain
+    from container_engine_accelerators_tpu_torch.models.resnet import resnet
+
+    before = _kernel_counts()
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((IMAGE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(
+        np.float32)
+    y = rng.integers(0, 1000, IMAGE_BATCH).astype(np.int64)
+    cpu = resnet(50, dtype=torch.float32)
+    state = _drawn_image_state(cpu, torch.Generator().manual_seed(0))
+    cpu.load_state_dict(state)
+    card_f32 = resnet(50, dtype=torch.float32, device=dev)
+    card_f32.load_state_dict(state)
+    images = torch.from_numpy(x).permute(0, 3, 1, 2)
+    out = {}
+    with torch.inference_mode():
+        want = cpu.eval()(images)
+        got = card_f32.eval()(images.to(dev)).cpu()
+    err = (got - want).abs().max().item()
+    out["eval_f32"] = {"max_abs_err": err,
+                       "to_max": err / want.abs().max().item(),
+                       "top1_agree": (got.argmax(-1) == want.argmax(-1))
+                       .float().mean().item()}
+    if not out["eval_f32"]["to_max"] <= IMAGE_TOL["logits_to_max"]:
+        raise AssertionError(f"card f32 eval logits vs the CPU's: {out}")
+
+    def step(model, device, dtype):
+        s = ptrain.create_train_state(model, None, ptrain.cosine_sgd(
+            total_steps=10, warmup_steps=1))
+        before_params = {n: p.detach().clone()
+                         for n, p in model.named_parameters()}
+        s, metrics = ptrain.train_step(s, images.to(device, dtype),
+                                       torch.from_numpy(y).to(device))
+        moved = [n for n, p in model.named_parameters()
+                 if not torch.equal(p.detach(), before_params[n])]
+        grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+        stats = {k: v for k, v in model.state_dict().items()
+                 if "running" in k}
+        return metrics["loss"].item(), grads, stats, moved
+
+    def compare(got, want):
+        grad_errs = _leaf_max_errs(got[1], want[1])
+        worst = max(grad_errs, key=grad_errs.get)
+        return {"loss_rel": abs(got[0] - want[0]) / abs(want[0]),
+                "max_grad_err_to_leaf_max": grad_errs[worst],
+                "worst_grad_leaf": worst,
+                "median_grad_err_to_leaf_max":
+                    statistics.median(grad_errs.values()),
+                "max_stats_err_to_leaf_max":
+                    max(_leaf_max_errs(got[2], want[2]).values())}
+
+    # The step's arithmetic in f64 on both sides, then f32 on both, each
+    # f32 side also against the CPU's f64 (its own rounding error).
+    runs = {}
+    for name, device, dtype in (("cpu_f64", "cpu", torch.float64),
+                                ("card_f64", dev, torch.float64),
+                                ("cpu_f32", "cpu", torch.float32),
+                                ("card_f32", dev, torch.float32)):
+        model = resnet(50, dtype=dtype, device=device).to(dtype)
+        model.load_state_dict(state)
+        runs[name] = step(model, device, dtype)
+        del model
+    out["train_f64"] = {"loss": runs["card_f64"][0],
+                        **compare(runs["card_f64"], runs["cpu_f64"])}
+    out["train_f32"] = {"loss": runs["card_f32"][0],
+                        "loss_cpu": runs["cpu_f32"][0],
+                        **compare(runs["card_f32"], runs["cpu_f32"]),
+                        "card_vs_f64": compare(runs["card_f32"],
+                                               runs["cpu_f64"]),
+                        "cpu_vs_f64": compare(runs["cpu_f32"],
+                                              runs["cpu_f64"])}
+    out["params_moved_at_step_0"] = sum(len(r[3]) for r in runs.values())
+    t64, t32 = out["train_f64"], out["train_f32"]
+    if (t64["loss_rel"] > IMAGE_TOL["f64_loss_rel"]
+            or t64["max_grad_err_to_leaf_max"] > IMAGE_TOL["f64_to_leaf_max"]
+            or t64["max_stats_err_to_leaf_max"]
+            > IMAGE_TOL["f64_to_leaf_max"]):
+        raise AssertionError(f"card f64 train step vs the CPU's: {t64}")
+    if (t32["loss_rel"] > IMAGE_TOL["loss_rel"]
+            or t32["max_stats_err_to_leaf_max"]
+            > IMAGE_TOL["stats_to_leaf_max"]
+            or t32["card_vs_f64"]["max_grad_err_to_leaf_max"]
+            > IMAGE_TOL["f32_grad_vs_cpu_f32"]
+            * t32["cpu_vs_f64"]["max_grad_err_to_leaf_max"]):
+        raise AssertionError(f"card f32 train step vs the CPU's: {t32}")
+    # optax reads the schedule at the count before it increments: lr 0.
+    if out["params_moved_at_step_0"]:
+        raise AssertionError("step 0 moved params at lr 0")
+    del cpu, card_f32, runs
+
+    card_bf16 = resnet(50, device=dev)
+    card_bf16.load_state_dict(state)
+    with torch.inference_mode():
+        low = card_bf16.eval()(images.to(dev)).cpu()
+    diff = (low - got).abs().max().item()  # got: the card's f32 logits
+    out["eval_bf16_vs_f32"] = {
+        "top1_agree": (low.argmax(-1) == got.argmax(-1)).float().mean()
+        .item(), "max_abs_diff": diff,
+        "to_max": diff / got.abs().max().item()}
+    if not torch.isfinite(low).all():
+        raise AssertionError("non-finite bf16 logits")
+    del card_bf16
+    _launches_none("resnet_parity", before)
+    _phase("resnet_parity", card=card,
+           config=f"ResNet-50, {IMAGE_SIZE}x{IMAGE_SIZE}, batch "
+                  f"{IMAGE_BATCH}, weights from seed 0 with every BatchNorm "
+                  f"value drawn from it",
+           tolerance=IMAGE_TOL, launches="none of the port's kernels", **out)
+
+
+def _image_step_ms(ends, skip=()):
+    """Steady-state step ms from the on_step clock: intervals after the
+    first two steps, leaving out the steps in ``skip``."""
+    return [(b - a) * 1e3 for i, (a, b) in enumerate(zip(ends, ends[1:]), 1)
+            if i >= 2 and i not in skip]
+
+
+# Device time of an image step by kind of kernel, by name (first match).
+KERNEL_KINDS = (("batch_norm", ("batch_norm", "bn_")),
+                ("convolution", ("xmma", "cutlass", "cudnn", "conv",
+                                 "implicit_gemm", "sm90_", "sm80_")),
+                ("pooling", ("pool",)),
+                ("copy", ("Memcpy", "Memset")),
+                ("elementwise", ("elementwise", "reduce_kernel")))
+
+
+def _by_kind(ops, steps):
+    """{kind: device ms a step} over trace_summary's ops (sorted by time),
+    and the three largest kernels left as "other"."""
+    out, other = {}, []
+    for o in ops:
+        kind = next((k for k, keys in KERNEL_KINDS
+                     if any(key in o["name"] for key in keys)), "other")
+        out[kind] = out.get(kind, 0.0) + o["ms"] / steps
+        if kind == "other" and len(other) < 3:
+            other.append([o["name"][:80], o["ms"] / steps])
+    return {**out, "other_top": other}
+
+
+def _summary(trace_dir):
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "container_engine_accelerators_tpu_torch.cmd.trace_summary",
+         trace_dir, "--top", "100000"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"trace_summary failed: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def train_resnet(dev, card, model_dir):
+    """Phase 19: the main image path — cmd/train_resnet.py's main() at its
+    defaults (ResNet-50, batch 128, 224x224, bf16, channels_last) with
+    --profile-dir and --model-dir, then --model inception-v3 at 299x299."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import train_resnet as tr
+    from container_engine_accelerators_tpu_torch.models.inception import (
+        inception_v3,
+    )
+    from container_engine_accelerators_tpu_torch.models.resnet import (
+        forward_flops,
+        resnet,
+    )
+
+    before = _kernel_counts()
+    ends = []
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    args = tr.parse_args([])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rprof_") as prof:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = tr.main(["--train-steps", str(IMAGE_STEPS),
+                          "--steps-per-eval", "10", "--profile-dir", prof,
+                          "--model-dir", model_dir], on_step=on_step)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        summary = _summary(prof)
+    if len(losses) != IMAGE_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train_resnet losses: {losses}")
+    if summary["steps"] != len(IMAGE_TRACED) or not summary[
+            "device_ms_per_step"]:
+        raise AssertionError(f"traced {summary['steps']} steps, device ms "
+                             f"a step {summary['device_ms_per_step']}")
+    # Traced steps, and the ones beside the profiler's start and stop, run
+    # slower: leave them out.
+    steady = _image_step_ms(ends, skip=range(IMAGE_TRACED.start,
+                                             IMAGE_TRACED.stop + 1))
+    step_ms = statistics.median(steady)
+    flops = forward_flops(resnet(50, device=dev), args.image_size)
+    peak_flops = _bf16_peak(torch.cuda.get_device_name(0))
+    images_per_s = args.train_batch_size / (step_ms / 1e3)
+    achieved = images_per_s * 3 * flops
+    torch.cuda.empty_cache()
+
+    ends.clear()
+    inc_losses = tr.main(["--model", "inception-v3", "--image-size", "299",
+                          "--train-steps", str(INCEPTION_STEPS),
+                          "--steps-per-eval", str(INCEPTION_STEPS)],
+                         on_step=on_step)
+    if not all(math.isfinite(v) for v in inc_losses):
+        raise AssertionError(f"inception losses: {inc_losses}")
+    inc_steady = _image_step_ms(ends)
+    inc_flops = forward_flops(inception_v3(device=dev), 299)
+    torch.cuda.empty_cache()
+    _launches_none("train_resnet", before)
+    _phase("train_resnet", card=card,
+           entry="cmd/train_resnet.py main() at its defaults: ResNet-50, "
+                 "batch 128, 224x224, bf16, channels_last, nesterov SGD",
+           steps=IMAGE_STEPS, wall_s=wall, losses=losses,
+           steady_step_ms=step_ms, step_ms_min=min(steady),
+           step_ms_max=max(steady), steady_steps=len(steady),
+           step_ms_each=[round(v, 3) for v in steady],
+           images_per_s=images_per_s, peak_memory_bytes=peak,
+           forward_flops_per_image=flops,
+           train_flops_per_image=3 * flops,
+           achieved_tflops=achieved / 1e12,
+           bf16_peak_tflops=(peak_flops / 1e12 if peak_flops else None),
+           share_of_bf16_peak=(achieved / peak_flops if peak_flops else None),
+           trace={"traced_steps": summary["steps"],
+                  "device_ms_per_step": summary["device_ms_per_step"],
+                  "busy_share": summary["busy_share"],
+                  "device_ms_over_untraced_step": (
+                      summary["device_ms_per_step"] / step_ms),
+                  "device_ms_per_step_by_kind": _by_kind(summary["ops"],
+                                                         summary["steps"]),
+                  "launches_per_step": summary["launches"] / summary["steps"],
+                  "top": [[o["name"][:80], o["ms"], o["launches"]]
+                          for o in summary["ops"][:12]]},
+           inception_v3={"image_size": 299, "batch": args.train_batch_size,
+                         "steps": INCEPTION_STEPS, "losses": inc_losses,
+                         "steady_step_ms": statistics.median(inc_steady),
+                         "step_ms_each": [round(v, 3) for v in inc_steady],
+                         "images_per_s": args.train_batch_size
+                         / (statistics.median(inc_steady) / 1e3),
+                         "forward_flops_per_image": inc_flops},
+           launches="none of the port's kernels")
+    return losses
+
+
+def train_resnet_resume(card):
+    """Phase 20: the image trainer at its defaults, 12 steps unbroken
+    against a run SIGTERMed at step 6 (it checkpoints and exits 80) and
+    restarted from the checkpoint — with cuDNN's default algorithms, then
+    with torch.backends.cudnn.deterministic."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import train_resnet as tr
+
+    before = _kernel_counts()
+    runs = {}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        ends = []
+
+        def on_step(step, loss):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+
+        first = []
+
+        def preempt(step, loss):
+            # A drain's SIGTERM during step RESUME_AT - 1: the trainer
+            # saves step RESUME_AT and exits 80, as a Job's pod would.
+            first.append(float(loss))
+            if step == RESUME_AT - 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        argv = ["--train-steps", str(RESUME_STEPS), "--steps-per-eval", "100"]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_rckpt_") as tmp:
+            ck = ["--checkpoint-dir", tmp]
+            unbroken = tr.main(argv, on_step=on_step)
+            step_ms = _image_step_ms(ends)
+            try:
+                tr.main(argv + ck, on_step=preempt)
+                raise AssertionError("the preempted run did not exit")
+            except SystemExit as e:
+                if e.code != 80:
+                    raise AssertionError(f"preempted run exited {e.code}")
+            resumed = tr.main(argv + ck)
+        losses = first + resumed
+        if len(first) != RESUME_AT or len(resumed) != RESUME_STEPS - RESUME_AT:
+            raise AssertionError(f"resume ran {len(first)} + {len(resumed)}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, unbroken))
+        if not rel <= 2e-2:
+            raise AssertionError(f"resumed losses {losses} vs unbroken "
+                                 f"{unbroken}")
+        runs["deterministic" if det else "default"] = {
+            "losses": losses, "unbroken_losses": unbroken,
+            "exact": losses == unbroken, "max_rel_diff": rel,
+            "median_step_ms": statistics.median(step_ms),
+            "step_ms_each": [round(v, 3) for v in step_ms]}
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    _launches_none("train_resnet_resume", before)
+    cost = (runs["deterministic"]["median_step_ms"]
+            / runs["default"]["median_step_ms"])
+    _phase("train_resnet_resume", card=card,
+           entry=f"cmd/train_resnet.py main() at its defaults, "
+                 f"--train-steps {RESUME_STEPS}: unbroken, against a run "
+                 f"with --checkpoint-dir SIGTERMed in step {RESUME_AT - 1} "
+                 f"(exit 80, checkpoint at {RESUME_AT}) and restarted",
+           tolerance="exact if equal, else within 2e-2 relative (bf16)",
+           deterministic_needed_for_exact=(not runs["default"]["exact"]
+                                           and runs["deterministic"]["exact"]),
+           deterministic_step_cost=cost, **runs)
+
+
+def serve_resnet(dev, card, model_dir):
+    """Phase 21: cmd/serve_resnet.py behind a real HTTP server on the card:
+    latency at batch 1 and 8, predictions against a direct eval forward
+    and an ``inputs`` request, then --model-dir from phase 19."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import serve_resnet as sr
+
+    before = _kernel_counts()
+
+    def call(port, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/predict", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            resp = json.load(r)
+        return resp, (time.perf_counter() - t0) * 1e3
+
+    args = sr.parse_args(["--port", "0"])
+    t0 = time.perf_counter()
+    forward = sr.build_forward(args)
+    build_s = time.perf_counter() - t0
+    srv = _http_server(sr.make_handler(forward, args))
+    port = srv[0].server_address[1]
+    latency = {}
+    try:
+        for batch in (1, 8):
+            server_ms, client_ms, preds = [], [], None
+            for _ in range(SERVE_REQUESTS):
+                resp, ms = call(port, {"batch": batch})
+                server_ms.append(resp["latency_ms"])
+                client_ms.append(ms)
+                if preds is not None and resp["predictions"] != preds:
+                    raise AssertionError("the same request gave other "
+                                         "predictions")
+                preds = resp["predictions"]
+            x = sr.request_images({"batch": batch}, args)
+            with torch.inference_mode():
+                direct = forward.model(torch.from_numpy(x).to(dev).permute(
+                    0, 3, 1, 2)).argmax(-1).tolist()
+            if preds != direct:
+                raise AssertionError(f"batch {batch}: server {preds} != "
+                                     f"direct forward {direct}")
+            latency[f"batch_{batch}"] = {
+                "server_ms_median": statistics.median(server_ms),
+                "server_ms_min": min(server_ms),
+                "server_ms_max": max(server_ms),
+                "client_ms_median": statistics.median(client_ms),
+                "images_per_s": batch / (statistics.median(server_ms) / 1e3),
+                "predictions": preds}
+        x1 = sr.request_images({"batch": 1}, args)
+        sent, _ = call(port, {"inputs": x1.tolist()})
+        if sent["predictions"] != latency["batch_1"]["predictions"]:
+            raise AssertionError("an inputs request of the same array "
+                                 "predicted otherwise")
+    finally:
+        _shutdown(*srv)
+    # Where a request's time goes: forward() called back to back in this
+    # thread (no HTTP), and one call traced (device time against wall).
+    for batch in (1, 8):
+        xb = sr.request_images({"batch": batch}, args)
+        entry = latency[f"batch_{batch}"]
+        entry["direct_ms_median"] = _ms_median(lambda: forward(xb), reps=10)
+
+        def in_new_thread():  # as ThreadingHTTPServer runs each request
+            worker = threading.Thread(target=forward, args=(xb,))
+            worker.start()
+            worker.join()
+
+        entry["new_thread_ms_median"] = _ms_median(in_new_thread, reps=10)
+        device_ms, wall_ms, by_name, count = _traced(lambda: forward(xb))
+        entry["traced"] = {
+            "wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms,
+            "launches": sum(count.values()),
+            "top": [[k[:70], v] for k, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:5]]}
+    del forward
+
+    loaded = sr.build_forward(sr.parse_args(["--model-dir", model_dir]))
+    saved = torch.load(os.path.join(model_dir, sr.PARAMS_FILE),
+                       map_location="cpu", weights_only=True)
+    for name, p in loaded.model.named_parameters():
+        if not torch.equal(p.detach().cpu(), saved[name]):
+            raise AssertionError(f"--model-dir: {name} is not the saved one")
+    stats = {k: v for k, v in loaded.model.state_dict().items()
+             if "running" in k}
+    if any(v.any() for k, v in stats.items() if k.endswith("mean")) or any(
+            (v != 1).any() for k, v in stats.items() if k.endswith("var")):
+        raise AssertionError("--model-dir changed the running statistics")
+    model_dir_preds = loaded(x1).tolist()
+    del loaded
+    torch.cuda.empty_cache()
+    _launches_none("serve_resnet", before)
+    _phase("serve_resnet", card=card,
+           entry="cmd/serve_resnet.py build_forward / make_handler at its "
+                 "defaults (ResNet-50, 224x224, bf16, channels_last)",
+           build_and_warm_s=build_s, requests_each=SERVE_REQUESTS,
+           latency=latency,
+           inputs_request="equal to the batch-1 request's predictions",
+           direct_forward="equal at batch 1 and 8",
+           model_dir={"params": "equal to the trainer's params.pt",
+                      "running_stats": "initial (mean 0, var 1), as the "
+                                       "JAX server",
+                      "predictions_batch_1": model_dir_preds},
+           launches="none of the port's kernels")
+
+
 def _plain_server():
     """The per-request server at SERVE_FLAGS (bf16 compute on the seed-0
     weights): the feature phases' reference.  -> (run, server)."""
@@ -2226,6 +2755,13 @@ def main():
         fd_launches += _timed(name, phase, fd, dev, smi, plain)
     _shutdown(*plain[1])
     del plain
+    torch.cuda.empty_cache()
+
+    _timed("resnet_parity", resnet_parity, dev, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rmodel_") as model_dir:
+        _timed("train_resnet", train_resnet, dev, smi, model_dir)
+        _timed("train_resnet_resume", train_resnet_resume, smi)
+        _timed("serve_resnet", serve_resnet, dev, smi, model_dir)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -14,6 +14,9 @@ batched — ``cmd/serve_lm.py`` -> ``models/generate.py`` /
 resumes and profiles itself — ``cmd/train_lm.py`` ->
 ``models/lm_train.py`` (``models/checkpoint.py``) ->
 ``models/transformer.py`` in train mode -> ``ops/flash_attention.py``,
-with ``cmd/trace_summary.py`` to read its traces.  The kernels are
-hand-written CUDA in ``ops/csrc/``, built together by ``ops/build.py``.
+with ``cmd/trace_summary.py`` to read its traces — and the image models,
+trained and served on cuDNN — ``cmd/train_resnet.py`` ->
+``models/train.py`` -> ``models/resnet.py`` / ``models/inception.py``,
+and ``cmd/serve_resnet.py``.  The kernels are hand-written CUDA in
+``ops/csrc/``, built together by ``ops/build.py``.
 """

@@ -32,6 +32,8 @@ import time
 import numpy as np
 import torch
 
+from container_engine_accelerators_tpu_torch.utils.profile import ProfileWindow
+
 log = logging.getLogger("train-lm")
 
 _MULTI_GPU = "is not ported yet: it comes with the multi-GPU slice of the PyTorch port"
@@ -112,38 +114,6 @@ def synthetic_batches(args, n_batches=4):
         mask[:, -1] = 0.0
         out.append((toks, labels, mask))
     return out
-
-
-class ProfileWindow:
-    """``torch.profiler`` over a window of train steps (CPU activity, and
-    CUDA activity on the card), each step marked ``ProfilerStep#<n>``.
-    :meth:`stop` waits for the device, ends the trace and writes it into
-    ``directory`` as a Chrome trace (``*.pt.trace.json``)."""
-
-    def __init__(self, directory, device):
-        from torch.profiler import ProfilerActivity, profile
-
-        self.directory, self.device = directory, device
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        self.path = None
-        self._prof = profile(activities=activities)
-        self._prof.start()
-
-    @staticmethod
-    def step(step):
-        return torch.profiler.record_function(f"ProfilerStep#{step}")
-
-    def stop(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._prof.stop()
-        os.makedirs(self.directory, exist_ok=True)
-        self.path = os.path.join(self.directory,
-                                 f"train_lm.{os.getpid()}.pt.trace.json")
-        self._prof.export_chrome_trace(self.path)
-        log.info("wrote torch.profiler trace to %s", self.path)
 
 
 def main(argv=None, on_step=None):
@@ -233,7 +203,8 @@ def main(argv=None, on_step=None):
                 # Trace steady-state steps (the JAX trainer's window).
                 if args.profile_dir and step == max(
                         start_step, min(10, args.train_steps - 1)):
-                    profile = ProfileWindow(args.profile_dir, device)
+                    profile = ProfileWindow(args.profile_dir, device,
+                                            "train_lm")
                 if batch_iter is not None:
                     toks, labels, mask = on_device(*next(batch_iter))
                 else:

@@ -1,6 +1,6 @@
-"""Deterministic token-batch loader with background prefetch — a copy of
-the token half of ``container_engine_accelerators_tpu/data/loader.py``
-(``ImageBatchLoader`` comes with the ResNet slice of the port).
+"""Deterministic batch loaders with background prefetch — a copy of
+``container_engine_accelerators_tpu/data/loader.py``: tokens for the LM
+trainer, images and labels for the image trainer.
 
 Two properties carry the whole design:
 
@@ -31,6 +31,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from container_engine_accelerators_tpu_torch.data.arrays import ArrayShardReader
 from container_engine_accelerators_tpu_torch.data.tokens import TokenShardReader
 
 Batch = Tuple[np.ndarray, np.ndarray, np.ndarray]
@@ -130,3 +131,64 @@ class TokenBatchLoader:
             // (self.batch_size * self.seq_len),
         )
 
+
+
+class ImageBatchLoader:
+    """Image/label twin of :class:`TokenBatchLoader` — same pure
+    step->batch mapping (global batch ``s`` is samples
+    ``[s*B, (s+1)*B)``, modular) and the same prefetch thread.
+
+    ``shard=(pid, num_procs)`` makes ``batch_at`` return only this
+    process's rows of the global batch — image rows are independent, so
+    a host never has to materialize or scale the other hosts' slices.
+    The mapping stays a pure function of (step, shard): resume is exact
+    and the union over shards is exactly the global batch.
+
+    Batches are NHWC numpy arrays (the trainer permutes them to NCHW,
+    ``channels_last``, on the device).  uint8 storage is scaled to
+    [0, 1] float32 on the host; float storage passes through as f32.
+    ``num_classes`` bounds labels the way ``vocab_size`` bounds tokens.
+    """
+
+    def __init__(self, reader: ArrayShardReader, batch_size: int,
+                 num_classes: Optional[int] = None, prefetch: int = 2,
+                 shard: Tuple[int, int] = (0, 1)):
+        pid, num_procs = shard
+        if batch_size < 1:
+            raise ValueError("batch_size must be >= 1")
+        if num_procs < 1 or not 0 <= pid < num_procs \
+                or batch_size % num_procs:
+            raise ValueError(
+                f"shard {shard} invalid for batch_size {batch_size}")
+        self.reader = reader
+        self.batch_size = batch_size
+        self.num_classes = num_classes
+        self.prefetch = prefetch
+        self.shard = shard
+
+    def batch_at(self, step: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(images [b, ...] f32, labels [b] int32), b = this shard's rows
+        — pure in ``step``."""
+        pid, num_procs = self.shard
+        local = self.batch_size // num_procs
+        images, labels = self.reader.read(
+            step * self.batch_size + pid * local, local)
+        if self.num_classes is not None:
+            peak = int(labels.max())
+            if peak >= self.num_classes:
+                raise ValueError(
+                    f"dataset label {peak} >= num_classes "
+                    f"{self.num_classes} (step {step})")
+        if images.dtype == np.uint8:
+            images = images.astype(np.float32) / 255.0
+        else:
+            images = images.astype(np.float32, copy=False)
+        return images, labels
+
+    def iter_batches(self, start_step: int, num_steps: int):
+        """Prefetched batches for steps [start, start+num) in order."""
+        return _prefetched(self.batch_at, start_step, num_steps,
+                           self.prefetch)
+
+    def steps_per_epoch(self) -> int:
+        return max(1, self.reader.total_samples // self.batch_size)

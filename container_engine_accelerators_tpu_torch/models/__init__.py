@@ -1,2 +1,2 @@
-"""Transformer LM of the PyTorch port: decode-mode serving and train-mode
-training."""
+"""Models of the PyTorch port: the transformer LM (decode-mode serving and
+train-mode training) and the image models (ResNet, Inception-v3)."""

@@ -1,4 +1,6 @@
-"""flax LM params <-> the port's ``TransformerLM`` state dict.
+"""flax param trees <-> the port's state dicts: the LM's
+(``TransformerLM``) and, below, the image models' (``ResNet``,
+``InceptionV3``, with their BatchNorm statistics).
 
 The flax tree (``container_engine_accelerators_tpu/models/transformer.py``
 under ``nn.scan``) stacks every layer's leaves along a leading layer
@@ -28,6 +30,8 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+from container_engine_accelerators_tpu_torch.models import inception
 
 _LAYER_LEAVES = {
     ("attn", "q", "kernel"): "attn.q",
@@ -118,3 +122,187 @@ def to_flax_params(state_dict: Mapping) -> dict:
     return {"embed": {"embedding": arr(state_dict["embed"])},
             "ln_f": {"scale": arr(state_dict["ln_f.scale"])},
             "blocks": {"block": block}}
+
+
+# ---- image models: flax ResNet / Inception-v3 <-> the port's modules -------
+#
+# flax numbers its unnamed submodules in call order (``Conv_0``,
+# ``BatchNorm_1``, ``BottleneckResNetBlock_12``, ``ConvBNAct_3``); the
+# port names them (``conv0``, ``bn1``, ``blocks.12``, ``stem.3`` or a
+# branch of ``models/inception.py``'s ``BRANCHES``).  Both directions
+# parse the numbers: a sorted walk would put ``_10`` before ``_2``.
+#
+#   Conv       kernel [kh, kw, in, out] (HWIO)  <-> weight [out, in, kh, kw]
+#   Dense      kernel [in, out], bias           <-> weight [out, in], bias
+#   BatchNorm  params scale, bias               <-> weight, bias
+#              batch_stats mean, var            <-> running_mean, running_var
+
+_IMAGE_LEAVES = {
+    "conv": {"weight": ("params", "kernel")},
+    "dense": {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+    "bn": {"weight": ("params", "scale"), "bias": ("params", "bias"),
+           "running_mean": ("batch_stats", "mean"),
+           "running_var": ("batch_stats", "var")},
+}
+
+
+def _image_kind(module: str) -> str:
+    """conv, dense or bn, from the last name of a module's path in either
+    naming (``Conv_0`` / ``conv0`` / ``conv_init`` / ``conv_proj``,
+    ``head``, anything else a BatchNorm)."""
+    if module.lower().startswith("conv"):
+        return "conv"
+    return "dense" if module == "head" else "bn"
+
+
+def _flax_leaf_to_torch(kind: str, x) -> torch.Tensor:
+    x = np.asarray(x, dtype=np.float32)
+    if kind == "conv" and x.ndim == 4:
+        x = x.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    elif kind == "dense" and x.ndim == 2:
+        x = x.T
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _torch_leaf_to_flax(kind: str, t: torch.Tensor) -> np.ndarray:
+    x = t.detach().cpu().float().numpy()
+    if kind == "conv" and x.ndim == 4:
+        x = x.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    elif kind == "dense" and x.ndim == 2:
+        x = x.T
+    return np.ascontiguousarray(x)
+
+
+def _flax_modules(tree, path=()):
+    """(module path, {leaf: array}) for each leaf module of a flax tree."""
+    leaves = {k: v for k, v in tree.items() if not isinstance(v, Mapping)}
+    if leaves:
+        yield path, leaves
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _flax_modules(val, path + (key,))
+
+
+def _image_from_flax(params, batch_stats, torch_name) -> dict:
+    out = {}
+    for coll, tree in (("params", params), ("batch_stats", batch_stats or {})):
+        for path, leaves in _flax_modules(tree):
+            kind = _image_kind(path[-1])
+            name = torch_name(path)
+            for leaf, (want_coll, flax_leaf) in _IMAGE_LEAVES[kind].items():
+                if want_coll == coll and flax_leaf in leaves:
+                    out[f"{name}.{leaf}"] = _flax_leaf_to_torch(
+                        kind, leaves[flax_leaf])
+    return out
+
+
+def _image_to_flax(state, flax_path) -> tuple:
+    if isinstance(state, torch.nn.Module):
+        state = state.state_dict()
+    trees = {"params": {}, "batch_stats": {}}
+    for key, t in state.items():
+        module, leaf = key.rsplit(".", 1)
+        path = flax_path(module)
+        kind = _image_kind(path[-1])
+        coll, flax_leaf = _IMAGE_LEAVES[kind][leaf]
+        node = trees[coll]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[flax_leaf] = _torch_leaf_to_flax(kind, t)
+    return trees["params"], trees["batch_stats"]
+
+
+def _split_index(name: str):
+    """``"BottleneckResNetBlock_12"`` -> (``"BottleneckResNetBlock"``, 12)."""
+    head, _, index = name.rpartition("_")
+    return head, int(index)
+
+
+_RESNET_SUB = {"Conv": "conv", "BatchNorm": "bn"}
+
+
+def resnet_from_flax(params: Mapping, batch_stats: Mapping = None) -> dict:
+    """A flax ``ResNet``'s ``params`` (and ``batch_stats``), nested dicts of
+    arrays, -> a state dict for the port's ``ResNet`` of the same depth and
+    widths (f32 CPU tensors; ``load_state_dict`` places and lays them out).
+    Without ``batch_stats`` the running statistics are left out."""
+
+    def torch_name(path):
+        if len(path) == 1:  # conv_init, bn_init, head
+            return path[0]
+        block, sub = path
+        _, n = _split_index(block)
+        if sub in ("conv_proj", "norm_proj"):
+            return f"blocks.{n}.{sub}"
+        kind, i = _split_index(sub)
+        return f"blocks.{n}.{_RESNET_SUB[kind]}{i}"
+
+    return _image_from_flax(params, batch_stats, torch_name)
+
+
+def resnet_to_flax(state) -> tuple:
+    """The port's ``ResNet`` (or any mapping from its parameter and buffer
+    names to tensors: gradients, momentum buffers) -> ``(params,
+    batch_stats)`` in flax's layout, nested dicts of f32 numpy arrays."""
+    if isinstance(state, torch.nn.Module):
+        state = state.state_dict()
+    bottleneck = any(k.startswith("blocks.") and ".conv2." in k
+                     for k in state)
+    block = "BottleneckResNetBlock" if bottleneck else "ResNetBlock"
+    sub_of = {v: k for k, v in _RESNET_SUB.items()}
+
+    def flax_path(module):
+        parts = module.split(".")
+        if parts[0] != "blocks":
+            return (module,)
+        _, n, sub = parts
+        if sub not in ("conv_proj", "norm_proj"):
+            sub = f"{sub_of[sub.rstrip('0123456789')]}_{sub[-1]}"
+        return (f"{block}_{n}", sub)
+
+    return _image_to_flax(state, flax_path)
+
+
+# The port's InceptionV3 stages by attribute name, each block class with
+# its BRANCHES in flax's call order.
+_INCEPTION_BLOCKS = {"a": inception.InceptionA, "b": inception.InceptionB,
+                     "c": inception.InceptionC, "d": inception.InceptionD,
+                     "e": inception.InceptionE}
+
+
+def inception_from_flax(params: Mapping, batch_stats: Mapping = None) -> dict:
+    """``resnet_from_flax`` for a flax ``InceptionV3``: ``ConvBNAct_i`` at
+    the top is ``stem.i``; ``InceptionA_i``'s ``ConvBNAct_j`` is
+    ``a.i.<InceptionA.BRANCHES[j]>``, and so on for B-E."""
+    inner = {"Conv_0": "conv", "BatchNorm_0": "bn"}
+
+    def torch_name(path):
+        if path == ("head",):
+            return "head"
+        if len(path) == 2:
+            return f"stem.{_split_index(path[0])[1]}.{inner[path[1]]}"
+        block, cba, leaf = path
+        kind, i = _split_index(block)
+        stage = kind[-1].lower()
+        branch = _INCEPTION_BLOCKS[stage].BRANCHES[_split_index(cba)[1]]
+        return f"{stage}.{i}.{branch}.{inner[leaf]}"
+
+    return _image_from_flax(params, batch_stats, torch_name)
+
+
+def inception_to_flax(state) -> tuple:
+    """``resnet_to_flax`` for the port's ``InceptionV3``."""
+    inner = {"conv": "Conv_0", "bn": "BatchNorm_0"}
+
+    def flax_path(module):
+        parts = module.split(".")
+        if parts == ["head"]:
+            return ("head",)
+        if parts[0] == "stem":
+            return (f"ConvBNAct_{parts[1]}", inner[parts[2]])
+        stage, i, branch, leaf = parts
+        j = _INCEPTION_BLOCKS[stage].BRANCHES.index(branch)
+        return (f"Inception{stage.upper()}_{i}", f"ConvBNAct_{j}",
+                inner[leaf])
+
+    return _image_to_flax(state, flax_path)

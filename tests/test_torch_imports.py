@@ -34,7 +34,10 @@ def test_port_imports_without_jax():
               "models.lm_train", "data.tokens", "data.loader",
               "utils.preempt", "cmd.train_lm", "utils.retry", "utils.faults",
               "models.checkpoint", "models.batching", "cmd.trace_summary",
-              "models.quant", "models.prefix_cache", "models.speculative"}
+              "models.quant", "models.prefix_cache", "models.speculative",
+              "models.resnet", "models.inception", "data.arrays",
+              "cmd.train_resnet", "cmd.serve_resnet", "entry",
+              "utils.profile"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys
