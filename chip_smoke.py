@@ -8,10 +8,11 @@ weights from a seed), serving — ``cmd/serve_lm.py``'s ``build_generate`` and
 with each single-GPU feature (int8 weights, chunked prefill, the prefix
 cache, speculative decoding) per request and with ``--slots`` — and
 training — ``cmd/train_lm.py``'s ``main`` at its defaults (seq 2048,
-batch 8, bf16) — and the image paths, ``cmd/train_resnet.py`` and
-``cmd/serve_resnet.py`` at their defaults (ResNet-50, 224x224, batch
-128, bf16 with cuDNN) and Inception-v3; and holds every hand-written CUDA
-kernel against its plain PyTorch version.  Phases, one JSON line each:
+batch 8, bf16) — both again with ``--num-experts 8`` (the Switch MoE-LM),
+and the image paths, ``cmd/train_resnet.py`` and ``cmd/serve_resnet.py``
+at their defaults (ResNet-50, 224x224, batch 128, bf16 with cuDNN) and
+Inception-v3; and holds every hand-written CUDA kernel against its plain
+PyTorch version.  Phases, one JSON line each:
 
 1. the card (``nvidia-smi`` name and power limit, printed verbatim too);
 2. the build of every kernel from ``ops/csrc/`` in one
@@ -127,7 +128,35 @@ kernel against its plain PyTorch version.  Phases, one JSON line each:
     request that must repeat its tokens, and in f32 greedy tokens
     identical to ``generate``'s; flash decode must have run draft layers x
     (k + 1) times a round;
-18. ``resnet_parity``: ResNet-50 at full width, 224x224, batch 8 (seed-0
+18. ``moe_parity``: the Switch MoE FFN (``ops/moe.py``) at the train
+    shape (N 16,384, D 512, H 2,048, E 8, C 2,560; inputs and weights
+    from a seed) on the card against the CPU — in f64 identical expert
+    index and kept set, the output, aux loss and every gradient within
+    1e-9 of the leaf's largest; in f32 with TF32 off the share of tokens
+    routed differently (at most 1e-3) and the output error on the tokens
+    routed alike; then the full-width MoE-LM (``--num-experts 8``), batch
+    2 x 2048, flash kernels against dense attention: the f32 loss (aux
+    term included) within 1e-4 relative, and the routes that differ;
+19. ``train_moe``: the trainer's ``main`` at its defaults plus
+    ``--num-experts 8`` for 6 steps, launch counts reset around it (the
+    forward kernel 2 x layers x steps, each backward kernel layers x
+    steps): finite losses, the aux loss and the share of tokens dropped
+    per step, the steady step ms, tokens/s and peak memory; one step
+    traced, device ms by kind (expert GEMMs, routing scatter/gather,
+    attention, LM head and loss) and the busy share; then 4 steps with
+    ``--checkpoint-dir`` at interval 2 and a restart to step 6, beside
+    the unbroken losses (exact, or within 2e-2 relative, and which);
+20. ``serve_moe``: the server with ``--num-experts 8`` (and phase 5's
+    flags), per request (phase 5's four requests) and with ``--slots 8``
+    (``serve_slots``' prompts), launch counts reset: flash decode exactly
+    layers x decode steps; latency and decode tokens/s beside the dense
+    server's on the same requests; in f32, per-request greedy tokens
+    identical to ``generate``'s and the engine's to per-request
+    ``generate``'s; ``--weights int8`` (``param_bytes``, tokens identical
+    to a bf16 model on the dequantized weights); ``--speculative 4`` with
+    its MoE draft (f32 tokens identical to ``generate``'s); and
+    ``--checkpoint-dir`` on phase 19's checkpoint (the saved weights);
+21. ``resnet_parity``: ResNet-50 at full width, 224x224, batch 8 (seed-0
     weights, every BatchNorm value drawn from the seed) on the card
     against the same model on the CPU: eval logits in f32 with TF32 off
     (1e-4 of the largest); one train step in f64 (loss 1e-9 relative,
@@ -137,7 +166,7 @@ kernel against its plain PyTorch version.  Phases, one JSON line each:
     f32 gradients are ill-conditioned), no parameter moved by step 0 (lr
     0); bf16 eval logits against f32's: top-1 agreement and the largest
     difference;
-19. ``train_resnet``: ``cmd/train_resnet.py``'s ``main`` at its defaults
+22. ``train_resnet``: ``cmd/train_resnet.py``'s ``main`` at its defaults
     (ResNet-50, batch 128, 224x224, bf16, channels_last) for 30 steps
     with ``--profile-dir`` (steps 10-20 traced, read by
     ``cmd/trace_summary.py``) and ``--model-dir``: finite losses, step ms
@@ -145,19 +174,20 @@ kernel against its plain PyTorch version.  Phases, one JSON line each:
     and the top kernels, FLOPs an image counted from the model's shapes
     and the share of the card's bf16 peak; then ``--model inception-v3``
     at 299x299 for 6 steps;
-20. ``train_resnet_resume``: 12 steps unbroken against a run with
+23. ``train_resnet_resume``: 12 steps unbroken against a run with
     ``--checkpoint-dir`` SIGTERMed in step 5 (exit 80, a checkpoint at 6)
     and restarted, with cuDNN's default algorithms and with
     ``torch.backends.cudnn.deterministic`` — exact or within 2e-2
     relative, and which, and the step ms of each;
-21. ``serve_resnet``: ``cmd/serve_resnet.py`` behind a real HTTP server,
+24. ``serve_resnet``: ``cmd/serve_resnet.py`` behind a real HTTP server,
     20 requests each of ``{"batch": 1}`` and ``{"batch": 8}`` (latency),
     predictions equal to a direct eval forward and to an ``inputs``
-    request of the same array, then ``--model-dir`` from phase 19 (the
-    saved params, the initial running statistics); phases 18-21 launch
+    request of the same array, then ``--model-dir`` from phase 22 (the
+    saved params, the initial running statistics); phases 21-24 launch
     none of the port's kernels (every counter checked unchanged);
-22. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
-    ``serve`` and ``serve_slots`` phases' and phases 14-17').
+25. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
+    ``serve`` and ``serve_slots`` phases' and phases 14-17' and 20's;
+    flash attention's: the ``train`` and ``train_moe`` phases').
 
 Each phase's seconds follow it on a ``timing`` line.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -592,11 +622,25 @@ def _post(port, body):
     return status, resp, (time.perf_counter() - t0) * 1e3
 
 
+def serve_requests(vocab):
+    """Phase 5's requests, (name, body) in order: PROMPT_LENS' prompts
+    drawn from seed 0, greedy but for the seeded sampled one."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+
+    def ids(n):
+        return rng.integers(0, vocab, n).tolist()
+
+    sampling = {"greedy_5": {"temperature": 0}, "greedy_700": {"temperature": 0},
+                "batch_3": {}, "sampled": {"temperature": 0.8, "seed": 1234}}
+    return [(name, {"prompt_ids": [ids(n) for n in lens], **sampling[name]})
+            for name, lens in PROMPT_LENS.items()]
+
+
 def serve(fd):
     """Phase 5: the main path — the server as main() wires it."""
     from http.server import ThreadingHTTPServer
-
-    import numpy as np
 
     from container_engine_accelerators_tpu_torch.cmd import serve_lm
 
@@ -608,15 +652,7 @@ def serve(fd):
     srv = ThreadingHTTPServer(("127.0.0.1", 0), serve_lm.make_handler(run, args))
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
-    rng = np.random.default_rng(0)
-
-    def ids(n):
-        return rng.integers(0, args.vocab_size, n).tolist()
-
-    sampling = {"greedy_5": {"temperature": 0}, "greedy_700": {"temperature": 0},
-                "batch_3": {}, "sampled": {"temperature": 0.8, "seed": 1234}}
-    requests = [(name, {"prompt_ids": [ids(n) for n in lens], **sampling[name]})
-                for name, lens in PROMPT_LENS.items()]
+    requests = serve_requests(args.vocab_size)
     n_new = args.max_new_tokens
     results = []
     # Prompt bucket of every generate: build_generate's warm-up first.
@@ -1016,7 +1052,7 @@ def train(fa, dev, card):
     args = train_lm.parse_args(argv)
     ends = []
 
-    def on_step(step, loss):
+    def on_step(step, loss, metrics):
         torch.cuda.synchronize()
         ends.append(time.perf_counter())
 
@@ -1286,6 +1322,17 @@ def slot_prompt_lens():
     return np.random.default_rng(SLOTS_SEED).integers(5, 701, SLOTS).tolist()
 
 
+def slot_prompts(vocab, rng=None):
+    """The serve_slots phase's eight prompts (lengths from
+    :func:`slot_prompt_lens`, tokens from ``rng``, by default the phase's
+    own generator at its start)."""
+    import numpy as np
+
+    if rng is None:
+        rng = np.random.default_rng(SLOTS_SEED + 1)
+    return [rng.integers(0, vocab, n).tolist() for n in slot_prompt_lens()]
+
+
 def serve_slots(fd, dev, card):
     """Phase 11: the server with --slots (the continuous-batching engine)
     as main() wires it, beside the per-request path."""
@@ -1308,7 +1355,7 @@ def serve_slots(fd, dev, card):
     engine = engine_loop.engine
     lens = slot_prompt_lens()
     rng = np.random.default_rng(SLOTS_SEED + 1)
-    prompts = [rng.integers(0, args.vocab_size, n).tolist() for n in lens]
+    prompts = slot_prompts(args.vocab_size, rng)
     sampled = {"prompt_ids": [rng.integers(0, args.vocab_size, 12).tolist()],
                "temperature": 0.8, "seed": 4321}
     n_new = args.max_new_tokens
@@ -1464,7 +1511,7 @@ def train_resume(dev, unbroken, card):
     def timer(run_name, interval):
         last = []
 
-        def on_step(step, loss):
+        def on_step(step, loss, metrics):
             torch.cuda.synchronize()
             now = time.perf_counter()
             if last:
@@ -2164,7 +2211,533 @@ def serve_spec(fd, dev, card, plain):
             + self_draft["launches"]["flash_decode"])
 
 
-# ---- phases 18-21: the image-model path (ResNet-50, Inception-v3) ----------
+# ---- phases 18-20: the MoE-LM (--num-experts 8, Switch top-1) --------------
+
+MOE_FLAGS = ["--num-experts", "8"]
+# The train step's routing shape at the trainer's defaults: N = 8 x 2048
+# tokens, D 512, H 2048, E 8 (capacity C = ceil(1.25 N / E) = 2560).
+MOE_FFN = {"n": 16384, "d": 512, "h": 2048, "e": 8}
+MOE_LEAVES = ("x", "router", "wi_gate", "wi_up", "wo")
+MOE_F64_TOL = 1e-9  # f64 card vs CPU: of the leaf's largest |value|
+MOE_FLIP_SHARE = 1e-3  # f32 card vs CPU: tokens whose expert may differ
+MOE_OUT_TOL = 1e-4  # f32: output error on tokens routed alike, of the max
+# Full-width MoE-LM, f32 loss with flash kernels vs dense attention: a
+# route flipped by rounding moves one token's FFN output, ~3e-5 of the
+# loss; dense models hold 1e-5 (train_parity).
+MOE_LM_LOSS_REL = 1e-4
+
+
+def _moe_ffn_case(dev, dtype, leaves, wt, grad):
+    """``ops/moe.py::moe_ffn`` on ``dev`` in ``dtype`` over the CPU f64
+    ``leaves`` (MOE_LEAVES' order) -> CPU results; with ``grad`` also the
+    gradients of ``sum(out * wt) + 0.3 * aux``."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.ops import moe
+
+    ts = [t.to(dev, dtype, copy=True).requires_grad_(grad) for t in leaves]
+    out, aux, dropped = moe.moe_ffn(*ts, dtype)
+    cap = moe.capacity(MOE_FFN["n"], MOE_FFN["e"], 1.25, False)
+    r = moe.route(ts[0].detach(), ts[1].detach(), cap)
+    res = {"out": out.detach().cpu(), "aux": aux.item(),
+           "dropped": dropped.item(), "expert": r.expert.cpu(),
+           "keep": r.keep.cpu()}
+    if grad:
+        ((out * wt.to(dev, dtype)).sum() + 0.3 * aux).backward()
+        res["grads"] = {n: t.grad.cpu() for n, t in zip(MOE_LEAVES, ts)}
+    return res
+
+
+def _to_max(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _moe_lm(args, dev, **kw):
+    """A train-mode TransformerLM of ``args``' widths and experts."""
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+
+    return TransformerLM(vocab_size=args.vocab_size,
+                         num_layers=args.num_layers, num_heads=args.num_heads,
+                         head_dim=args.head_dim, mlp_dim=args.mlp_dim,
+                         num_experts=args.num_experts, device=dev, **kw)
+
+
+def moe_parity(dev, card):
+    """Phase 18: the MoE FFN at the train shape, card against CPU (f64,
+    then f32), and the full-width MoE-LM's loss with the flash kernels
+    against dense attention."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models import lm_train
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+        init_params,
+    )
+    from container_engine_accelerators_tpu_torch.ops import moe
+
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+
+    n, d, h, e = (MOE_FFN[k] for k in "ndhe")
+    g = torch.Generator().manual_seed(21)
+
+    def draw(*shape, fan_in=1):
+        return torch.randn(*shape, generator=g,
+                           dtype=torch.float64) / fan_in ** 0.5
+
+    leaves = [draw(n, d), draw(d, e, fan_in=d), draw(e, d, h, fan_in=d),
+              draw(e, d, h, fan_in=d), draw(e, h, d, fan_in=h)]
+    wt = draw(n, d)
+    card64, cpu64 = (_moe_ffn_case(w, torch.float64, leaves, wt, True)
+                     for w in (dev, "cpu"))
+    if not (torch.equal(card64["expert"], cpu64["expert"])
+            and torch.equal(card64["keep"], cpu64["keep"])):
+        raise AssertionError("f64 routing differs between card and CPU")
+    f64 = {"out": _to_max(card64["out"], cpu64["out"]),
+           "aux_rel": abs(card64["aux"] - cpu64["aux"]) / abs(cpu64["aux"]),
+           **{f"grad_{k}": _to_max(card64["grads"][k], cpu64["grads"][k])
+              for k in MOE_LEAVES}}
+    if not all(v <= MOE_F64_TOL for v in f64.values()):
+        raise AssertionError(f"f64 MoE FFN, card vs CPU: {f64}")
+    dropped = cpu64["dropped"]
+    del card64, cpu64
+    card32, cpu32 = (_moe_ffn_case(w, torch.float32, leaves, wt, False)
+                     for w in (dev, "cpu"))
+    flipped = card32["expert"] != cpu32["expert"]
+    alike = ~flipped & (card32["keep"] == cpu32["keep"])
+    out_err = ((card32["out"] - cpu32["out"])[alike].abs().max()
+               / cpu32["out"].abs().max()).item()
+    share = flipped.float().mean().item()
+    if not (share <= MOE_FLIP_SHARE and out_err <= MOE_OUT_TOL):
+        raise AssertionError(f"f32 MoE FFN, card vs CPU: {share} of tokens "
+                             f"routed differently, output error {out_err}")
+    del card32, cpu32
+
+    # The full-width MoE-LM (the trainer's widths), batch 2, f32: the
+    # flash kernels vs dense attention.
+    args = train_lm.parse_args(MOE_FLAGS)
+    params = init_params(_moe_lm(args, "meta"),
+                         torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, args.vocab_size, (2, args.seq_len))).to(dev)
+    labels, mask = lm_train.next_token_targets(toks)
+    lm = {}
+    for flash in (True, False):
+        model = _moe_lm(args, dev, dtype=torch.float32, use_flash=flash)
+        model.load_state_dict(params)
+        routes = []
+
+        def hook(mod, inp, out):
+            x = inp[0]
+            routes.append(moe.route(x.reshape(-1, x.shape[-1]), mod.router,
+                                    1).expert)
+
+        hooks = [b.moe.register_forward_hook(hook) for b in model.blocks]
+        with torch.no_grad():
+            num, den, aux = lm_train._loss(model, toks, labels, mask, None,
+                                           with_aux=True)
+        for hk in hooks:
+            hk.remove()
+        lm[flash] = ((num / den).item(), aux.loss.item(), aux.dropped.item(),
+                     torch.stack(routes))
+        del model
+    rel = abs(lm[True][0] - lm[False][0]) / abs(lm[False][0])
+    differ = int((lm[True][3] != lm[False][3]).sum())
+    if not (rel <= MOE_LM_LOSS_REL and math.isfinite(lm[True][0])):
+        raise AssertionError(f"MoE-LM f32 loss, kernels vs dense: "
+                             f"{lm[True][0]} vs {lm[False][0]}")
+    _phase("moe_parity", card=card,
+           ffn={"shape": f"N={n} D={d} H={h} E={e} C="
+                         f"{moe.capacity(n, e, 1.25, False)}",
+                "f64_routing": "identical expert index and kept set",
+                "f64_err_to_leaf_max": f64, "f64_tolerance": MOE_F64_TOL,
+                "dropped_share": dropped,
+                "f32_tokens_routed_differently": int(flipped.sum()),
+                "f32_share_routed_differently": share,
+                "f32_share_bound": MOE_FLIP_SHARE,
+                "f32_out_err_to_max_on_tokens_routed_alike": out_err,
+                "f32_out_tolerance": MOE_OUT_TOL, "tf32": False},
+           lm={"config": f"{args.num_layers}L {args.num_heads}x{args.head_dim} "
+                         f"mlp{args.mlp_dim} vocab{args.vocab_size} "
+                         f"E{args.num_experts}, batch 2 x {args.seq_len}, f32",
+               "loss_kernels": lm[True][0], "loss_dense": lm[False][0],
+               "loss_rel_diff": rel, "tolerance": MOE_LM_LOSS_REL,
+               "aux_kernels": lm[True][1], "aux_dense": lm[False][1],
+               "dropped_share": lm[True][2],
+               "routes_differing": differ, "routes": lm[True][3].numel()})
+
+
+MOE_KINDS = ("expert_gemms", "routing", "attention", "lm_head_and_loss",
+             "embedding", "other")
+
+
+def _moe_kind(names, shapes, vocab, router_shape):
+    """The kind of a kernel from the names of the ops around its launch
+    (innermost first) and their input shapes."""
+    chain = " ".join(names).lower()
+    if "embedding" in chain:
+        return "embedding"
+    if (any(k in chain for k in ("cross_entropy", "nll", "log_softmax",
+                                 "logsoftmax"))
+            or any(isinstance(s, list) and vocab in s for s in shapes)):
+        return "lm_head_and_loss"
+    if "flash_attention" in chain or "flashattention" in chain:
+        return "attention"
+    if "bmm" in chain:
+        return "expert_gemms"
+    if router_shape in shapes or any(k in chain for k in (
+            "index", "scatter", "gather", "cumsum", "one_hot", "argmax",
+            "softmax")):
+        return "routing"
+    return "other"
+
+
+def _traced_kinds(fn, vocab, router_shape):
+    """(device ms by kind, device ms, wall ms, launches by kind) of
+    ``fn()`` — which must end synchronized — traced by torch.profiler;
+    each kernel is charged to the ops around the call that launched it
+    (``_moe_kind``)."""
+    from collections import Counter, defaultdict
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device_ms = sum(e.time_range.elapsed_us() for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    kinds, launches = defaultdict(float), Counter()
+    for ev in events:
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        names, shapes, p = [], [], ev
+        while p is not None:
+            names.append(p.name)
+            shapes.extend(p.input_shapes or [])
+            p = p.cpu_parent
+        kind = _moe_kind(names, shapes, vocab, router_shape)
+        for k in ev.kernels:
+            kinds[kind] += k.duration / 1e3
+            launches[kind] += 1
+    if not device_ms:
+        raise AssertionError("the profiler recorded no device activity")
+    return dict(kinds), device_ms, wall_ms, dict(launches)
+
+
+def train_moe(fa, dev, card, ckpt):
+    """Phase 19: the trainer's main() at its defaults plus --num-experts 8
+    (launch counts reset around it), one step traced by kind, and a
+    checkpointed run resumed to the same step."""
+    import shutil
+
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+    from container_engine_accelerators_tpu_torch.models import lm_train
+    from container_engine_accelerators_tpu_torch.models.checkpoint import (
+        STATE_FILE,
+        TrainCheckpointer,
+    )
+
+    argv = MOE_FLAGS + ["--train-steps", str(TRAIN_STEPS),
+                        "--steps-per-eval", "1"]
+    args = train_lm.parse_args(argv)
+    ends, aux, dropped = [], [], []
+
+    def on_step(step, loss, metrics):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        aux.append(metrics["moe_aux"])
+        dropped.append(metrics["moe_dropped"])
+
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = train_lm.main(argv, on_step=on_step)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(fa.LAUNCHES)
+    layers_steps = args.num_layers * TRAIN_STEPS
+    want = {"flash_attention_fwd": 2 * layers_steps,
+            "flash_attention_bwd_dq": layers_steps,
+            "flash_attention_bwd_dkv": layers_steps}
+    if launches != want:
+        raise AssertionError(f"flash attention launches on the MoE path "
+                             f"{launches}, expected {want}")
+    aux = [float(a) for a in aux]
+    dropped = [float(x) for x in dropped]
+    if not all(math.isfinite(x) for x in losses + aux):
+        raise AssertionError(f"non-finite MoE loss or aux: {losses} {aux}")
+    steady = [b - a for a, b in zip(ends[1:], ends[2:])]
+    step_ms = statistics.median(steady) * 1e3
+    tokens = args.train_batch_size * args.seq_len
+
+    # One step traced: device time by kind, after a warm-up step.
+    model = _moe_lm(args, dev)
+    state = lm_train.create_lm_train_state(model,
+                                           torch.Generator().manual_seed(0))
+    step = lm_train.make_lm_train_step()
+    batches = [tuple(torch.from_numpy(x).to(dev) for x in b)
+               for b in train_lm.synthetic_batches(args)[:2]]
+    batches = [(t.long(), lb.long(), m) for t, lb, m in batches]
+    step(state, *batches[0])
+    torch.cuda.synchronize()
+    d = args.num_heads * args.head_dim
+    kinds, device_ms, traced_ms, kind_launches = _traced_kinds(
+        lambda: step(state, *batches[1]), args.vocab_size,
+        [d, args.num_experts])
+    del model, state, batches
+    torch.cuda.empty_cache()
+
+    # Resume: 4 steps at interval 2, then a restart to step 6.
+    argv = MOE_FLAGS + ["--checkpoint-dir", ckpt, "--checkpoint-interval",
+                        "2", "--steps-per-eval", "1"]
+    t0 = time.perf_counter()
+    first = train_lm.main(argv + ["--train-steps", "4"])
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = train_lm.main(argv + ["--train-steps", str(TRAIN_STEPS)])
+    resumed_s = time.perf_counter() - t0
+    saved_steps = TrainCheckpointer(ckpt).all_steps()
+    ckpt_bytes = os.path.getsize(os.path.join(ckpt, str(TRAIN_STEPS),
+                                              STATE_FILE))
+    if len(first) != 4 or len(resumed) != TRAIN_STEPS - 4:
+        raise AssertionError(f"resume ran {len(first)} + {len(resumed)} "
+                             f"steps")
+    if saved_steps != [2, 4, TRAIN_STEPS]:
+        raise AssertionError(f"saved steps {saved_steps}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(first + resumed, losses))
+    if not rel <= 2e-2:
+        raise AssertionError(f"resumed MoE losses {first + resumed} vs "
+                             f"unbroken {losses}")
+    for old in saved_steps[:-1]:  # serve_moe reads the last step only
+        shutil.rmtree(os.path.join(ckpt, str(old)))
+    _phase("train_moe", card=card,
+           entry="cmd/train_lm.py main() at its defaults plus --num-experts "
+                 "8: 12L 8x64 mlp2048 vocab32000 E8, seq 2048, batch 8, "
+                 "bf16, remat, capacity factor 1.25, aux weight 0.01",
+           steps=TRAIN_STEPS, losses=losses, aux_per_step=aux,
+           dropped_share_per_step=dropped, launches=launches,
+           expected_launches=f"fwd 2 x {args.num_layers} layers x "
+                             f"{TRAIN_STEPS} steps (remat), bwd "
+                             f"{args.num_layers} x {TRAIN_STEPS}",
+           wall_s=wall_s, steady_step_ms=step_ms, steady_steps=len(steady),
+           step_ms_each=[x * 1e3 for x in steady],
+           tokens_per_s=tokens / (step_ms / 1e3),
+           peak_memory_bytes=peak, resident_before_bytes=resident,
+           traced_step={"wall_ms": traced_ms, "device_ms": device_ms,
+                        "device_busy_share": device_ms / traced_ms,
+                        "device_ms_by_kind": kinds,
+                        "launches_by_kind": kind_launches,
+                        "attributed_share": sum(kinds.values()) / device_ms},
+           resume={"losses": first + resumed, "unbroken_losses": losses,
+                   "losses_exact": first + resumed == losses,
+                   "max_rel_diff": rel,
+                   "tolerance": "exact if equal, else within 2e-2 "
+                                "relative (bf16)",
+                   "saved_steps": saved_steps,
+                   "checkpoint_bytes": ckpt_bytes,
+                   "run_seconds": {"first": first_s,
+                                   "resumed": resumed_s}})
+    return launches
+
+
+def serve_moe(fd, dev, card, plain, ckpt):
+    """Phase 20: the MoE server per request and with --slots 8, beside
+    the dense server; int8, speculative and --checkpoint-dir."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import serve_lm
+    from container_engine_accelerators_tpu_torch.models.batching import (
+        DecodeEngine,
+    )
+    from container_engine_accelerators_tpu_torch.models.checkpoint import (
+        STATE_FILE,
+    )
+    from container_engine_accelerators_tpu_torch.models.generate import (
+        generate,
+    )
+    from container_engine_accelerators_tpu_torch.models.quant import (
+        dequantize_params,
+        param_bytes,
+        serving_params,
+    )
+    from container_engine_accelerators_tpu_torch.models.speculative import (
+        generate_speculative,
+    )
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+
+    experts = int(MOE_FLAGS[1])
+    args, run, loop, solo, slots = _feature_server(MOE_FLAGS)
+    engine, n_new, layers = loop.engine, args.max_new_tokens, args.num_layers
+    requests = serve_requests(args.vocab_size)
+    fleet_prompts = slot_prompts(args.vocab_size)
+    greedy = []  # (prompt, the server's row) of the greedy requests
+    try:
+        _reset(fd)
+        steps0 = engine.steps
+        per_request, rows = [], 0
+        for name, body in requests:
+            resp = _post(solo[0].server_address[1], body)[1]
+            _check_rows(name, body["prompt_ids"], resp["tokens"], n_new,
+                        args.vocab_size)
+            rows += len(body["prompt_ids"])
+            if name == "sampled":
+                # Same seed, same tokens.
+                rows += 1
+                if _post(solo[0].server_address[1],
+                         body)[1]["tokens"] != resp["tokens"]:
+                    raise AssertionError("MoE sampled request not "
+                                         "reproducible from its seed")
+            else:
+                greedy += list(zip(body["prompt_ids"], resp["tokens"]))
+            per_request.append({"request": name,
+                                "latency_ms": resp["latency_ms"],
+                                "new_tokens": n_new
+                                * len(body["prompt_ids"])})
+        srows, slat, swall = _ask_all(slots, _greedy_bodies(fleet_prompts))
+        fleet = engine.steps - steps0
+        launches = _check_launches(
+            fd, "serve_moe", layers * ((n_new - 1) * rows + fleet),
+            f"{layers} layers x ({n_new - 1} steps x {rows} generates + "
+            f"{fleet} fleet steps)")
+        dense = [_ask_each(plain[1], [body])[1][0] for _, body in requests]
+    finally:
+        _close(loop, solo, slots)
+    _check_rows("moe slots", fleet_prompts, srows, n_new, args.vocab_size)
+    moe_ms = [r["latency_ms"] for r in per_request]
+    new_tokens = sum(r["new_tokens"] for r in per_request)
+
+    # The server's rows are generate()'s (bf16); in f32, the engine's are
+    # per-request generate()'s.
+    for p, row in greedy:
+        if row != _solo_tokens(run.model, p, n_new, args.max_prompt_len):
+            raise AssertionError("MoE server rows differ from generate()'s")
+    f32 = _twin(args, run.params, dev, torch.float32, num_experts=experts)
+    f32_solo = [_solo_tokens(f32, p, n_new, args.max_prompt_len)
+                for p in fleet_prompts]
+    f32_fleet = _engine_tokens(DecodeEngine(f32, SLOTS, engine.max_len),
+                               fleet_prompts, n_new)
+    if f32_fleet != f32_solo:
+        raise AssertionError("f32 MoE engine tokens differ from per-request "
+                             "generate()'s")
+    del f32
+
+    # --weights int8: attention kernels int8, experts bf16 (float).
+    rng = np.random.default_rng(FEATURE_SEED)
+    prompts = [rng.integers(0, args.vocab_size, n).tolist()
+               for n in INT8_LENS]
+    qargs = serve_lm.parse_args(SERVE_FLAGS + MOE_FLAGS
+                                + ["--weights", "int8", "--port", "0"])
+    qrun = serve_lm.build_generate(qargs)
+    _reset(fd)
+    qrows = [qrun(*_padded(p, args.max_prompt_len, "cpu"), 0.0, 0,
+                  False)[0, :len(p) + n_new].tolist() for p in prompts]
+    q_launches = _check_launches(
+        fd, "serve_moe int8", layers * (n_new - 1) * len(prompts),
+        f"{layers} layers x {n_new - 1} steps x {len(prompts)} requests")
+    q = serving_params(qrun.params, "int8")
+    deq = _twin(args, dequantize_params(q), dev, torch.bfloat16,
+                num_experts=experts)
+    if qrows != [_solo_tokens(deq, p, n_new, args.max_prompt_len)
+                 for p in prompts]:
+        raise AssertionError("MoE int8 tokens differ from the dequantized "
+                             "bf16 model's")
+    q_bytes = {"int8": param_bytes(q),
+               "bf16": param_bytes(serving_params(qrun.params, "bf16"))}
+    del qrun, deq, q
+
+    # --speculative 4: the draft inherits the experts; f32 exactness.
+    sargs = serve_lm.parse_args(SERVE_FLAGS + MOE_FLAGS
+                                + ["--speculative", str(SPEC_K), "--port",
+                                   "0"])
+    srun = serve_lm.build_generate(sargs)
+    d_cfg = serve_lm._draft_cfg(sargs)
+    if srun.draft.blocks[0].moe is None:
+        raise AssertionError("the speculative draft has no experts")
+    for p in prompts[:2]:
+        srun(*_padded(p, args.max_prompt_len, "cpu"), 0.0, 0, False)
+    spec_stats = {"rounds": srun.spec_rounds, "drafted": srun.spec_drafted,
+                  "accepted": srun.spec_accepted}
+    t32 = _twin(sargs, srun.params, dev, torch.float32, num_experts=experts)
+    d32 = TransformerLM(**d_cfg, dtype=torch.float32, decode=True,
+                        use_flash_decode=True, device=dev)
+    d32.load_state_dict(serve_lm.load_draft_params(sargs))
+    for p in prompts[:2]:
+        x, plen = _padded(p, args.max_prompt_len, dev)
+        with torch.inference_mode():
+            got, _ = generate_speculative(t32, d32.eval(), x, n_new,
+                                          k=SPEC_K, prompt_len=plen)
+            want = generate(t32, x, n_new, prompt_len=plen)
+        if not torch.equal(got[:, :plen + n_new], want[:, :plen + n_new]):
+            raise AssertionError("f32 MoE speculative tokens differ from "
+                                 "generate()'s")
+    del srun, t32, d32
+
+    # --checkpoint-dir: train_moe's last step.
+    cargs = serve_lm.parse_args(SERVE_FLAGS + MOE_FLAGS
+                                + ["--checkpoint-dir", ckpt, "--port", "0"])
+    crun = serve_lm.build_generate(cargs)
+    saved = torch.load(os.path.join(ckpt, str(TRAIN_STEPS), STATE_FILE),
+                       map_location="cpu", weights_only=True)["model"]
+    if saved.keys() != crun.params.keys() or not all(
+            torch.equal(saved[k], crun.params[k]) for k in saved):
+        raise AssertionError("the MoE server's weights are not the "
+                             "checkpoint's")
+    twin = _twin(cargs, saved, dev, torch.bfloat16, num_experts=experts)
+    p = prompts[1]
+    if (crun(*_padded(p, args.max_prompt_len, "cpu"), 0.0, 0,
+             False)[0, :len(p) + n_new].tolist()
+            != _solo_tokens(twin, p, n_new, args.max_prompt_len)):
+        raise AssertionError("the MoE server's tokens on the checkpoint "
+                             "differ from generate()'s on the saved weights")
+    del crun, twin, saved
+    torch.cuda.empty_cache()
+    _phase("serve_moe", card=card,
+           flags=f"{' '.join(SERVE_FLAGS + MOE_FLAGS)} [--slots {SLOTS}]",
+           launches=launches,
+           per_request={"requests": per_request,
+                        "moe_latency_ms": moe_ms, "dense_latency_ms": dense,
+                        "moe_decode_tokens_per_s":
+                        new_tokens / (sum(moe_ms) / 1e3),
+                        "dense_decode_tokens_per_s":
+                        new_tokens / (sum(dense) / 1e3),
+                        "latency_ratio_moe_to_dense":
+                        statistics.median(m / x for m, x in zip(moe_ms,
+                                                                dense))},
+           slots={"prompt_lens": slot_prompt_lens(), "latency_ms": slat,
+                  "batch_wall_ms": swall,
+                  "decode_tokens_per_s": n_new * SLOTS / (swall / 1e3),
+                  "fleet_steps": fleet,
+                  "dense": "the serve_slots phase, same prompts"},
+           f32_identical={"server_rows_to_generate": len(greedy),
+                          "engine_rows_to_per_request": SLOTS},
+           int8={"param_bytes": q_bytes, "launches": q_launches,
+                 "dequantized_bf16_identical_rows": len(prompts)},
+           speculative={"k": SPEC_K, "draft_layers": d_cfg["num_layers"],
+                        "draft_experts": d_cfg["num_experts"],
+                        "server_stats": spec_stats,
+                        "f32_rows_identical_to_generate": 2},
+           checkpoint={"step": TRAIN_STEPS, "weights": "equal to the "
+                       "checkpoint's", "greedy_row_identical": True})
+    return launches["flash_decode"] + q_launches["flash_decode"]
+
+
+# ---- phases 21-24: the image-model path (ResNet-50, Inception-v3) ----------
 
 IMAGE_BATCH, IMAGE_SIZE = 8, 224  # resnet_parity's batch and images
 IMAGE_STEPS = 30  # train_resnet: steps 10-20 traced (--profile-dir)
@@ -2232,7 +2805,7 @@ def _leaf_max_errs(got, want):
 
 
 def resnet_parity(dev, card):
-    """Phase 18: ResNet-50 at full width on the card against the same
+    """Phase 21: ResNet-50 at full width on the card against the same
     model on the CPU — eval logits in f32 with TF32 off, one train step
     (loss, every gradient, the running statistics) in f64 and in f32 —
     and the card's bf16 eval logits against its f32 ones."""
@@ -2390,7 +2963,7 @@ def _summary(trace_dir):
 
 
 def train_resnet(dev, card, model_dir):
-    """Phase 19: the main image path — cmd/train_resnet.py's main() at its
+    """Phase 22: the main image path — cmd/train_resnet.py's main() at its
     defaults (ResNet-50, batch 128, 224x224, bf16, channels_last) with
     --profile-dir and --model-dir, then --model inception-v3 at 299x299."""
     import torch
@@ -2484,7 +3057,7 @@ def train_resnet(dev, card, model_dir):
 
 
 def train_resnet_resume(card):
-    """Phase 20: the image trainer at its defaults, 12 steps unbroken
+    """Phase 23: the image trainer at its defaults, 12 steps unbroken
     against a run SIGTERMed at step 6 (it checkpoints and exits 80) and
     restarted from the checkpoint — with cuDNN's default algorithms, then
     with torch.backends.cudnn.deterministic."""
@@ -2552,9 +3125,9 @@ def train_resnet_resume(card):
 
 
 def serve_resnet(dev, card, model_dir):
-    """Phase 21: cmd/serve_resnet.py behind a real HTTP server on the card:
+    """Phase 24: cmd/serve_resnet.py behind a real HTTP server on the card:
     latency at batch 1 and 8, predictions against a direct eval forward
-    and an ``inputs`` request, then --model-dir from phase 19."""
+    and an ``inputs`` request, then --model-dir from phase 22."""
     import numpy as np
     import torch
 
@@ -2753,6 +3326,11 @@ def main():
                         ("serve_prefix", serve_prefix),
                         ("serve_spec", serve_spec)):
         fd_launches += _timed(name, phase, fd, dev, smi, plain)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as moe_ckpt:
+        _timed("moe_parity", moe_parity, dev, smi)
+        moe_launches = _timed("train_moe", train_moe, fa, dev, smi, moe_ckpt)
+        fd_launches += _timed("serve_moe", serve_moe, fd, dev, smi, plain,
+                              moe_ckpt)
     _shutdown(*plain[1])
     del plain
     torch.cuda.empty_cache()
@@ -2769,7 +3347,8 @@ def main():
                 "replaces": TPU_KERNEL, "launches": fd_launches,
                 **{k: serving[k] for k in keys}}]
     kernels += [{"name": name, "route": "cuda", "source": src,
-                 "replaces": line, "launches": fa_launches[name],
+                 "replaces": line,
+                 "launches": fa_launches[name] + moe_launches[name],
                  **{k: fa_rows[name][k] for k in keys}}
                 for name, (line, _, src) in FA_KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

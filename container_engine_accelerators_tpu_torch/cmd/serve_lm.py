@@ -26,9 +26,11 @@ The single-GPU features compose as in the JAX server: ``--weights int8``
 once and their block copied into each request's cache) and
 ``--speculative`` (``models/speculative.py``) with each other and with
 ``--slots``; ``--prefill-chunk`` (``generate.prefill_chunked``) with
-``--slots`` but not with those two.  The flags of the multi-GPU slice
-(``--tp > 1``, ``--num-experts``) are accepted by the parser and
-rejected by :func:`validate_args` with a message naming that slice.
+``--slots`` but not with those two.  ``--num-experts E`` serves the
+MoE-LM (drop-free top-1 routing, ``ops/moe.py``) and composes with all
+of them; the ``--speculative`` draft is an MoE-LM of the same experts.
+The flag of the multi-GPU slice (``--tp > 1``) is accepted by the parser
+and rejected by :func:`validate_args` with a message naming that slice.
 """
 
 import argparse
@@ -64,8 +66,9 @@ def parse_args(argv=None):
                    help="GQA KV heads (0 = MHA); shrinks the KV cache and "
                         "the per-token cache read by heads/kv-heads")
     p.add_argument("--num-experts", type=int, default=0,
-                   help="MoE-LM decode (not ported yet: the multi-GPU "
-                        "slice)")
+                   help="MoE-LM decode (0 = dense): drop-free top-1 "
+                        "routing so the KV-cache contract holds; composes "
+                        "with slots/prefix/speculative/int8")
     p.add_argument("--weights", choices=("f32", "bf16", "int8"),
                    default="f32",
                    help="serving weight precision (models/quant.py): bf16, "
@@ -120,7 +123,7 @@ def parse_args(argv=None):
 
 
 def validate_args(args):
-    """Flag gates: the JAX server's composition rules, plus the features
+    """Flag gates: the JAX server's composition rules, plus the feature
     of the multi-GPU slice, which the port does not serve yet."""
     if args.speculative and args.tp > 1:
         raise SystemExit("--speculative and --tp > 1 are mutually "
@@ -137,7 +140,6 @@ def validate_args(args):
     unported = [
         ("--slots with --tp > 1", args.slots and args.tp > 1),
         ("--tp > 1 (tensor parallelism)", args.tp > 1),
-        ("--num-experts (MoE)", args.num_experts),
     ]
     for flag, on in unported:
         if on:
@@ -147,7 +149,8 @@ def validate_args(args):
 def _model_cfg(args, **over) -> dict:
     cfg = dict(vocab_size=args.vocab_size, num_layers=args.num_layers,
                num_heads=args.num_heads, head_dim=args.head_dim,
-               mlp_dim=args.mlp_dim, num_kv_heads=args.kv_heads or None)
+               mlp_dim=args.mlp_dim, num_kv_heads=args.kv_heads or None,
+               num_experts=args.num_experts)
     cfg.update(over)
     return cfg
 
@@ -209,7 +212,7 @@ def load_params(args) -> dict:
 
 def _draft_cfg(args) -> dict:
     """The ``--speculative`` draft: ``--draft-layers`` layers, else
-    ``max(1, num_layers // 4)``, at the target's widths."""
+    ``max(1, num_layers // 4)``, at the target's widths and experts."""
     return _model_cfg(args, num_layers=args.draft_layers
                       or max(1, args.num_layers // 4))
 

@@ -16,11 +16,15 @@ pod (``utils/preempt.py``).  With ``--profile-dir`` it traces steps
 10-20 with ``torch.profiler`` and writes a Chrome trace there, which
 ``cmd/trace_summary.py`` reads.
 
+With ``--num-experts E`` it trains the MoE-LM (a Switch top-1 FFN of E
+experts in every block, capacity factor 1.25, the load-balance loss at
+weight 0.01 in the objective; ``ops/moe.py``).
+
 Run: ``python -m container_engine_accelerators_tpu_torch.cmd.train_lm
-[--train-steps N] ...``.  It takes the JAX trainer's flags; those of
-later slices of the port (``--seq-parallel``, ``--model-par > 1``,
-``--param-sharding fsdp``, ``--num-experts``) exit with a message naming
-the slice.
+[--train-steps N] [--num-experts E] ...``.  It takes the JAX trainer's
+flags; those of the multi-GPU slice of the port (``--seq-parallel``,
+``--model-par > 1``, ``--param-sharding fsdp``) exit with a message
+naming the slice.
 """
 
 import argparse
@@ -37,7 +41,6 @@ from container_engine_accelerators_tpu_torch.utils.profile import ProfileWindow
 log = logging.getLogger("train-lm")
 
 _MULTI_GPU = "is not ported yet: it comes with the multi-GPU slice of the PyTorch port"
-_LATER = "is not ported yet: it comes with a later training slice of the PyTorch port"
 
 
 def parse_args(argv=None):
@@ -52,7 +55,8 @@ def parse_args(argv=None):
     p.add_argument("--kv-heads", type=int, default=0,
                    help="GQA KV heads (0 = MHA)")
     p.add_argument("--num-experts", type=int, default=0,
-                   help="MoE-LM (not ported yet)")
+                   help="MoE-LM: Switch top-1 FFN with this many experts "
+                        "in every block (0 = dense)")
     p.add_argument("--seq-len", type=int, default=2048)
     p.add_argument("--train-batch-size", type=int, default=8)
     p.add_argument("--seq-parallel", default="none",
@@ -81,17 +85,21 @@ def parse_args(argv=None):
 
 
 def validate_args(args):
-    """The JAX trainer's own checks, plus every flag this slice of the
-    port does not train with yet."""
+    """The JAX trainer's own checks, plus every flag the port does not
+    train with yet."""
     if args.checkpoint_interval < 1:
         raise SystemExit("--checkpoint-interval must be >= 1")
+    if args.num_experts and args.seq_parallel != "none":
+        raise SystemExit(
+            "--num-experts with --seq-parallel is not validated: MoE "
+            "capacity routing under sequence sharding changes the "
+            "global token-drop semantics; drop one of the flags")
     unported = [
         (f"--seq-parallel {args.seq_parallel}", args.seq_parallel != "none",
          _MULTI_GPU),
         ("--model-par > 1 (tensor parallelism)", args.model_par > 1,
          _MULTI_GPU),
         ("--param-sharding fsdp", args.param_sharding == "fsdp", _MULTI_GPU),
-        ("--num-experts (MoE)", args.num_experts, _LATER),
     ]
     for flag, on, why in unported:
         if on:
@@ -118,9 +126,10 @@ def synthetic_batches(args, n_batches=4):
 
 def main(argv=None, on_step=None):
     """Train; return the losses of the steps this run took (from the
-    restored step on), as floats.  ``on_step(step, loss)``, if given, is
-    called after each step is enqueued, with the loss still a device
-    tensor."""
+    restored step on), as floats.  ``on_step(step, loss, metrics)``, if
+    given, is called after each step is enqueued, with the loss and the
+    step's metrics (with ``--num-experts``, ``moe_aux`` and
+    ``moe_dropped`` too) still device tensors."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = parse_args(argv)
@@ -146,15 +155,16 @@ def main(argv=None, on_step=None):
         vocab_size=args.vocab_size, num_layers=args.num_layers,
         num_heads=args.num_heads, head_dim=args.head_dim,
         mlp_dim=args.mlp_dim, num_kv_heads=args.kv_heads or None,
-        device=device)
+        num_experts=args.num_experts, device=device)
     state = create_lm_train_state(
         model, torch.Generator().manual_seed(0),
         torch.optim.AdamW(model.parameters(), lr=args.learning_rate,
                           weight_decay=0.1))
     step_fn = make_lm_train_step(None, args.param_sharding)
-    log.info("device %s, %d params, seq_len %d, batch %d", device,
+    log.info("device %s, %d params, seq_len %d, batch %d%s", device,
              sum(p.numel() for p in model.parameters()), args.seq_len,
-             args.train_batch_size)
+             args.train_batch_size,
+             f", {args.num_experts} experts" if args.num_experts else "")
 
     checkpointer = None
     start_step = 0
@@ -214,15 +224,18 @@ def main(argv=None, on_step=None):
                     state, metrics = step_fn(state, toks, labels, mask)
                 losses.append(metrics["loss"])
                 if on_step is not None:
-                    on_step(step, metrics["loss"])
+                    on_step(step, metrics["loss"], metrics)
                 if profile and step >= min(20, args.train_steps - 1):
                     profile.stop()
                     profile = None
                 if (step + 1) % args.steps_per_eval == 0:
                     dt = time.perf_counter() - t0
-                    log.info("step %d loss=%.4f tokens/sec=%.0f", step + 1,
+                    log.info("step %d loss=%.4f tokens/sec=%.0f%s", step + 1,
                              float(metrics["loss"]),
-                             (step + 1 - start_step) * tokens_per_batch / dt)
+                             (step + 1 - start_step) * tokens_per_batch / dt,
+                             "".join(f" {k}={float(v):.4f}"
+                                     for k, v in metrics.items()
+                                     if k.startswith("moe_")))
                 if checkpointer and (step + 1) % args.checkpoint_interval == 0:
                     checkpointer.save(state)
                 if guard.should_stop:

@@ -12,6 +12,10 @@ layouts, so conversion is an unstack and a copy:
     blocks.block.attn.out.kernel       [L, H, hd, D] -> blocks.i.attn.out
     blocks.block.{gate,up}.kernel      [L, D, mlp]   -> blocks.i.{gate,up}
     blocks.block.down.kernel           [L, mlp, D]   -> blocks.i.down
+  or, in an MoE-LM (``num_experts`` E), in their place:
+    blocks.block.moe.router.kernel     [L, D, E]     -> blocks.i.moe.router
+    blocks.block.moe.{wi_gate,wi_up}   [L, E, D, mlp] -> blocks.i.moe.{wi_gate,wi_up}
+    blocks.block.moe.wo                [L, E, mlp, D] -> blocks.i.moe.wo
     blocks.block.ln_{attn,mlp}.scale   [L, D]        -> blocks.i.ln_{attn,mlp}.scale
     ln_f.scale                         [D]           -> ln_f.scale
 
@@ -23,7 +27,8 @@ params leaf by leaf (after a train step, say).
 The int8 serving tree (``models/quant.py::quantize_params``) converts
 too: a flax kernel's ``{kernel_q, scale}`` becomes the port's
 ``<name>.kernel_q`` (int8) and ``<name>.scale`` (f32), for a
-``quant=True`` model.
+``quant=True`` model; an MoE block's experts and router stay float in
+it, as the JAX ``quantize_params`` leaves them.
 """
 
 from collections.abc import Mapping
@@ -44,6 +49,14 @@ _LAYER_LEAVES = {
     ("ln_attn", "scale"): "ln_attn.scale",
     ("ln_mlp", "scale"): "ln_mlp.scale",
 }
+_DENSE_MLP = ("gate", "up", "down")
+# Float in either tree: quantization leaves the MoE subtree as it is.
+_MOE_LEAVES = {
+    ("moe", "router", "kernel"): "moe.router",
+    ("moe", "wi_gate"): "moe.wi_gate",
+    ("moe", "wi_up"): "moe.wi_up",
+    ("moe", "wo"): "moe.wo",
+}
 
 
 def _leaves(tree, prefix=()):
@@ -54,18 +67,21 @@ def _leaves(tree, prefix=()):
             yield prefix + (key,), val
 
 
-def _layer_leaves(quant: bool) -> dict:
-    """Per-layer flax paths -> port names; with ``quant`` every kernel is
-    its ``kernel_q`` and ``scale`` pair."""
-    if not quant:
-        return _LAYER_LEAVES
+def _layer_leaves(quant: bool, moe: bool) -> dict:
+    """Per-layer flax paths -> port names, for a dense or an MoE block;
+    with ``quant`` every attention and dense-MLP kernel is its
+    ``kernel_q`` and ``scale`` pair."""
+    leaves = {path: name for path, name in _LAYER_LEAVES.items()
+              if not (moe and path[0] in _DENSE_MLP)}
     out = {}
-    for path, name in _LAYER_LEAVES.items():
-        if path[-1] == "kernel":
+    for path, name in leaves.items():
+        if quant and path[-1] == "kernel":
             out[path[:-1] + ("kernel_q",)] = f"{name}.kernel_q"
             out[path[:-1] + ("scale",)] = f"{name}.scale"
         else:
             out[path] = name
+    if moe:
+        out.update(_MOE_LEAVES)
     return out
 
 
@@ -78,18 +94,20 @@ def _tensor(x) -> torch.Tensor:
 def from_flax_params(params: Mapping) -> dict:
     """Convert a flax param tree (nested dicts of numpy arrays) to a state
     dict for ``TransformerLM``: f32 for a float tree (either mode), int8
-    kernels and f32 elsewhere for an int8 tree (``quant=True``).  Raises
-    ``ValueError`` on leaves the dense model does not have (MoE)."""
+    kernels and f32 elsewhere for an int8 tree (``quant=True``); a dense
+    LM's or an MoE-LM's (``num_experts > 0``).  Raises ``ValueError`` on a
+    tree that is neither layout."""
     got = dict(_leaves(params))
     layer_leaves = _layer_leaves(
-        ("blocks", "block", "attn", "q", "kernel_q") in got)
+        ("blocks", "block", "attn", "q", "kernel_q") in got,
+        any(k[:3] == ("blocks", "block", "moe") for k in got))
     expected = ({("embed", "embedding"), ("ln_f", "scale")}
                 | {("blocks", "block") + k for k in layer_leaves})
     if set(got) != expected:
         extra = sorted(".".join(k) for k in set(got) - expected)
         missing = sorted(".".join(k) for k in expected - set(got))
-        raise ValueError(f"not a dense LM param tree: unexpected {extra}, "
-                         f"missing {missing}")
+        raise ValueError(f"neither a dense nor an MoE LM param tree: "
+                         f"unexpected {extra}, missing {missing}")
     out = {"embed": _tensor(got["embed", "embedding"]),
            "ln_f.scale": _tensor(got["ln_f", "scale"])}
     num_layers = np.shape(got["blocks", "block", "ln_attn", "scale"])[0]
@@ -113,7 +131,8 @@ def to_flax_params(state_dict: Mapping) -> dict:
                          if name.startswith("blocks."))
     block = {}
     for path, name in _layer_leaves(
-            "blocks.0.attn.q.kernel_q" in state_dict).items():
+            "blocks.0.attn.q.kernel_q" in state_dict,
+            "blocks.0.moe.router" in state_dict).items():
         node = block
         for key in path[:-1]:
             node = node.setdefault(key, {})

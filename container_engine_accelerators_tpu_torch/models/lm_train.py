@@ -1,6 +1,6 @@
 """Training step of the transformer LM on one device — PyTorch
-counterpart of ``container_engine_accelerators_tpu/models/lm_train.py``
-(its dense branch).
+counterpart of ``container_engine_accelerators_tpu/models/lm_train.py``,
+dense or MoE (the Switch load-balance loss joins the objective).
 
 Next-token labels are built for the whole sequence before the step, as
 the JAX module does, so the step takes (tokens, labels, mask).  The
@@ -51,26 +51,30 @@ def create_lm_train_state(model: torch.nn.Module,
     return TrainState(step=0, model=model, optimizer=optimizer)
 
 
-def _loss(model, tokens, labels, mask, positions):
+def _loss(model, tokens, labels, mask, positions, with_aux=False):
     """(sum of masked per-token cross entropy + the MoE aux term, mask
-    sum).  Dense models have no aux term (the JAX model sows none), so it
-    is zero here."""
-    logits = model(tokens, positions)
+    sum), as the JAX ``_loss``: the aux term is the Switch load-balance
+    loss summed over the layers, ``MOE_AUX_WEIGHT * aux * denom`` (zero
+    for a dense model).  ``with_aux`` adds the model's ``MoEAux`` as a
+    third value."""
+    logits, aux = model(tokens, positions, return_aux=True)
     per_tok = F.cross_entropy(logits.flatten(0, 1), labels.flatten().long(),
                               reduction="none").view(labels.shape)
-    aux = 0.0
     denom = mask.sum()
-    return (per_tok * mask).sum() + MOE_AUX_WEIGHT * aux * denom, denom
+    num = (per_tok * mask).sum() + MOE_AUX_WEIGHT * aux.loss * denom
+    return (num, denom, aux) if with_aux else (num, denom)
 
 
 def make_lm_train_step(seq_parallel: Optional[str] = None,
                        param_sharding: str = "megatron"):
-    """``step_fn(state, tokens, labels, mask) -> (state, {"loss": ...})``:
-    one optimizer step on the mean masked next-token cross entropy,
-    updating ``state`` in place.  The loss stays a device tensor (reading
-    it waits for the device).  Unlike the JAX function, there is no mesh
-    to place the state on, so it takes no state and returns only the
-    step."""
+    """``step_fn(state, tokens, labels, mask) -> (state, metrics)``: one
+    optimizer step on the mean masked next-token cross entropy (plus the
+    MoE aux term), updating ``state`` in place.  ``metrics`` holds
+    ``loss`` and, for an MoE model, ``moe_aux`` (the summed load-balance
+    loss) and ``moe_dropped`` (the share of token routings dropped),
+    device tensors all (reading one waits for the device).  Unlike the
+    JAX function, there is no mesh to place the state on, so it takes no
+    state and returns only the step."""
     if param_sharding not in ("megatron", "fsdp"):
         raise ValueError(f"unknown param_sharding {param_sharding!r}")
     if seq_parallel is not None:
@@ -82,11 +86,15 @@ def make_lm_train_step(seq_parallel: Optional[str] = None,
     def step(s: TrainState, tokens, labels, mask):
         s.optimizer.zero_grad(set_to_none=True)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        num, den = _loss(s.model, tokens, labels, mask, positions)
+        num, den, aux = _loss(s.model, tokens, labels, mask, positions,
+                              with_aux=True)
         loss = num / den
         loss.backward()
         s.optimizer.step()
         s.step += 1
-        return s, {"loss": loss.detach()}
+        metrics = {"loss": loss.detach()}
+        if s.model.num_experts:
+            metrics.update(moe_aux=aux.loss.detach(), moe_dropped=aux.dropped)
+        return s, metrics
 
     return step

@@ -7,10 +7,11 @@ weight precision is a lever on the bytes a token moves:
 - ``serving_params(params, "bf16")``: every float tensor in bf16.
 - ``serving_params(params, "int8")``: per-output-channel symmetric int8
   for every attention/MLP kernel (``QDense``: an int8 ``kernel_q`` and an
-  f32 ``scale``), the embedding and norm scales in bf16.  The kernels are
-  quantized from their bf16 cast, as the JAX package does
-  (``quantize_params(cast_floats(params))``): quantizing the f32 weights
-  instead changes some int8 values.
+  f32 ``scale``), the embedding, norm scales and an MoE block's router
+  and experts (``moe.*``, left float as the JAX walk leaves them) in
+  bf16.  The kernels are quantized from their bf16 cast, as the JAX
+  package does (``quantize_params(cast_floats(params))``): quantizing
+  the f32 weights instead changes some int8 values.
 
 A ``QDense`` projection dequantizes in f32, casts to the compute dtype
 and multiplies — ``QDenseGeneral``'s arithmetic.  In eager PyTorch the
@@ -33,7 +34,8 @@ _KERNELS = {"attn.q": 1, "attn.k": 1, "attn.v": 1, "attn.out": 2,
 
 def kernel_contract_dims(name: str):
     """Contraction dims of state-dict entry ``name`` if it is a projection
-    kernel (``blocks.<i>.attn.q``, ...), else None."""
+    kernel (``blocks.<i>.attn.q``, ...), else None (``moe.*`` among
+    them: the MoE FFN is not quantized)."""
     parts = name.split(".")
     if parts[0] != "blocks" or len(parts) < 3:
         return None

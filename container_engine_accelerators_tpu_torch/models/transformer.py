@@ -34,6 +34,7 @@ avoids copying the cache every token.
 """
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -49,12 +50,10 @@ from container_engine_accelerators_tpu_torch.ops.flash_decode import (
     NEG_INF,
     flash_decode,
 )
+from container_engine_accelerators_tpu_torch.ops.moe import MoEFFN
 from container_engine_accelerators_tpu_torch.parallel.seq import (
     dense_attention,
 )
-
-_LATER_SERVING = "comes with a later serving slice of the PyTorch port"
-_LATER_TRAINING = "comes with a later training slice of the PyTorch port"
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -222,10 +221,16 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm block: attention, then a SwiGLU MLP."""
+    """Pre-norm block: attention, then a SwiGLU MLP or, with
+    ``num_experts > 0``, a Switch MoE FFN (``ops/moe.py``), drop-free in
+    decode mode as in the JAX ``Block`` (train-style capacity depends on
+    the token count, so a one-token step and a full forward would drop
+    different tokens).  ``forward`` returns ``(x, moe)``: ``moe`` is None
+    for a dense block, else the layer's ``(aux loss, share dropped)``."""
 
     def __init__(self, num_heads, head_dim, mlp_dim, dtype=torch.bfloat16,
-                 num_kv_heads=None, device=None, train=False, quant=False):
+                 num_kv_heads=None, device=None, train=False, quant=False,
+                 num_experts=0, moe_capacity_factor=1.25):
         super().__init__()
         dim = num_heads * head_dim
         self.dtype = dtype
@@ -233,10 +238,20 @@ class Block(nn.Module):
         self.attn = Attention(dim, num_heads, head_dim, dtype, num_kv_heads,
                               device, train, quant)
         self.ln_mlp = RMSNorm(dim, dtype, device, train)
-        w = dict(quant=quant, dtype=dtype, device=device, train=train)
-        self.gate = _kernel((dim, mlp_dim), 1, **w)
-        self.up = _kernel((dim, mlp_dim), 1, **w)
-        self.down = _kernel((mlp_dim, dim), 1, **w)
+        self.moe = None
+        if num_experts > 0:
+            # The expert FFNs keep their float path under quant, as the
+            # JAX quantize_params leaves the moe subtree.
+            self.moe = MoEFFN(
+                dim, num_experts, mlp_dim, dtype,
+                lambda *shape, dtype: _param(*shape, dtype=dtype,
+                                             device=device, train=train),
+                capacity_factor=moe_capacity_factor, no_drop=not train)
+        else:
+            w = dict(quant=quant, dtype=dtype, device=device, train=train)
+            self.gate = _kernel((dim, mlp_dim), 1, **w)
+            self.up = _kernel((dim, mlp_dim), 1, **w)
+            self.down = _kernel((mlp_dim, dim), 1, **w)
 
     def forward(self, x, positions, cache=None, use_flash_decode=False,
                 use_flash=None):
@@ -244,8 +259,23 @@ class Block(nn.Module):
         x = x + self.attn(self.ln_attn(x), positions, cache, use_flash_decode,
                           use_flash)
         y = self.ln_mlp(x)
+        if self.moe is not None:
+            out, aux, dropped = self.moe(y)
+            return x + out, (aux, dropped)
         return x + (F.silu(y @ _w(self.gate, dt)) * (y @ _w(self.up, dt))
-                    ) @ _w(self.down, dt)
+                    ) @ _w(self.down, dt), None
+
+
+class MoEAux(NamedTuple):
+    """What ``TransformerLM.forward(..., return_aux=True)`` returns beside
+    its output: ``loss``, the Switch load-balance loss summed over the
+    layers (f32, what the JAX model sows into ``losses``), and
+    ``dropped``, the share of token routings that overflowed an expert's
+    capacity, averaged over the layers (no gradient).  Both are zero for
+    a dense model."""
+
+    loss: torch.Tensor
+    dropped: torch.Tensor
 
 
 class TransformerLM(nn.Module):
@@ -253,33 +283,34 @@ class TransformerLM(nn.Module):
     -> f32 logits [B, T, V]``, positions defaulting to ``arange(T)``.
     Decode mode: ``forward(tokens, positions, cache)``, updating ``cache``
     in place.  Either returns the final-norm hidden states instead with
-    ``project=False``.
+    ``project=False``, and with ``return_aux=True`` the pair ``(output,
+    MoEAux)`` (the training loss reads the MoE aux term from it).
 
     ``use_flash`` (train mode) picks the attention: None = auto (the
     flash kernel on the card for the shapes it supports), True = flash,
     False = dense.  ``remat`` recomputes each block's activations in the
     backward instead of keeping them (``torch.utils.checkpoint``), as the
     JAX model's default ``nn.remat`` does: the flash forward then runs
-    twice per layer and step.  ``quant`` (decode mode only, as in JAX)
-    holds every projection as int8 + f32 scales (``models/quant.py``);
+    twice per layer and step.  ``num_experts > 0`` makes every block's FFN
+    a Switch top-1 MoE (``ops/moe.py``) with ``moe_capacity_factor`` in
+    train mode and drop-free routing in decode mode.  ``quant`` (decode
+    mode only, as in JAX) holds every attention and dense-MLP projection
+    as int8 + f32 scales (``models/quant.py``; MoE experts stay float);
     load ``serving_params(params, "int8")`` into it."""
 
     def __init__(self, vocab_size=32_000, num_layers=12, num_heads=8,
                  head_dim=64, mlp_dim=2048, dtype=torch.bfloat16,
                  num_kv_heads=None, decode=False, use_flash_decode=False,
                  use_flash=None, remat=True, num_experts=0, quant=False,
-                 device=None):
+                 moe_capacity_factor=1.25, device=None):
         super().__init__()
-        if num_experts:
-            raise NotImplementedError(
-                f"MoE (num_experts > 0) "
-                f"{_LATER_SERVING if decode else _LATER_TRAINING}")
         if quant and not decode:
             raise ValueError("int8 weights (quant=True) serve only: build "
                              "the model with decode=True")
         self.vocab_size, self.num_layers = vocab_size, num_layers
         self.num_heads, self.head_dim = num_heads, head_dim
         self.num_kv_heads = num_kv_heads or num_heads
+        self.num_experts = num_experts
         self.dtype = dtype
         self.decode = decode
         self.use_flash_decode = use_flash_decode
@@ -292,11 +323,12 @@ class TransformerLM(nn.Module):
         self.quant = quant
         self.blocks = nn.ModuleList(
             Block(num_heads, head_dim, mlp_dim, dtype, num_kv_heads, device,
-                  train, quant)
+                  train, quant, num_experts, moe_capacity_factor)
             for _ in range(num_layers))
         self.ln_f = RMSNorm(num_heads * head_dim, dtype, device, train)
 
-    def forward(self, tokens, positions=None, cache=None, project=True):
+    def forward(self, tokens, positions=None, cache=None, project=True,
+                return_aux=False):
         if self.decode and cache is None:
             raise ValueError("decode mode needs a KV cache "
                              "(models/generate.py init_cache)")
@@ -306,19 +338,27 @@ class TransformerLM(nn.Module):
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = F.embedding(tokens, self.embed.to(self.dtype))
+        moe = []
         for i, blk in enumerate(self.blocks):
             if self.decode:
                 layer = {name: buf[i] for name, buf in cache.items()}
-                x = blk(x, positions, layer, self.use_flash_decode)
+                x, stats = blk(x, positions, layer, self.use_flash_decode)
             elif self.remat and torch.is_grad_enabled():
-                x = checkpoint(blk, x, positions, None, False, self.use_flash,
-                               use_reentrant=False)
+                x, stats = checkpoint(blk, x, positions, None, False,
+                                      self.use_flash, use_reentrant=False)
             else:
-                x = blk(x, positions, None, False, self.use_flash)
+                x, stats = blk(x, positions, None, False, self.use_flash)
+            if stats is not None:
+                moe.append(stats)
         x = self.ln_f(x)
-        if not project:
-            return x
-        return lm_head(x, self.embed)
+        out = lm_head(x, self.embed) if project else x
+        if not return_aux:
+            return out
+        if not moe:
+            zero = torch.zeros((), device=x.device)
+            return out, MoEAux(zero, zero)
+        return out, MoEAux(torch.stack([a for a, _ in moe]).sum(),
+                           torch.stack([d for _, d in moe]).mean())
 
 
 def init_params(model: TransformerLM, generator: torch.Generator) -> dict:
@@ -338,7 +378,12 @@ def init_params(model: TransformerLM, generator: torch.Generator) -> dict:
         if leaf == "scale":
             out[name] = torch.ones(p.shape)
             continue
-        fan_in = p.shape[0] * (p.shape[1] if leaf == "out" else 1)
+        if leaf in ("wi_gate", "wi_up", "wo"):
+            # Stacked experts [E, in, out]: flax's lecun_normal with
+            # batch_axis=(0,) takes the fan-in from the middle axis.
+            fan_in = p.shape[1]
+        else:
+            fan_in = p.shape[0] * (p.shape[1] if leaf == "out" else 1)
         # 0.8796... = stddev of a unit normal truncated to [-2, 2].
         std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
         w = torch.empty(p.shape)

@@ -525,3 +525,61 @@ def test_engine_loop_serves_prefix_and_spec_lanes(flax_pair):
         loop.close()
     for p, got in zip([[1, 2], [3], [4, 5, 6]], outs):
         assert got == _solo(model, [9, 9] + p, 5)
+
+
+# ---- the MoE-LM (drop-free routing) in the fleet ----------------------------
+
+MOE = dict(CFG, num_experts=4)
+
+
+@pytest.fixture(scope="module")
+def moe_flax():
+    """(MoE target flax, its dense 1-layer draft flax), and the port's."""
+    t = jtr.transformer_lm(**MOE).init(
+        jax.random.PRNGKey(25), jnp.zeros((1, 8), jnp.int32))["params"]
+    d = jtr.transformer_lm(**DRAFT).init(
+        jax.random.PRNGKey(26), jnp.zeros((1, 8), jnp.int32))["params"]
+    return (t, d) + tuple(from_flax_params(jax.tree_util.tree_map(
+        np.asarray, p)) for p in (t, d))
+
+
+def _moe_model(sd, flash=False):
+    model = TransformerLM(**MOE, decode=True, dtype=torch.float32,
+                          use_flash_decode=flash, device="cpu")
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def test_moe_engine_matches_per_request_and_the_jax_engine(moe_flax):
+    """Drop-free routing is per token, so a lane's tokens do not depend on
+    the rest of the fleet: the MoE engine gives per-request generate()'s
+    greedy tokens and the JAX ``DecodeEngine``'s on the same submits
+    (flash decode, the server's path: one length per lane)."""
+    t_flax, _, t_sd, _ = moe_flax
+    model = _moe_model(t_sd, flash=True)
+    got = _run_script(DecodeEngine(model, 3, 32), SCRIPT)
+    for op, toks in zip([o for o in SCRIPT if o[0] == "submit"], got):
+        assert toks == _solo(model, op[1], op[2])
+    jmodel = jtr.transformer_lm(**MOE, decode=True, dtype=jnp.float32,
+                                use_flash_decode=True)
+    assert got == _run_script(jbatching.DecodeEngine(jmodel, t_flax, 3, 32),
+                              SCRIPT)
+
+
+def test_spec_engine_with_moe_target_and_dense_draft_matches_jax(moe_flax):
+    """``tests/test_compose.py:255-283``'s pairing: speculative lanes over
+    an MoE target with a dense draft give the target's greedy tokens and
+    the JAX ``SpecDecodeEngine``'s, with the same acceptance."""
+    t_flax, d_flax, t_sd, d_sd = moe_flax
+    model, draft = _moe_model(t_sd), _draft(d_sd)
+    eng = SpecDecodeEngine(model, draft, 3, 8 + 12 + 3, k=3)
+    got = _run_script(eng, SCRIPT)
+    for op, toks in zip([o for o in SCRIPT if o[0] == "submit"], got):
+        assert toks == _solo(model, op[1], op[2])
+    jeng = jbatching.SpecDecodeEngine(
+        jtr.transformer_lm(**MOE, decode=True, dtype=jnp.float32), t_flax,
+        jtr.transformer_lm(**DRAFT, decode=True, dtype=jnp.float32), d_flax,
+        3, 8 + 12 + 3, k=3)
+    assert got == _run_script(jeng, SCRIPT)
+    assert (eng.spec_rounds, eng.spec_accepted) == (jeng.spec_rounds,
+                                                    jeng.spec_accepted)

@@ -37,7 +37,7 @@ def test_port_imports_without_jax():
               "models.quant", "models.prefix_cache", "models.speculative",
               "models.resnet", "models.inception", "data.arrays",
               "cmd.train_resnet", "cmd.serve_resnet", "entry",
-              "utils.profile"}
+              "utils.profile", "ops.moe"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys

@@ -37,7 +37,8 @@ from container_engine_accelerators_tpu_torch.models.transformer import (
 )
 
 BASE = dict(vocab_size=97, num_layers=2, num_heads=4, head_dim=8, mlp_dim=32)
-CFGS = {"mha": dict(BASE), "gqa": dict(BASE, num_kv_heads=2)}
+CFGS = {"mha": dict(BASE), "gqa": dict(BASE, num_kv_heads=2),
+        "moe": dict(BASE, num_kv_heads=2, num_experts=4)}
 MAX_NEW = 6
 
 
@@ -101,6 +102,12 @@ def test_prefix_generate_matches_concat_and_jax(params, name, flash):
             jmodel, flax_p, jkv, jplen, jnp.asarray(x.numpy(), jnp.int32),
             MAX_NEW, suffix_len=slen))
         assert got == list(pfx) + want[0, :slen + MAX_NEW].tolist()
+
+
+def test_moe_prefix_generate_matches_concat_and_jax(params):
+    """The MoE-LM's drop-free routing is per token: a spliced block and
+    its suffix give the concatenated prompt's tokens and JAX's."""
+    test_prefix_generate_matches_concat_and_jax(params, "moe", False)
 
 
 def test_entry_reuse_is_byte_identical(params):

@@ -42,7 +42,8 @@ from container_engine_accelerators_tpu_torch.models.transformer import (
 )
 
 BASE = dict(vocab_size=97, num_layers=2, num_heads=4, head_dim=8, mlp_dim=32)
-CFGS = {"mha": dict(BASE), "gqa": dict(BASE, num_kv_heads=2)}
+CFGS = {"mha": dict(BASE), "gqa": dict(BASE, num_kv_heads=2),
+        "moe": dict(BASE, num_kv_heads=2, num_experts=4)}
 MAX_NEW = 8
 
 
@@ -89,7 +90,7 @@ def _same_tree(port_sd, jax_tree):
         assert torch.equal(conv[k], v.to(conv[k].dtype)), k
 
 
-@pytest.mark.parametrize("name", ["mha", "gqa"])
+@pytest.mark.parametrize("name", ["mha", "gqa", "moe"])
 @pytest.mark.parametrize("weights", ["f32-tree", "serving-int8"])
 def test_quantize_params_matches_jax(params, name, weights):
     """Same int8 values and f32 scales as JAX, every element."""
@@ -149,7 +150,7 @@ def test_qdense_weight_is_the_dequantized_kernel_in_the_compute_dtype():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("flash", [False, True], ids=["einsum", "flash"])
-@pytest.mark.parametrize("name", ["mha", "gqa"])
+@pytest.mark.parametrize("name", ["mha", "gqa", "moe"])
 def test_int8_greedy_equals_dequantized_float_model(params, name, flash,
                                                     dtype):
     _, sd = params[name]
@@ -175,6 +176,12 @@ def test_int8_greedy_matches_jax_quant_model(params, name, flash):
                                      MAX_NEW))[0].tolist()
             for ids in _prompts()]
     assert _greedy(model, _prompts()) == want
+
+
+def test_int8_moe_greedy_matches_jax_quant_model(params):
+    """int8 attention kernels with float experts (``tests/test_compose.py``
+    pairs them too): the port's greedy tokens equal JAX's."""
+    test_int8_greedy_matches_jax_quant_model(params, "moe", False)
 
 
 def test_int8_tree_round_trips_through_flax_layout(params):

@@ -136,7 +136,7 @@ def test_defaults_match_the_jax_server():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tp", "2"], ["--num-experts", "4"], ["--slots", "2", "--tp", "2"]])
+    ["--tp", "2"], ["--slots", "2", "--tp", "2"]])
 def test_unported_flags_exit(flags):
     with pytest.raises(SystemExit, match="later serving slice"):
         serve_lm.validate_args(serve_lm.parse_args(TINY + flags))

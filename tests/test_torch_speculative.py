@@ -38,7 +38,8 @@ from container_engine_accelerators_tpu_torch.models.transformer import (
 )
 
 BASE = dict(vocab_size=97, num_layers=2, num_heads=4, head_dim=8, mlp_dim=32)
-CFGS = {"mha": dict(BASE), "gqa": dict(BASE, num_kv_heads=2)}
+CFGS = {"mha": dict(BASE), "gqa": dict(BASE, num_kv_heads=2),
+        "moe": dict(BASE, num_kv_heads=2, num_experts=4)}
 MAX_NEW = 10
 K = 3
 
@@ -119,6 +120,12 @@ def test_greedy_spec_is_exact_and_matches_jax(params, name, flash, prefix):
                                   np.asarray(jstats["accepted"]))
     np.testing.assert_array_equal(stats["drafted"].numpy(),
                                   np.asarray(jstats["drafted"]))
+
+
+def test_moe_target_and_moe_draft_spec_is_exact_and_matches_jax(params):
+    """An MoE target with an MoE draft (the server's draft inherits
+    ``--num-experts``): the verify chunk routes k + 1 tokens drop-free."""
+    test_greedy_spec_is_exact_and_matches_jax(params, "moe", False, False)
 
 
 def test_self_draft_accepts_everything(params):

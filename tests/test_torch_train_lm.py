@@ -72,7 +72,6 @@ def test_defaults_match_the_jax_trainer():
     (["--seq-parallel", "ulysses"], "multi-GPU slice"),
     (["--model-par", "2"], "multi-GPU slice"),
     (["--param-sharding", "fsdp"], "multi-GPU slice"),
-    (["--num-experts", "4"], "later training slice"),
 ])
 def test_later_slice_flags_exit(flags, slice_):
     with pytest.raises(SystemExit, match=slice_):
@@ -145,7 +144,7 @@ def test_sigterm_exits_80():
     before = signal.getsignal(signal.SIGTERM)
     steps = []
 
-    def on_step(step, loss):
+    def on_step(step, loss, metrics):
         steps.append(step)
         if step == 1:
             os.kill(os.getpid(), signal.SIGTERM)
@@ -235,7 +234,7 @@ def test_an_armed_save_fault_is_retried(tmp_path):
 
 
 def test_sigterm_in_process_saves_off_interval(tmp_path):
-    def on_step(step, loss):
+    def on_step(step, loss, metrics):
         if step == 2:
             os.kill(os.getpid(), signal.SIGTERM)
 

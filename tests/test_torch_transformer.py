@@ -204,15 +204,6 @@ def test_convert_rejects_foreign_trees(params):
         from_flax_params(tree)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(decode=False, num_experts=4), "training slice"),
-    (dict(decode=True, num_experts=4), "later serving slice"),
-])
-def test_unported_modes_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        TransformerLM(**BASE, device="meta", **kwargs)
-
-
 def test_int8_decode_mode_is_ported_and_train_mode_refused():
     """Once rejected as a later slice's, now taken in decode mode; the
     JAX package has no quantized training, so train mode refuses it."""
