@@ -11,8 +11,10 @@ training — ``cmd/train_lm.py``'s ``main`` at its defaults (seq 2048,
 batch 8, bf16) — both again with ``--num-experts 8`` (the Switch MoE-LM),
 and the image paths, ``cmd/train_resnet.py`` and ``cmd/serve_resnet.py``
 at their defaults (ResNet-50, 224x224, batch 128, bf16 with cuDNN) and
-Inception-v3; and holds every hand-written CUDA kernel against its plain
-PyTorch version.  Phases, one JSON line each:
+Inception-v3, and the node layer (NVML, the ``nvidia.com/gpu`` device
+plugin daemon, its Xid health checker and metrics server) on the card;
+and holds every hand-written CUDA kernel against its plain PyTorch
+version.  Phases, one JSON line each:
 
 1. the card (``nvidia-smi`` name and power limit, printed verbatim too);
 2. the build of every kernel from ``ops/csrc/`` in one
@@ -185,7 +187,33 @@ PyTorch version.  Phases, one JSON line each:
     request of the same array, then ``--model-dir`` from phase 22 (the
     saved params, the initial running statistics); phases 21-24 launch
     none of the port's kernels (every counter checked unchanged);
-25. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
+25. ``nvml``: ``gpulib/nvml.py``'s ``NvmlLib`` against the card: the
+    device count equals torch's and nvidia-smi's; each device's name,
+    UUID, PCI bus id and total memory equal nvidia-smi's (and torch's,
+    where the machine does not redact them), its ``/dev/nvidia<minor>``
+    exists; the ``sizeof`` and ``offsetof`` of every ctypes struct equal a
+    C program's built with g++ on the toolkit's ``nvml.h``; MIG mode; Xid
+    registration on every device; the microseconds of a memory and a duty
+    cycle read;
+26. ``nvml_load``: a child holds 8 GiB and runs bf16 matmuls: duty cycle
+    at least 80 and memory up by at least 8 GiB while it runs, duty cycle
+    at most 10 and memory back a few seconds after, each reading beside
+    nvidia-smi's at the same moment;
+27. ``device_plugin``: ``cmd/gpu_device_plugin.py`` as a subprocess on the
+    real ``/dev`` and NVML with a kubelet stub and a PodResources stub
+    that gives the first GPU to one container: it registers
+    ``nvidia.com/gpu``, ListAndWatch lists exactly NVML's GPUs as
+    ``nvidia<minor>``, all Healthy, Allocate returns the GPU's node, the
+    control nodes and the driver mount, an unknown ID is refused, and
+    ``/metrics`` serves the node and container gauges; the seconds to
+    register and the milliseconds to the first ListAndWatch and per
+    Allocate;
+28. ``xid``: Xid registration, then the daemon's health state machine
+    through its fault file (this machine delivers no Xid: see
+    ``XID_INJECTION``): the GPU goes Unhealthy on ListAndWatch, Allocate
+    refuses it, and it is Healthy again after the 10 s recovery window;
+    phases 25-28 launch none of the port's kernels;
+29. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
     ``serve`` and ``serve_slots`` phases' and phases 14-17' and 20's;
     flash attention's: the ``train`` and ``train_moe`` phases').
 
@@ -197,6 +225,7 @@ printing any result.  Run from the repository root:
     python3 chip_smoke.py
 """
 
+import ast
 import json
 import math
 import os
@@ -3234,6 +3263,515 @@ def serve_resnet(dev, card, model_dir):
            launches="none of the port's kernels")
 
 
+# ---- the node layer on the card: NVML, the device plugin, health, metrics --
+
+NODE_LOAD_BYTES = 8 << 30  # nvml_load's child allocates and touches this
+NODE_LOAD_SECONDS = 5
+NODE_RECOVERY_S = 10  # the daemon's --health-recovery-window
+NODE_XID = "31,13,43"  # what an illegal address raises on Hopper (XID_CONFIG)
+NODE_FAULT_XID = 31
+# A GPU host whose driver runs under gVisor (as the H100 this script was
+# measured on) delivers no Xid to the process: an idle
+# nvmlEventSetWait_v2 times out, but once a child has died of an illegal
+# address every wait, in every process, answers NVML_ERROR_OPERATING_SYSTEM
+# (17) and no Xid arrives (PERF.md §6).  So the phase drives the daemon's
+# health state machine through its fault file, and records what NVML's
+# wait answers in each run.
+XID_INJECTION = ("dropped: nvmlEventSetWait_v2 delivers no Xid under "
+                 "gVisor; the fault goes in through GPU_FAULT_FILE")
+# ctypes struct of gpulib/nvml.py -> its C type in the toolkit's nvml.h
+NVML_STRUCTS = {"PciInfo": "nvmlPciInfo_t", "Memory": "nvmlMemory_t",
+                "Value": "nvmlValue_t", "Sample": "nvmlSample_t",
+                "EventData": "nvmlEventData_t",
+                "Utilization": "nvmlUtilization_t"}
+NVML_INCLUDE = "/usr/local/cuda/include"
+LOAD_CHILD = r"""
+import sys, time, torch
+n, seconds = int(sys.argv[1]), float(sys.argv[2])
+held = torch.ones(n, dtype=torch.uint8, device="cuda")  # allocated, touched
+a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+torch.cuda.synchronize()
+print("ready", flush=True)
+end = time.monotonic() + seconds
+while time.monotonic() < end:
+    for _ in range(8):
+        b = a @ a
+    torch.cuda.synchronize()
+print("done", held.numel(), flush=True)
+"""
+
+
+def _smi(fields):
+    """nvidia-smi's --query-gpu rows, one list of strings a GPU."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return [[c.strip() for c in line.split(",")]
+            for line in out.strip().splitlines()]
+
+
+def _nvml_layouts(tmp):
+    """sizeof and offsetof of every ctypes struct of gpulib/nvml.py against
+    a C program built with g++ on the toolkit's nvml.h."""
+    import ctypes
+
+    from container_engine_accelerators_tpu_torch.gpulib import nvml
+
+    want, body = {}, []
+    for cls_name, ctype in NVML_STRUCTS.items():
+        cls = getattr(nvml, cls_name)
+        want[f"{cls_name}.sizeof"] = ctypes.sizeof(cls)
+        body.append(f'printf("{cls_name}.sizeof %zu\\n", sizeof({ctype}));')
+        for field, _ in cls._fields_:
+            want[f"{cls_name}.{field}"] = getattr(cls, field).offset
+            body.append(f'printf("{cls_name}.{field} %zu\\n", '
+                        f'offsetof({ctype}, {field}));')
+    src = os.path.join(tmp, "nvml_layout.cpp")
+    with open(src, "w") as f:
+        f.write("#include <cstddef>\n#include <cstdio>\n#include <nvml.h>\n"
+                "int main() {\n" + "\n".join(body) + "\nreturn 0;\n}\n")
+    exe = os.path.join(tmp, "nvml_layout")
+    subprocess.run(["g++", f"-I{NVML_INCLUDE}", src, "-o", exe], check=True,
+                   timeout=120)
+    out = subprocess.run([exe], capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    got = {k: int(v) for k, v in (line.rsplit(" ", 1)
+                                  for line in out.strip().splitlines())}
+    bad = {k: (want[k], got.get(k)) for k in want if got.get(k) != want[k]}
+    if bad:
+        raise AssertionError(f"ctypes layout != nvml.h (ctypes, C): {bad}")
+    return {k: v for k, v in got.items() if k.endswith(".sizeof")}
+
+
+def _median_us(fn, n=200):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    return statistics.median(times)
+
+
+def node_nvml(card):
+    """NvmlLib against the card, nvidia-smi and torch."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.gpulib.nvml import NvmlLib
+
+    t0 = time.perf_counter()
+    lib = NvmlLib()
+    open_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        devs = lib.devices()
+        smi = _smi("name,uuid,pci.bus_id,memory.total")
+        if not len(devs) == torch.cuda.device_count() == len(smi):
+            raise AssertionError(f"device count: NVML {len(devs)}, torch "
+                                 f"{torch.cuda.device_count()}, nvidia-smi "
+                                 f"{len(smi)}")
+        rows = []
+        for info, (name, uuid, bus_id, total_mib) in zip(devs, smi):
+            props = torch.cuda.get_device_properties(info.index)
+            mem = lib.memory_info(info.name)
+            torch_uuid = f"GPU-{props.uuid}"
+            checks = {
+                "name": info.model == name == props.name,
+                "uuid": info.uuid == uuid,
+                # A driver under gVisor may redact the UUID in NVML (and so in
+                # nvidia-smi); CUDA's own is then not comparable.
+                "uuid_vs_torch": (info.uuid == torch_uuid
+                                  or "REDACTED" in info.uuid),
+                # None: NVML answered NOT_SUPPORTED, nvidia-smi prints N/A.
+                "pci_bus_id": (bus_id.strip("[]") == "N/A"
+                               if info.pci_bus_id is None
+                               else info.pci_bus_id.lower() == bus_id.lower()),
+                "memory_total": mem.total_bytes == int(total_mib) * 2**20,
+                # torch's total is cudaMemGetInfo's: NVML's less the
+                # driver's reservation.
+                "memory_vs_torch": 0 <= mem.total_bytes - props.total_memory
+                <= mem.total_bytes // 100,
+                "dev_node": os.path.exists(f"/dev/{info.name}"),
+            }
+            if not all(checks.values()):
+                smi_row = (name, uuid, bus_id, total_mib)
+                raise AssertionError(f"{info.name}: {checks}; NVML {info}, "
+                                     f"{mem}; nvidia-smi {smi_row}; torch "
+                                     f"{props}")
+            rows.append({"name": info.name, "index": info.index,
+                         "minor": info.minor, "model": info.model,
+                         "uuid": info.uuid, "torch_uuid": torch_uuid,
+                         "pci_bus_id": info.pci_bus_id,
+                         "torch_pci_bus_id": props.pci_bus_id,
+                         "memory_total": mem.total_bytes,
+                         "torch_total_memory": props.total_memory,
+                         "memory_used": mem.used_bytes,
+                         "mig_mode": lib.mig_mode(info.name)})
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_nvml_") as tmp:
+            sizes = _nvml_layouts(tmp)
+        registered = lib.register_xid_events()
+        if registered != [d.name for d in devs]:
+            raise AssertionError(f"Xid registration: {registered} of "
+                                 f"{[d.name for d in devs]}")
+        name = devs[0].name
+        lib.duty_cycle(name)
+        _phase("nvml", card=card, open_ms=round(open_ms, 3), devices=rows,
+               struct_sizes=sizes, layouts="ctypes == nvml.h (g++)",
+               xid_registered=registered,
+               memory_info_us=round(_median_us(lambda: lib.memory_info(name)),
+                                    2),
+               duty_cycle_us=round(_median_us(lambda: lib.duty_cycle(name)), 2),
+               duty_cycle_source=lib.duty_cycle_source(name))
+    finally:
+        lib.close()
+
+
+def node_nvml_load(card):
+    """Duty cycle and memory under a known load in a child, and after it,
+    beside nvidia-smi's numbers at the same moments."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.gpulib.nvml import NvmlLib
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lib = NvmlLib()
+    try:
+        name = lib.devices()[0].name
+
+        def reading(at):
+            duty, mem = lib.duty_cycle(name), lib.memory_info(name)
+            util, used = _smi("utilization.gpu,memory.used")[0]
+            return {"at": at, "duty_cycle": duty,
+                    "memory_used": mem.used_bytes,
+                    "smi_utilization_gpu": int(util),
+                    "smi_memory_used_mib": int(used)}
+
+        lib.duty_cycle(name)
+        time.sleep(1.0)
+        idle = reading("before")
+        child = subprocess.Popen(
+            [sys.executable, "-c", LOAD_CHILD, str(NODE_LOAD_BYTES),
+             str(NODE_LOAD_SECONDS)], stdout=subprocess.PIPE, text=True)
+        try:
+            if child.stdout.readline().strip() != "ready":
+                raise AssertionError("load child did not start")
+            time.sleep(1.0)
+            lib.duty_cycle(name)  # the window starts under load
+            time.sleep(2.0)
+            busy = reading("loaded")
+            tail = child.stdout.read()
+            if child.wait(timeout=120) != 0 or "done" not in tail:
+                raise AssertionError(f"load child failed: {child.returncode}")
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        time.sleep(3.0)
+        lib.duty_cycle(name)
+        time.sleep(1.0)
+        after = reading("after")
+    finally:
+        lib.close()
+    grew = busy["memory_used"] - idle["memory_used"]
+    back = abs(after["memory_used"] - idle["memory_used"])
+    checks = {"busy_duty>=80": busy["duty_cycle"] >= 80,
+              "memory_grew>=load": grew >= NODE_LOAD_BYTES,
+              "idle_duty<=10": after["duty_cycle"] <= 10,
+              "memory_back<=256MiB": back <= 256 << 20}
+    _phase("nvml_load", card=card, load_bytes=NODE_LOAD_BYTES,
+           load="bf16 8192^3 matmuls", readings=[idle, busy, after],
+           memory_grew=grew, memory_back_within=back, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"nvml_load: {checks}")
+
+
+class _NodeRig:
+    """The real daemon on the card's /dev and NVML, a kubelet stub that
+    takes its registration and a PodResources stub that gives the first
+    GPU to default/train-0/worker; closed by ``close``."""
+
+    def __init__(self, tmp):
+        import concurrent.futures
+        import queue
+        import socket
+
+        import grpc
+
+        from container_engine_accelerators_tpu_torch.deviceplugin import api
+        from container_engine_accelerators_tpu_torch.deviceplugin import (
+            deviceplugin_v1beta1_pb2 as pb,
+        )
+        from container_engine_accelerators_tpu_torch.gpulib.nvml import NvmlLib
+        from container_engine_accelerators_tpu_torch.metrics import (
+            podresources_v1_pb2 as prpb,
+        )
+
+        lib = NvmlLib()
+        try:
+            self.names = [d.name for d in lib.devices()]
+            self.totals = {n: lib.memory_info(n).total_bytes
+                           for n in self.names}
+        finally:
+            lib.close()
+        self.tmp = tmp
+        self.procs, self.servers = [], []
+        plugins = os.path.join(tmp, "plugins")
+        os.makedirs(plugins)
+        self.plugins = plugins
+        self.registrations = queue.Queue()
+        rig = self
+
+        class Kubelet:
+            def Register(self, request, context):
+                rig.registrations.put((time.monotonic(), request))
+                return pb.Empty()
+
+        kubelet = grpc.server(concurrent.futures.ThreadPoolExecutor(2))
+        api.add_registration_servicer(kubelet, Kubelet())
+        kubelet.add_insecure_port(
+            f"unix:{os.path.join(plugins, api.KUBELET_SOCKET)}")
+        kubelet.start()
+        self.servers.append(kubelet)
+
+        pods = prpb.ListPodResourcesResponse()
+        pod = pods.pod_resources.add(name="train-0", namespace="default")
+        pod.containers.add(name="worker").devices.add(
+            resource_name=api.RESOURCE_NAME, device_ids=self.names[:1])
+        pod_resources = grpc.server(concurrent.futures.ThreadPoolExecutor(2))
+        pod_resources.add_generic_rpc_handlers((
+            grpc.method_handlers_generic_handler("v1.PodResourcesLister", {
+                "List": grpc.unary_unary_rpc_method_handler(
+                    lambda req, ctx: pods,
+                    request_deserializer=prpb.ListPodResourcesRequest
+                    .FromString,
+                    response_serializer=prpb.ListPodResourcesResponse
+                    .SerializeToString)}),))
+        self.pr_socket = os.path.join(tmp, "pod-resources.sock")
+        pod_resources.add_insecure_port(f"unix:{self.pr_socket}")
+        pod_resources.start()
+        self.servers.append(pod_resources)
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self.port = s.getsockname()[1]
+        self.fault_file = os.path.join(tmp, "faults")
+        self.log_path = os.path.join(tmp, "daemon.log")
+        self.log = open(self.log_path, "w")
+        env = dict(os.environ, XID_CONFIG=NODE_XID,
+                   GPU_FAULT_FILE=self.fault_file)
+        self.started = time.monotonic()
+        self.procs.append(subprocess.Popen(
+            [sys.executable, "-m",
+             "container_engine_accelerators_tpu_torch.cmd.gpu_device_plugin",
+             "--plugin-directory", plugins,
+             "--gpu-config", os.path.join(tmp, "gpu_config.json"),
+             "--enable-health-monitoring", "--enable-container-gpu-metrics",
+             "--health-recovery-window", str(NODE_RECOVERY_S),
+             "--gpu-metrics-port", str(self.port),
+             "--gpu-metrics-collection-interval", "0.5",
+             "--pod-resources-socket", self.pr_socket],
+            cwd=HERE, env=env, stderr=self.log))
+        self.channel = None
+
+    def dial(self, endpoint):
+        import grpc
+
+        from container_engine_accelerators_tpu_torch.deviceplugin import api
+
+        self.channel = grpc.insecure_channel(
+            f"unix:{os.path.join(self.plugins, endpoint)}")
+        grpc.channel_ready_future(self.channel).result(timeout=30)
+        return api.DevicePluginClient(self.channel)
+
+    def scrape(self):
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}/metrics",
+                                    timeout=10) as resp:
+            return resp.read().decode()
+
+    def close(self):
+        if self.channel is not None:
+            self.channel.close()
+        for p in self.procs:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=20)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        for s in self.servers:
+            s.stop(grace=0).wait()
+        self.log.close()
+
+    def log_tail(self, n=20):
+        with open(self.log_path) as f:
+            return f.read().splitlines()[-n:]
+
+
+def _gauges(text, family):
+    """{labels string: value} of one gauge family in a /metrics text."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(family + "{"):
+            labels, value = line[len(family):].rsplit(" ", 1)
+            out[labels] = float(value)
+    return out
+
+
+def _allocate(client, ids):
+    from container_engine_accelerators_tpu_torch.deviceplugin import (
+        deviceplugin_v1beta1_pb2 as pb,
+    )
+
+    req = pb.AllocateRequest()
+    req.container_requests.add().devicesIDs.extend(ids)
+    return client.allocate(req, timeout=10)
+
+
+def _refused(client, ids):
+    import grpc
+
+    try:
+        _allocate(client, ids)
+    except grpc.RpcError as e:
+        return e.code() == grpc.StatusCode.INVALID_ARGUMENT
+    return False
+
+
+def node_device_plugin(rig, card):
+    """The daemon on the real /dev and NVML: registration, ListAndWatch,
+    Allocate and /metrics."""
+    from container_engine_accelerators_tpu_torch.deviceplugin import api
+    from container_engine_accelerators_tpu_torch.deviceplugin import (
+        deviceplugin_v1beta1_pb2 as pb,
+    )
+    from container_engine_accelerators_tpu_torch.deviceplugin.manager import (
+        CONTROL_DEVICES,
+        DRIVER_CONTAINER_PATH,
+        DRIVER_HOST_PATH,
+        OPTIONAL_DEVICES,
+    )
+
+    try:
+        at, reg = rig.registrations.get(timeout=60)
+    except Exception:
+        raise AssertionError(f"no registration; daemon: {rig.log_tail()}")
+    register_s = at - rig.started
+    if reg.resource_name != api.RESOURCE_NAME:
+        raise AssertionError(f"registered {reg.resource_name}")
+    client = rig.dial(reg.endpoint)
+    t0 = time.perf_counter()
+    rig.stream = client.list_and_watch(pb.Empty(), timeout=300)
+    first = {d.ID: d.health for d in next(rig.stream).devices}
+    first_law_ms = (time.perf_counter() - t0) * 1e3
+    if first != {n: "Healthy" for n in rig.names}:
+        raise AssertionError(f"ListAndWatch {first}, NVML {rig.names}")
+    control = [f"/dev/{d}" for d in CONTROL_DEVICES] + [
+        f"/dev/{d}" for d in OPTIONAL_DEVICES if os.path.exists(f"/dev/{d}")]
+    alloc_ms = []
+    for name in rig.names:
+        for _ in range(20):
+            t0 = time.perf_counter()
+            resp = _allocate(client, [name]).container_responses[0]
+            alloc_ms.append((time.perf_counter() - t0) * 1e3)
+        paths = [d.host_path for d in resp.devices]
+        mounts = [(m.host_path, m.container_path, m.read_only)
+                  for m in resp.mounts]
+        if (paths != [f"/dev/{name}"] + control
+                or mounts != [(DRIVER_HOST_PATH, DRIVER_CONTAINER_PATH, True)]):
+            raise AssertionError(f"Allocate {name}: {paths}, {mounts}")
+    if not _refused(client, ["nvidia99"]):
+        raise AssertionError("Allocate of an unknown ID was not refused")
+    deadline, text = time.monotonic() + 30, ""
+    want = f'accelerator_id="{rig.names[0]}"'
+    while time.monotonic() < deadline:
+        text = rig.scrape()
+        if any(want in k and 'pod="train-0"' in k
+               for k in _gauges(text, "duty_cycle")):
+            break
+        time.sleep(0.25)
+    node_total = _gauges(text, "memory_total_gpu_node")
+    container = _gauges(text, "memory_total")
+    checks = {
+        "container_gauges": any(want in k and 'pod="train-0"' in k
+                                for k in container),
+        "node_gauges": all(
+            any(f'accelerator_id="{n}"' in k and v == rig.totals[n]
+                for k, v in node_total.items()) for n in rig.names),
+        "duty_cycle_gpu_node": bool(_gauges(text, "duty_cycle_gpu_node")),
+        "make_nvidia": all('make="nvidia"' in k for k in node_total),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"/metrics: {checks}\n{text[-3000:]}")
+    _phase("device_plugin", card=card, resource=reg.resource_name,
+           endpoint=reg.endpoint, devices=first,
+           register_s=round(register_s, 3),
+           first_list_and_watch_ms=round(first_law_ms, 3),
+           allocate_ms_median=round(statistics.median(alloc_ms), 3),
+           allocate_ms_max=round(max(alloc_ms), 3), allocate_calls=len(alloc_ms),
+           allocate_devices=paths, mounts=mounts, unknown_id="refused",
+           metrics=checks)
+    return client
+
+
+def node_xid(rig, client, card):
+    """Xid registration, and the health state machine of the real daemon
+    driven through its fault file: Unhealthy on ListAndWatch, Allocate
+    refused, Healthy again after the recovery window."""
+    from container_engine_accelerators_tpu_torch.gpulib.nvml import (
+        NvmlError,
+        NvmlLib,
+    )
+
+    lib = NvmlLib()
+    try:
+        registered = lib.register_xid_events()
+        try:
+            event = lib.wait_for_event(0.5)
+            event_wait = "timeout" if event is None else repr(event)
+        except NvmlError as e:
+            event_wait = f"NVML {e.code}: {e}"
+    finally:
+        lib.close()
+    if registered != rig.names:
+        raise AssertionError(f"Xid registration: {registered} of {rig.names}")
+    watching = [line for line in rig.log_tail(200)
+                if "starting GPU health checker" in line]
+    # The checker logs the list it registered, as "... watching ['nvidia0']".
+    daemon_registered = (ast.literal_eval(watching[-1].rsplit("watching ", 1)[1])
+                         if watching else None)
+    name = rig.names[0]
+
+    def wait_for(health):
+        while True:
+            state = {d.ID: d.health for d in next(rig.stream).devices}
+            if state.get(name) == health:
+                return time.monotonic(), state
+
+    t0 = time.monotonic()
+    with open(rig.fault_file, "a") as f:
+        f.write(f"fault {name} {NODE_FAULT_XID}\n")
+    t_bad, bad = wait_for("Unhealthy")
+    refused = _refused(client, [name])
+    t_good, good = wait_for("Healthy")
+    allocates_again = bool(_allocate(client, [name]).container_responses)
+    events = _gauges(rig.scrape(), "agent_events")
+    checks = {"registered_in_daemon": daemon_registered == rig.names,
+              "refused": refused,
+              "window_respected": t_good - t_bad >= NODE_RECOVERY_S - 0.5,
+              "allocates_after": allocates_again}
+    _phase("xid", card=card, xid_config=NODE_XID, registered=registered,
+           daemon_log=watching[-1:], injection=XID_INJECTION,
+           event_wait=event_wait,
+           fault=f"fault {name} {NODE_FAULT_XID} (GPU_FAULT_FILE)",
+           fault_to_unhealthy_s=round(t_bad - t0, 3),
+           unhealthy_to_healthy_s=round(t_good - t_bad, 3),
+           recovery_window_s=NODE_RECOVERY_S, states=[bad, good],
+           agent_events=events, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"xid: {checks}; daemon: {rig.log_tail()}")
+
+
 def _plain_server():
     """The per-request server at SERVE_FLAGS (bf16 compute on the seed-0
     weights): the feature phases' reference.  -> (run, server)."""
@@ -3340,6 +3878,18 @@ def main():
         _timed("train_resnet", train_resnet, dev, smi, model_dir)
         _timed("train_resnet_resume", train_resnet_resume, smi)
         _timed("serve_resnet", serve_resnet, dev, smi, model_dir)
+
+    before = _kernel_counts()
+    _timed("nvml", node_nvml, smi)
+    _timed("nvml_load", node_nvml_load, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_node_") as tmp:
+        rig = _NodeRig(tmp)
+        try:
+            client = _timed("device_plugin", node_device_plugin, rig, smi)
+            _timed("xid", node_xid, rig, client, smi)
+        finally:
+            rig.close()
+    _launches_none("the node phases", before)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -1,0 +1,224 @@
+"""Prometheus metrics server for GPU nodes (ref: pkg/gpu/nvidia/metrics/
+metrics.go; the JAX package's ``metrics/metrics.py``).  The serving demo's
+HPA scales on ``duty_cycle``.
+
+Gauges, labelled as the reference labels them (``make="nvidia"``):
+
+- per container, joined to its GPUs through the kubelet's PodResources
+  API: ``duty_cycle``, ``memory_total``, ``memory_used`` (namespace, pod,
+  container, make, accelerator_id, model) and ``request`` (namespace,
+  pod, container, resource_name);
+- per GPU of the node: ``duty_cycle_gpu_node``, ``memory_total_gpu_node``,
+  ``memory_used_gpu_node`` (make, accelerator_id, model);
+- ``agent_events{event=...}``: the agent's counters (``counters.py``).
+
+``accelerator_id`` is ``nvidia<minor>``, the name the device plugin
+advertises; ``model`` is NVML's device name.  The registry is cleared
+every 60 s so that pods which are gone stop being reported
+(metrics.go:241-253), and ``start`` retries a port that is still taken
+under a bounded budget.
+"""
+
+import logging
+import threading
+import time
+from typing import List, Optional, Tuple
+
+from prometheus_client import CollectorRegistry, Gauge, start_http_server
+
+from container_engine_accelerators_tpu_torch.deviceplugin.api import RESOURCE_NAME
+from container_engine_accelerators_tpu_torch.gpulib.types import GpuLib, MemoryInfo
+from container_engine_accelerators_tpu_torch.metrics import counters
+from container_engine_accelerators_tpu_torch.metrics.devices import (
+    POD_RESOURCES_SOCKET,
+    PodResourcesClient,
+)
+from container_engine_accelerators_tpu_torch.utils.retry import RetryPolicy
+
+log = logging.getLogger(__name__)
+
+MAKE = "nvidia"
+RESET_INTERVAL_S = 60.0  # metricsResetInterval
+BIND_RETRY = RetryPolicy(
+    max_attempts=6, initial_backoff_s=0.2, max_backoff_s=2.0, deadline_s=15.0
+)
+
+_CONTAINER_LABELS = ["namespace", "pod", "container", "make",
+                     "accelerator_id", "model"]
+_NODE_LABELS = ["make", "accelerator_id", "model"]
+
+
+class GpuMetricsCollector:
+    """The sampling seam (the reference's metricsCollector interface,
+    metrics.go:29-35): tests substitute their own."""
+
+    def __init__(self, lib: GpuLib):
+        self.lib = lib
+
+    def collect_gpu_device(self, name: str) -> Tuple[int, MemoryInfo]:
+        return self.lib.duty_cycle(name), self.lib.memory_info(name)
+
+    def devices(self) -> List[str]:
+        return [info.name for info in self.lib.devices()]
+
+    def model(self, name: str) -> str:
+        return self.lib.device_info(name).model
+
+
+class MetricServer:
+    def __init__(
+        self,
+        lib: Optional[GpuLib] = None,
+        port: int = 2112,
+        collection_interval_s: float = 30.0,
+        pod_resources_socket: str = POD_RESOURCES_SOCKET,
+        collector: Optional[GpuMetricsCollector] = None,
+        registry: Optional[CollectorRegistry] = None,
+    ):
+        self.collector = collector or GpuMetricsCollector(lib)
+        self.port = port
+        self.collection_interval_s = collection_interval_s
+        self.pod_resources = PodResourcesClient(pod_resources_socket)
+        self.registry = registry or CollectorRegistry()
+        self._stop = threading.Event()
+        self._last_reset = time.monotonic()
+        self._httpd = None
+        self._threads: List[threading.Thread] = []
+
+        def gauge(name, doc, labels):
+            return Gauge(name, doc, labels, registry=self.registry)
+
+        self.duty_cycle = gauge(
+            "duty_cycle", "Percent of time over the past sample period "
+            "during which the accelerator was actively processing",
+            _CONTAINER_LABELS)
+        self.memory_total = gauge(
+            "memory_total", "Total accelerator memory (bytes)",
+            _CONTAINER_LABELS)
+        self.memory_used = gauge(
+            "memory_used", "Allocated accelerator memory (bytes)",
+            _CONTAINER_LABELS)
+        self.request = gauge(
+            "request", "Number of accelerator devices requested by the "
+            "container", ["namespace", "pod", "container", "resource_name"])
+        self.duty_cycle_node = gauge(
+            "duty_cycle_gpu_node", "Node-level GPU duty cycle", _NODE_LABELS)
+        self.memory_total_node = gauge(
+            "memory_total_gpu_node", "Node-level total GPU memory (bytes)",
+            _NODE_LABELS)
+        self.memory_used_node = gauge(
+            "memory_used_gpu_node", "Node-level used GPU memory (bytes)",
+            _NODE_LABELS)
+        self.agent_events = gauge(
+            "agent_events", "Cumulative recovery events of the node agent "
+            "(health transitions, registration retries), by "
+            "metrics/counters.py name", ["event"])
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def _bind(self, retry: RetryPolicy) -> None:
+        """Bind the HTTP listener; past the retry budget the OSError of a
+        taken port propagates."""
+        last = None
+        for _ in retry.attempts(sleep=self._stop.wait):
+            try:
+                self._httpd, thread = start_http_server(self.port,
+                                                        registry=self.registry)
+            except OSError as e:
+                last = e
+                counters.inc("metrics.bind.retried")
+                log.warning("metrics port %d: %s; retrying", self.port, e)
+                continue
+            self._threads.append(thread)
+            # port 0 is any free port: report the one bound.
+            self.port = self._httpd.server_port
+            return
+        raise last
+
+    def start(self, retry: Optional[RetryPolicy] = None) -> None:
+        self._bind(retry or BIND_RETRY)
+        thread = threading.Thread(target=self._collect_loop,
+                                  name="gpu-metrics", daemon=True)
+        thread.start()
+        self._threads.append(thread)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        for thread in self._threads:
+            thread.join(timeout=10)
+        self._threads = []
+
+    def _collect_loop(self) -> None:
+        while not self._stop.wait(self.collection_interval_s):
+            try:
+                self.collect_once()
+            except Exception as e:
+                log.error("metrics collection failed: %s", e)
+
+    # -- collection ----------------------------------------------------------
+
+    def _reset(self) -> None:
+        for gauge in (self.duty_cycle, self.memory_total, self.memory_used,
+                      self.request, self.duty_cycle_node,
+                      self.memory_total_node, self.memory_used_node,
+                      self.agent_events):
+            gauge.clear()
+        # Counters are cumulative: publish them again at once, so a scrape
+        # between the clear and the next pass does not read them as gone.
+        self._publish_counters()
+
+    def _publish_counters(self) -> None:
+        for name, value in counters.snapshot().items():
+            self.agent_events.labels(event=name).set(value)
+
+    def collect_once(self) -> None:
+        now = time.monotonic()
+        if now - self._last_reset >= RESET_INTERVAL_S:
+            self._reset()
+            self._last_reset = now
+
+        try:
+            container_devices = self.pod_resources.get_devices_for_all_containers()
+        except Exception as e:
+            log.warning("pod-resources query failed: %s", e)
+            container_devices = {}
+
+        # One sample per GPU per pass: NVML's duty cycle averages the
+        # samples since the previous read, so a second read in the same
+        # pass would see almost none.
+        samples = {}
+        for name in self.collector.devices():
+            try:
+                samples[name] = self.collector.collect_gpu_device(name)
+            except Exception as e:
+                log.warning("sampling %s failed: %s", name, e)
+
+        for cid, device_ids in container_devices.items():
+            self.request.labels(
+                namespace=cid.namespace, pod=cid.pod,
+                container=cid.container, resource_name=RESOURCE_NAME,
+            ).set(len(device_ids))
+            for device_id in device_ids:
+                if device_id not in samples:
+                    continue
+                duty, mem = samples[device_id]
+                labels = dict(namespace=cid.namespace, pod=cid.pod,
+                              container=cid.container, make=MAKE,
+                              accelerator_id=device_id,
+                              model=self.collector.model(device_id))
+                self.duty_cycle.labels(**labels).set(duty)
+                self.memory_total.labels(**labels).set(mem.total_bytes)
+                self.memory_used.labels(**labels).set(mem.used_bytes)
+
+        self._publish_counters()
+
+        for name, (duty, mem) in samples.items():
+            labels = dict(make=MAKE, accelerator_id=name,
+                          model=self.collector.model(name))
+            self.duty_cycle_node.labels(**labels).set(duty)
+            self.memory_total_node.labels(**labels).set(mem.total_bytes)
+            self.memory_used_node.labels(**labels).set(mem.used_bytes)

@@ -37,7 +37,14 @@ def test_port_imports_without_jax():
               "models.quant", "models.prefix_cache", "models.speculative",
               "models.resnet", "models.inception", "data.arrays",
               "cmd.train_resnet", "cmd.serve_resnet", "entry",
-              "utils.profile", "ops.moe"}
+              "utils.profile", "ops.moe", "utils.devname", "utils.config",
+              "sharing.sharing", "gpulib", "gpulib.types", "gpulib.nvml",
+              "gpulib.fake", "deviceplugin.deviceplugin_v1beta1_pb2",
+              "deviceplugin.api", "deviceplugin.preferred",
+              "deviceplugin.manager", "deviceplugin.service",
+              "health.health_checker", "metrics.counters",
+              "metrics.podresources_v1_pb2", "metrics.devices",
+              "metrics.metrics", "cmd.gpu_device_plugin"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys
@@ -74,3 +81,25 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_node_layer_imports_without_torch():
+    """The node modules (gpulib, deviceplugin, health, metrics, sharing,
+    the daemon) need no torch: a node agent image carries none."""
+    node = [m for m in _port_modules()
+            if m.split(".")[1:2] in (["gpulib"], ["deviceplugin"],
+                                     ["health"], ["metrics"], ["sharing"])
+            or m.endswith((".cmd.gpu_device_plugin", ".utils.config",
+                           ".utils.devname", ".utils.device"))]
+    assert len(node) >= 20
+    code = f"""
+import importlib, sys
+sys.modules["torch"] = None
+sys.modules["jax"] = None
+for m in {node!r}:
+    importlib.import_module(m)
+print("OK", len({node!r}))
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
