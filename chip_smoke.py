@@ -12,7 +12,8 @@ batch 8, bf16) — both again with ``--num-experts 8`` (the Switch MoE-LM),
 and the image paths, ``cmd/train_resnet.py`` and ``cmd/serve_resnet.py``
 at their defaults (ResNet-50, 224x224, batch 128, bf16 with cuDNN) and
 Inception-v3, and the node layer (NVML, the ``nvidia.com/gpu`` device
-plugin daemon, its Xid health checker and metrics server) on the card;
+plugin daemon, its Xid health checker and metrics server, its fault
+sites, MIG, the maintenance watcher and MPS) on the card;
 and holds every hand-written CUDA kernel against its plain PyTorch
 version.  Phases, one JSON line each:
 
@@ -212,8 +213,33 @@ version.  Phases, one JSON line each:
     through its fault file (this machine delivers no Xid: see
     ``XID_INJECTION``): the GPU goes Unhealthy on ListAndWatch, Allocate
     refuses it, and it is Healthy again after the 10 s recovery window;
-    phases 25-28 launch none of the port's kernels;
-29. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
+29. ``node_faults``: the daemon armed with ``NODE_FAULT_SPEC`` registers
+    on its second attempt (seconds beside phase 27's unarmed start), its
+    checker rides the dropped event wait and the fault file still turns
+    the GPU Unhealthy, ``/metrics`` counts each ``fault.fired.<site>``;
+    ``MetricServer.rebind`` moves the listener and the gauges read the
+    same; the Xid watch list (a hot-added GPU needs a second card);
+30. ``mig``: MIG mode from NVML and nvidia-smi, ``nvidia-smi mig -lgip``
+    and ``/proc/driver/nvidia``; the daemon with ``GPUPartitionSize`` on
+    this MIG-off card refuses, naming the GPU and the path, and
+    advertises nothing; ``cmd/partition_gpu.py`` behind ``MIG_SHIM``
+    (read-only queries pass, every other command is recorded and
+    refused) reads the card's state and issues exactly ``-i 0 -mig 1``,
+    exits 1 and writes no state; the card's MIG mode is never changed;
+31. ``maintenance``: ``cmd/maintenance_watcher.py --once`` against local
+    metadata and API server stubs, armed with one ``k8s.patch`` conflict:
+    the node tainted beside its foreign taint, every GPU Unhealthy on the
+    daemon's ListAndWatch (``XID_CONFIG`` names the maintenance code),
+    the milliseconds from the fault-file line to Unhealthy; ``NONE``
+    removes the taint;
+32. ``mps``: the daemon under ``mps`` advertises nothing while no MPS
+    daemon answers; with NVIDIA's MPS control daemon on a private pipe
+    directory it advertises ``nvidia<minor>/vgpu0..1`` and Allocate
+    gives the node, the pipe mount, 50% of the threads and half of
+    NVML's memory; a child run with those envs (``MPS_CLIENTS``); once
+    the MPS daemon quits, Allocate is refused; no MPS process is left;
+    phases 25-32 launch none of the port's kernels;
+33. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
     ``serve`` and ``serve_slots`` phases' and phases 14-17' and 20's;
     flash attention's: the ``train`` and ``train_moe`` phases').
 
@@ -3490,7 +3516,7 @@ class _NodeRig:
     takes its registration and a PodResources stub that gives the first
     GPU to default/train-0/worker; closed by ``close``."""
 
-    def __init__(self, tmp):
+    def __init__(self, tmp, config=None, env=None, args=()):
         import concurrent.futures
         import queue
         import socket
@@ -3557,21 +3583,70 @@ class _NodeRig:
         self.fault_file = os.path.join(tmp, "faults")
         self.log_path = os.path.join(tmp, "daemon.log")
         self.log = open(self.log_path, "w")
-        env = dict(os.environ, XID_CONFIG=NODE_XID,
-                   GPU_FAULT_FILE=self.fault_file)
+        config_path = os.path.join(tmp, "gpu_config.json")
+        if config is not None:
+            with open(config_path, "w") as f:
+                json.dump(config, f)
+        env = {**os.environ, "XID_CONFIG": NODE_XID,
+               "GPU_FAULT_FILE": self.fault_file, **(env or {})}
         self.started = time.monotonic()
         self.procs.append(subprocess.Popen(
             [sys.executable, "-m",
              "container_engine_accelerators_tpu_torch.cmd.gpu_device_plugin",
-             "--plugin-directory", plugins,
-             "--gpu-config", os.path.join(tmp, "gpu_config.json"),
+             "--plugin-directory", plugins, "--gpu-config", config_path,
              "--enable-health-monitoring", "--enable-container-gpu-metrics",
              "--health-recovery-window", str(NODE_RECOVERY_S),
              "--gpu-metrics-port", str(self.port),
              "--gpu-metrics-collection-interval", "0.5",
-             "--pod-resources-socket", self.pr_socket],
+             "--pod-resources-socket", self.pr_socket, *args],
             cwd=HERE, env=env, stderr=self.log))
         self.channel = None
+        self.stream = None
+
+    def registered(self, timeout=60):
+        """(monotonic time, RegisterRequest) of the next registration."""
+        try:
+            return self.registrations.get(timeout=timeout)
+        except Exception:
+            raise AssertionError(f"no registration in {timeout} s; daemon: "
+                                 f"{self.log_tail()}") from None
+
+    def watch(self, endpoint):
+        """Dial the plugin and open ListAndWatch; its first device list."""
+        from container_engine_accelerators_tpu_torch.deviceplugin import (
+            deviceplugin_v1beta1_pb2 as pb,
+        )
+
+        client = self.dial(endpoint)
+        self.stream = client.list_and_watch(pb.Empty(), timeout=300)
+        return client, {d.ID: d.health for d in next(self.stream).devices}
+
+    def wait_health(self, name, health):
+        """Read ListAndWatch until ``name`` is ``health``: (monotonic
+        time, the device list)."""
+        while True:
+            state = {d.ID: d.health for d in next(self.stream).devices}
+            if state.get(name) == health:
+                return time.monotonic(), state
+
+    def wait_log(self, needle, timeout=30.0):
+        """The first daemon log line holding ``needle``."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with open(self.log_path) as f:
+                for line in f:
+                    if needle in line:
+                        return line.rstrip("\n")
+            time.sleep(0.1)
+        raise AssertionError(f"{needle!r} not logged in {timeout} s; daemon: "
+                             f"{self.log_tail()}")
+
+    def watch_list(self):
+        """The list the daemon's checker logged as registered for Xids."""
+        watching = [line for line in self.log_tail(400)
+                    if "starting GPU health checker" in line]
+        return (ast.literal_eval(watching[-1].rsplit("watching ", 1)[1])
+                if watching else None)
 
     def dial(self, endpoint):
         import grpc
@@ -3584,9 +3659,7 @@ class _NodeRig:
         return api.DevicePluginClient(self.channel)
 
     def scrape(self):
-        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}/metrics",
-                                    timeout=10) as resp:
-            return resp.read().decode()
+        return _scrape(self.port)
 
     def close(self):
         if self.channel is not None:
@@ -3642,9 +3715,6 @@ def node_device_plugin(rig, card):
     """The daemon on the real /dev and NVML: registration, ListAndWatch,
     Allocate and /metrics."""
     from container_engine_accelerators_tpu_torch.deviceplugin import api
-    from container_engine_accelerators_tpu_torch.deviceplugin import (
-        deviceplugin_v1beta1_pb2 as pb,
-    )
     from container_engine_accelerators_tpu_torch.deviceplugin.manager import (
         CONTROL_DEVICES,
         DRIVER_CONTAINER_PATH,
@@ -3652,17 +3722,12 @@ def node_device_plugin(rig, card):
         OPTIONAL_DEVICES,
     )
 
-    try:
-        at, reg = rig.registrations.get(timeout=60)
-    except Exception:
-        raise AssertionError(f"no registration; daemon: {rig.log_tail()}")
-    register_s = at - rig.started
+    at, reg = rig.registered()
+    register_s = rig.register_s = at - rig.started
     if reg.resource_name != api.RESOURCE_NAME:
         raise AssertionError(f"registered {reg.resource_name}")
-    client = rig.dial(reg.endpoint)
     t0 = time.perf_counter()
-    rig.stream = client.list_and_watch(pb.Empty(), timeout=300)
-    first = {d.ID: d.health for d in next(rig.stream).devices}
+    client, first = rig.watch(reg.endpoint)
     first_law_ms = (time.perf_counter() - t0) * 1e3
     if first != {n: "Healthy" for n in rig.names}:
         raise AssertionError(f"ListAndWatch {first}, NVML {rig.names}")
@@ -3738,22 +3803,14 @@ def node_xid(rig, client, card):
     watching = [line for line in rig.log_tail(200)
                 if "starting GPU health checker" in line]
     # The checker logs the list it registered, as "... watching ['nvidia0']".
-    daemon_registered = (ast.literal_eval(watching[-1].rsplit("watching ", 1)[1])
-                         if watching else None)
+    daemon_registered = rig.watch_list()
     name = rig.names[0]
-
-    def wait_for(health):
-        while True:
-            state = {d.ID: d.health for d in next(rig.stream).devices}
-            if state.get(name) == health:
-                return time.monotonic(), state
-
     t0 = time.monotonic()
     with open(rig.fault_file, "a") as f:
         f.write(f"fault {name} {NODE_FAULT_XID}\n")
-    t_bad, bad = wait_for("Unhealthy")
+    t_bad, bad = rig.wait_health(name, "Unhealthy")
     refused = _refused(client, [name])
-    t_good, good = wait_for("Healthy")
+    t_good, good = rig.wait_health(name, "Healthy")
     allocates_again = bool(_allocate(client, [name]).container_responses)
     events = _gauges(rig.scrape(), "agent_events")
     checks = {"registered_in_daemon": daemon_registered == rig.names,
@@ -3770,6 +3827,537 @@ def node_xid(rig, client, card):
            agent_events=events, checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"xid: {checks}; daemon: {rig.log_tail()}")
+
+
+# ---- the node layer's second slice: fault sites, MIG, maintenance, MPS ---
+
+# node_faults arms the daemon: its first Register attempt fails, and its
+# checker's first event wait drops.
+NODE_FAULT_SPEC = "kubelet.register:fail@1;health.stream:drop@1"
+NODE_GAUGES = ("memory_total_gpu_node", "memory_used_gpu_node",
+               "duty_cycle_gpu_node", "agent_events")
+MIG_SIZE = "1g.10gb"
+MIG_SMI_QUERY = ["--query-gpu=index,mig.mode.current,mig.mode.pending",
+                 "--format=csv,noheader"]
+# nvidia-smi behind the mig phase's shim: read-only queries reach the
+# card, every other command is recorded and refused, so the phase never
+# changes the card's MIG mode.
+MIG_SHIM = """#!/bin/bash
+case "$*" in
+  --query-gpu=*|"mig -lgip"|"mig -lgi"|"mig -lci"|-L)
+    printf 'pass %s\\n' "$*" >> "{log}"
+    exec "{real}" "$@" ;;
+esac
+printf 'refused %s\\n' "$*" >> "{log}"
+echo "refused by the recording shim: $*" >&2
+exit 1
+"""
+MAINTENANCE_EVENT = "TERMINATE_ON_HOST_MAINTENANCE"
+MPS_CONFIG = {"GPUSharingConfig": {"GPUSharingStrategy": "mps",
+                                   "MaxSharedClientsPerGPU": 2}}
+# The card's machine runs NVIDIA's MPS control daemon, which answers its
+# queries, but every MPS server it starts for a client logs "Creating
+# server context on device 0 ... Failed to start : operation not
+# supported" (gVisor), and the client's CUDA start-up fails with error 805
+# (PERF.md §6).  So the mps phase drives the device plugin's whole mps
+# path and asserts that a child run with the Allocate envs is refused; on
+# a machine whose MPS server starts, set this to "runs": the child must
+# then hold 90% of its pinned limit and run out of memory past it.
+MPS_CLIENTS = "refused"
+MPS_CHILD = r"""
+import sys, torch
+limit = int(sys.argv[1]) * 2**20
+props = torch.cuda.get_device_properties(0)
+free, total = torch.cuda.mem_get_info()
+print("sees", props.multi_processor_count, free, total, flush=True)
+held = torch.empty(int(limit * 0.9), dtype=torch.uint8, device="cuda")
+held.fill_(1)
+torch.cuda.synchronize()
+print("alloc90 ok", flush=True)
+try:
+    more = torch.empty(int(limit * 0.2), dtype=torch.uint8, device="cuda")
+    more.fill_(1)
+    torch.cuda.synchronize()
+    print("alloc110 ok", flush=True)
+except torch.OutOfMemoryError:
+    print("alloc110 OOM", flush=True)
+"""
+
+
+def _scrape(port):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as resp:
+        return resp.read().decode()
+
+
+def _events(text):
+    """agent_events of a /metrics text: {event: value}."""
+    return {k.split('"')[1]: v for k, v in _gauges(text, "agent_events")
+            .items()}
+
+
+def node_faults(card, unarmed_register_s):
+    """The daemon armed with NODE_FAULT_SPEC registers on its second
+    attempt and its checker rides the dropped wait; MetricServer.rebind
+    moves /metrics; the Xid watch list."""
+    from container_engine_accelerators_tpu_torch.gpulib.nvml import NvmlLib
+    from container_engine_accelerators_tpu_torch.metrics import counters
+    from container_engine_accelerators_tpu_torch.metrics.metrics import (
+        MetricServer,
+    )
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as tmp:
+        rig = _NodeRig(tmp, env={"TPU_FAULT_SPEC": NODE_FAULT_SPEC})
+        try:
+            at, reg = rig.registered()
+            register_s = at - rig.started
+            _, first = rig.watch(reg.endpoint)
+            name = rig.names[0]
+            dropped = rig.wait_log("fault injection: health.stream drop")
+            t0 = time.monotonic()
+            with open(rig.fault_file, "a") as f:
+                f.write(f"fault {name} {NODE_FAULT_XID}\n")
+            t_bad, bad = rig.wait_health(name, "Unhealthy")
+            deadline, events = time.monotonic() + 30, {}
+            while time.monotonic() < deadline:
+                events = _events(rig.scrape())
+                if events.get("health.unhealthy"):
+                    break
+                time.sleep(0.25)
+            failed_attempt = rig.wait_log("kubelet registration attempt 1 "
+                                          "failed")
+            watching = rig.watch_list()
+        finally:
+            rig.close()
+
+        lib = NvmlLib()
+        server = MetricServer(lib=lib, port=0, collection_interval_s=3600,
+                              pod_resources_socket=os.path.join(tmp, "none"))
+        try:
+            registered = lib.register_xid_events()
+            recount = [d.name for d in lib.devices()]
+            server.start()
+            server.collect_once()
+            old = server.port
+            before = {f: _gauges(_scrape(old), f) for f in NODE_GAUGES}
+            rebinds = counters.get("metrics.rebind")
+            t1 = time.perf_counter()
+            new = server.rebind(0)
+            rebind_ms = (time.perf_counter() - t1) * 1e3
+            rebinds = counters.get("metrics.rebind") - rebinds
+            after = {f: _gauges(_scrape(new), f) for f in NODE_GAUGES}
+            try:
+                _scrape(old)
+                old_closed = False
+            except OSError:
+                old_closed = True
+        finally:
+            server.stop()
+            lib.close()
+    checks = {
+        "registered_on_retry": (events.get("fault.fired.kubelet.register") == 1
+                                and events.get("kubelet.register.failed") == 1
+                                and events.get("kubelet.register.retried")
+                                == 1),
+        "stream_drop_absorbed": (events.get("fault.fired.health.stream") == 1
+                                 and events.get("health.stream.errors", 0)
+                                 >= 1),
+        "fault_file_still_works": bad.get(name) == "Unhealthy",
+        "watch_list": watching == rig.names,
+        "hot_add_list_is_the_libs": (registered == rig.names
+                                     and recount == rig.names),
+        "rebind_moved": new != old and old_closed and rebinds == 1,
+        "gauges_carried_over": after == before and bool(
+            before["memory_total_gpu_node"]),
+    }
+    _phase("node_faults", card=card, spec=NODE_FAULT_SPEC,
+           register_s=round(register_s, 3),
+           unarmed_register_s=round(unarmed_register_s, 3),
+           first_attempt=failed_attempt.split(" ERROR ")[-1],
+           stream_drop=dropped.split(" WARNING ")[-1], devices=first,
+           fault_to_unhealthy_s=round(t_bad - t0, 3),
+           agent_events={k: v for k, v in events.items()
+                         if k.startswith(("fault.", "kubelet.", "health."))},
+           daemon_watch_list=watching, xid_registered=registered,
+           devices_recounted=recount,
+           hot_add="one card: the GPU registered at start is in the watch "
+                   "list; a GPU NVML maps later is registered as it is "
+                   "mapped (CPU test)",
+           metrics_port=[old, new], rebind_ms=round(rebind_ms, 3),
+           gauges=after, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"node_faults: {checks}")
+
+
+def _smi_run(args):
+    proc = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                          text=True, timeout=60)
+    return proc.returncode, proc.stdout.strip()
+
+
+def node_mig(card):
+    """MIG as this card reports it; the daemon with GPUPartitionSize on
+    this MIG-off card refuses, naming the GPU and the path; the
+    partitioner behind MIG_SHIM reads the card's real state and issues
+    exactly the expected first mutating command."""
+    import shutil
+
+    from container_engine_accelerators_tpu_torch.cmd import partition_gpu
+    from container_engine_accelerators_tpu_torch.gpulib.nvml import NvmlLib
+
+    lib = NvmlLib()
+    try:
+        infos = lib.devices()
+        nvml_modes = {d.name: lib.mig_mode(d.name) for d in infos}
+    finally:
+        lib.close()
+    rc, modes_before = _smi_run(MIG_SMI_QUERY)
+    lgip_rc, lgip = _smi_run(["mig", "-lgip"])
+    lgi_rc, lgi = _smi_run(["mig", "-lgi"])
+    caps_root = "/proc/driver/nvidia"
+    proc_tree = {"/proc/driver/nvidia": sorted(os.listdir(caps_root))
+                 if os.path.isdir(caps_root) else None,
+                 "capabilities": os.path.isdir(
+                     os.path.join(caps_root, "capabilities")),
+                 "/dev/nvidia-caps": os.path.isdir("/dev/nvidia-caps")}
+    smi_modes = [[c.strip() for c in line.split(",")]
+                 for line in modes_before.splitlines()]
+    if rc != 0 or any(m[1:] != ["Disabled", "Disabled"] for m in smi_modes):
+        raise AssertionError(f"the mig phase expects MIG off: {modes_before}")
+    first = sorted(infos, key=lambda d: d.minor)[0]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mig_") as tmp:
+        rig = _NodeRig(tmp, config={"GPUPartitionSize": MIG_SIZE})
+        try:
+            refusal = rig.wait_log("failed to start the GPU manager")
+            time.sleep(1.0)
+            advertised = not rig.registrations.empty()
+        finally:
+            rig.close()
+
+        real = shutil.which("nvidia-smi")
+        shim_log = os.path.join(tmp, "shim.log")
+        bin_dir = os.path.join(tmp, "bin")
+        os.makedirs(bin_dir)
+        shim = os.path.join(bin_dir, "nvidia-smi")
+        with open(shim, "w") as f:
+            f.write(MIG_SHIM.format(log=shim_log, real=real))
+        os.chmod(shim, 0o755)
+        config = os.path.join(tmp, "gpu_config.json")
+        with open(config, "w") as f:
+            json.dump({"GPUPartitionSize": MIG_SIZE}, f)
+        state = os.path.join(tmp, "state", "mig_pending.json")
+        env = dict(os.environ, PATH=bin_dir + os.pathsep + os.environ["PATH"])
+        t0 = time.perf_counter()
+        tool = subprocess.run(
+            [sys.executable, "-m",
+             "container_engine_accelerators_tpu_torch.cmd.partition_gpu",
+             "--gpu-config", config, "--nvidia-smi-path", shim,
+             "--state-file", state], cwd=HERE, env=env, capture_output=True,
+            text=True, timeout=120)
+        tool_s = time.perf_counter() - t0
+        with open(shim_log) as f:
+            commands = f.read().splitlines()
+        state_written = os.path.exists(state)
+    _, modes_after = _smi_run(MIG_SMI_QUERY)
+    want_first = f"-i {min(int(m[0]) for m in smi_modes)} -mig 1"
+    refused = [c.split(" ", 1)[1] for c in commands if c.startswith("refused")]
+    want_refusal = (f"{first.name}: no MIG partition under "
+                    f"/proc/driver/nvidia/capabilities/gpu{first.minor}/mig")
+    checks = {
+        "nvml_mode_off": all(m == {"current": 0, "pending": 0}
+                             for m in nvml_modes.values()),
+        "daemon_refuses": want_refusal in refusal and not advertised,
+        "tool_exit_1": tool.returncode == 1,
+        "tool_read_the_card": commands[:1] == [
+            "pass " + " ".join(MIG_SMI_QUERY)],
+        "first_mutating_command": refused == [want_first],
+        "no_state_written": not state_written,
+        "mode_unchanged": modes_after == modes_before,
+    }
+    _phase("mig", card=card, nvml_mig_modes=nvml_modes,
+           smi_mig_modes=modes_before, lgip_rc=lgip_rc,
+           lgip_profiles=partition_gpu.parse_profiles(lgip),
+           lgi=lgi.splitlines()[-1:], lgi_rc=lgi_rc, proc=proc_tree,
+           size=MIG_SIZE, daemon_refusal=refusal.split(" ERROR ")[-1],
+           partitioner_commands=commands, partitioner_rc=tool.returncode,
+           partitioner_error=[line for line in tool.stderr.splitlines()
+                              if " ERROR " in line][-1:],
+           partitioner_s=round(tool_s, 3), mode_after=modes_after,
+           checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"mig: {checks}; tool: {tool.stderr[-2000:]}")
+
+
+class _K8sStubs:
+    """A GCE metadata server and a Kubernetes API server (one node, n0,
+    with one foreign taint) on localhost: what the maintenance watcher
+    talks to."""
+
+    FOREIGN = {"key": "dedicated", "value": "ml", "effect": "NoSchedule"}
+
+    def __init__(self, event):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from container_engine_accelerators_tpu_torch.health import maintenance
+
+        self.event = event
+        self.node = {"metadata": {"name": "n0", "resourceVersion": "1"},
+                     "spec": {"taints": [dict(self.FOREIGN)]}}
+        self.requests = []
+        stubs = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _send(self, code, body):
+                data = (body if isinstance(body, str)
+                        else json.dumps(body)).encode()
+                self.send_response(code)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                stubs.requests.append(("GET", self.path))
+                if self.path.endswith(maintenance.METADATA_PATH):
+                    return self._send(200, stubs.event)
+                if self.path == "/api/v1/nodes/n0":
+                    return self._send(200, stubs.node)
+                self._send(404, {})
+
+            def do_PATCH(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                stubs.requests.append(("PATCH", self.path))
+                rv = body.get("metadata", {}).get("resourceVersion")
+                if rv != stubs.node["metadata"]["resourceVersion"]:
+                    return self._send(409, {"reason": "Conflict"})
+                stubs.node["spec"]["taints"] = body["spec"]["taints"]
+                stubs.node["metadata"]["resourceVersion"] = str(int(rv) + 1)
+                self._send(200, stubs.node)
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_port}"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def node_maintenance(card):
+    """cmd/maintenance_watcher.py --once against the stubs, armed with one
+    k8s.patch conflict: the node tainted (the foreign taint kept) and
+    every GPU Unhealthy on the daemon's ListAndWatch; then NONE removes
+    the taint."""
+    from container_engine_accelerators_tpu_torch.health import maintenance
+
+    stubs = _K8sStubs(MAINTENANCE_EVENT)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mw_") as tmp:
+        rig = _NodeRig(tmp, env={
+            "XID_CONFIG": str(maintenance.MAINTENANCE_XID)})
+        try:
+            _, reg = rig.registered()
+            _, first = rig.watch(reg.endpoint)
+
+            def watcher(spec=""):
+                env = dict(os.environ, TPU_FAULT_SPEC=spec)
+                return subprocess.run(
+                    [sys.executable, "-m", "container_engine_accelerators_"
+                     "tpu_torch.cmd.maintenance_watcher", "--once",
+                     "--api-host", stubs.url, "--metadata-base", stubs.url,
+                     "--node-name", "n0", "--fault-file", rig.fault_file],
+                    cwd=HERE, env=env, capture_output=True, text=True,
+                    timeout=60)
+
+            drain = watcher("k8s.patch:conflict@1")
+            posted = os.stat(rig.fault_file).st_mtime
+            _, bad = rig.wait_health(rig.names[-1], "Unhealthy")
+            while set(bad.values()) != {"Unhealthy"}:
+                _, bad = rig.wait_health(rig.names[-1], "Unhealthy")
+            event_to_unhealthy_ms = (time.time() - posted) * 1e3
+            tainted = json.loads(json.dumps(stubs.node["spec"]["taints"]))
+            drain_requests = list(stubs.requests)
+            with open(rig.fault_file) as f:
+                line = f.read().strip()
+            stubs.event = "NONE"
+            clear = watcher()
+            cleared = stubs.node["spec"]["taints"]
+        finally:
+            rig.close()
+            stubs.close()
+    want_taint = {"key": maintenance.TAINT_KEY, "value": MAINTENANCE_EVENT,
+                  "effect": "NoSchedule"}
+    checks = {
+        "watcher_ok": drain.returncode == 0 and clear.returncode == 0,
+        "event_read": f"maintenance event: {MAINTENANCE_EVENT}" in drain.stdout,
+        "tainted_foreign_kept": tainted == [_K8sStubs.FOREIGN, want_taint],
+        "conflict_ridden": ("fault injection: k8s.patch conflict"
+                            in drain.stderr
+                            and "conflicted (409)" in drain.stderr
+                            and [r for r in drain_requests
+                                 if r[0] == "PATCH"] == [
+                                     ("PATCH", "/api/v1/nodes/n0")]),
+        "all_unhealthy": bad == {n: "Unhealthy" for n in rig.names},
+        "untainted": cleared == [_K8sStubs.FOREIGN],
+    }
+    _phase("maintenance", card=card, event=MAINTENANCE_EVENT,
+           xid=maintenance.MAINTENANCE_XID, fault_line=line,
+           devices_before=first, devices_after=bad,
+           event_to_unhealthy_ms=round(event_to_unhealthy_ms, 3),
+           taints=tainted, api_requests=drain_requests,
+           watcher_log=[ln.split(" ", 2)[-1] for ln in
+                        drain.stderr.splitlines()][-4:], cleared=cleared,
+           checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"maintenance: {checks}; {drain.stderr[-2000:]}")
+
+
+def _mps_processes():
+    """Live processes of NVIDIA's MPS binaries (zombies excluded)."""
+    found = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmdline = f.read().replace(b"\0", b" ").decode().strip()
+        except OSError:
+            continue
+        if "nvidia-cuda-mps" in cmdline and int(pid) != os.getpid():
+            found.append((int(pid), cmdline))
+    return found
+
+
+def node_mps(card):
+    """The daemon under mps: no MPS daemon, no devices (the gate's error
+    logged); NVIDIA's MPS control daemon started with a private pipe
+    directory, vGPUs advertised and Allocate giving the node, the pipe
+    mount and the client limits; a child with those envs (MPS_CLIENTS);
+    the MPS daemon quit, Allocate refused.  The MPS daemon is always quit
+    and no MPS process outlives the phase."""
+    import shutil
+
+    import torch
+
+    from container_engine_accelerators_tpu_torch.deviceplugin.manager import (
+        CONTROL_DEVICES,
+        MPS_PINNED_MEMORY_ENV,
+        MPS_THREAD_PERCENTAGE_ENV,
+        OPTIONAL_DEVICES,
+    )
+
+    control = shutil.which("nvidia-cuda-mps-control")
+    if control is None:
+        raise AssertionError("nvidia-cuda-mps-control is not on PATH")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mps_") as tmp:
+        pipe, logs = os.path.join(tmp, "pipe"), os.path.join(tmp, "log")
+        driver = os.path.join(tmp, "driver")
+        for d in (pipe, logs, os.path.join(driver, "bin")):
+            os.makedirs(d)
+        os.symlink(control, os.path.join(driver, "bin",
+                                         "nvidia-cuda-mps-control"))
+        mps_env = dict(os.environ, CUDA_MPS_PIPE_DIRECTORY=pipe,
+                       CUDA_MPS_LOG_DIRECTORY=logs)
+        rig = _NodeRig(tmp, config=MPS_CONFIG,
+                       env={"CUDA_MPS_PIPE_DIRECTORY": pipe},
+                       args=["--host-path", driver])
+        running = False
+        try:
+            gate_error = rig.wait_log("failed to start the GPU manager")
+            advertised_without = not rig.registrations.empty()
+            subprocess.run([control, "-d"], env=mps_env, check=True,
+                           timeout=30)
+            running = True
+            at, reg = rig.registered(timeout=30)
+            client, devices = rig.watch(reg.endpoint)
+            name = rig.names[0]
+            t0 = time.perf_counter()
+            resp = _allocate(client, [f"{name}/vgpu0"]).container_responses[0]
+            allocate_ms = (time.perf_counter() - t0) * 1e3
+            envs = dict(resp.envs)
+            child_env = {k: v for k, v in os.environ.items()
+                         if not k.startswith("CUDA_MPS_")}
+            child_env.update(envs)
+            limit_mib = envs[MPS_PINNED_MEMORY_ENV].split("=")[1].rstrip("M")
+            t0 = time.perf_counter()
+            child = subprocess.run([sys.executable, "-c", MPS_CHILD,
+                                    limit_mib], env=child_env,
+                                   capture_output=True, text=True,
+                                   timeout=300)
+            child_s = time.perf_counter() - t0
+            with open(os.path.join(logs, "server.log")) as f:
+                server_log = [ln.split("] ", 1)[-1] for ln in f
+                              if "Failed" in ln or "Creating" in ln][-2:]
+            quit_ = subprocess.run([control], input="quit\n", env=mps_env,
+                                   capture_output=True, text=True,
+                                   timeout=30)
+            deadline = time.monotonic() + 10
+            while _mps_processes() and time.monotonic() < deadline:
+                time.sleep(0.1)
+            running = bool(_mps_processes())
+            query = subprocess.run(
+                [control], input="get_default_active_thread_percentage\n",
+                env=mps_env, capture_output=True, text=True, timeout=30)
+            refused_after = _refused(client, [f"{name}/vgpu0"])
+        finally:
+            if running:
+                subprocess.run([control], input="quit\n", env=mps_env,
+                               capture_output=True, timeout=30)
+            for pid, _ in _mps_processes():
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+            rig.close()
+    left = _mps_processes()
+    total = rig.totals[name]
+    control_nodes = [f"/dev/{d}" for d in CONTROL_DEVICES] + [
+        f"/dev/{d}" for d in OPTIONAL_DEVICES if os.path.exists(f"/dev/{d}")]
+    child_out = child.stdout + child.stderr
+    checks = {
+        "gate_refuses_without_daemon": (
+            "Cannot find MPS control daemon process" in gate_error
+            and not advertised_without),
+        "vgpus": devices == {f"{n}/vgpu{j}": "Healthy" for n in rig.names
+                             for j in range(2)},
+        "allocate_node": [d.host_path for d in resp.devices] == [
+            f"/dev/{name}"] + control_nodes,
+        "pipe_mount": (pipe, pipe, False) in [
+            (m.host_path, m.container_path, m.read_only)
+            for m in resp.mounts],
+        "thread_percentage": envs.get(MPS_THREAD_PERCENTAGE_ENV) == "50",
+        "pinned_limit": envs.get(MPS_PINNED_MEMORY_ENV)
+        == f"0={total // 2 // 2**20}M",
+        "child": (child.returncode != 0 and "805" in child_out
+                  if MPS_CLIENTS == "refused" else
+                  child.returncode == 0 and "alloc90 ok" in child_out
+                  and "alloc110 OOM" in child_out),
+        "daemon_quit": query.returncode != 0
+        and "Cannot find MPS control daemon" in query.stderr,
+        "refused_after_quit": refused_after,
+        "no_mps_process_left": not left,
+    }
+    _phase("mps", card=card, config=MPS_CONFIG, gate_error=gate_error.split(
+               " ERROR ")[-1], devices=devices,
+           allocate_ms=round(allocate_ms, 3),
+           allocate_devices=[d.host_path for d in resp.devices],
+           mounts=[(m.host_path, m.container_path, m.read_only)
+                   for m in resp.mounts], envs=envs,
+           nvml_memory_total=total, card_sms=torch.cuda.get_device_properties(
+               0).multi_processor_count,
+           mps_clients=MPS_CLIENTS, child_rc=child.returncode,
+           child_s=round(child_s, 3),
+           child_said=[ln for ln in child_out.splitlines()
+                       if ln.startswith(("sees", "alloc", "RuntimeError"))],
+           mps_server_log=server_log, quit_rc=quit_.returncode,
+           query_after_quit=query.stderr.strip(), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"mps: {checks}; child: {child_out[-2000:]}; "
+                             f"daemon: {rig.log_tail()}")
 
 
 def _plain_server():
@@ -3889,6 +4477,11 @@ def main():
             _timed("xid", node_xid, rig, client, smi)
         finally:
             rig.close()
+    _timed("node_faults", node_faults, smi, rig.register_s)
+    _timed("mig", node_mig, smi)
+    _timed("maintenance", node_maintenance, smi)
+    # Last: no phase after it may run under an MPS daemon.
+    _timed("mps", node_mps, smi)
     _launches_none("the node phases", before)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

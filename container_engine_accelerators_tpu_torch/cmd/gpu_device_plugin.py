@@ -11,11 +11,17 @@ it never carries on without it.
         --enable-health-monitoring --enable-container-gpu-metrics
 
 ``--fake-gpu-fixture DIR`` reads a fake node written by
-``gpulib/fake.py::write_fixture`` instead of NVML (tests only).
+``gpulib/fake.py::write_fixture`` instead of NVML, and its MIG tree under
+``DIR/proc`` instead of ``/proc`` (tests only).  Under the ``mps``
+strategy the MPS daemon's pipe directory is ``CUDA_MPS_PIPE_DIRECTORY``
+(default ``/tmp/nvidia-mps``), as for every MPS client.  A start that
+fails (MIG partitions not found, an MPS daemon that does not answer) is
+logged and retried every 5 s, as the reference's start loop does.
 """
 
 import argparse
 import logging
+import os
 import signal
 import sys
 import threading
@@ -29,6 +35,10 @@ from container_engine_accelerators_tpu_torch.deviceplugin.manager import (
     GpuManager,
 )
 from container_engine_accelerators_tpu_torch.gpulib import open_lib
+from container_engine_accelerators_tpu_torch.sharing.gate import (
+    DEFAULT_PIPE_DIRECTORY,
+    PIPE_DIRECTORY_ENV,
+)
 from container_engine_accelerators_tpu_torch.utils.config import (
     CONFIG_PATH,
     GPUConfig,
@@ -96,7 +106,13 @@ def main(argv=None):
 def _run(args, config, lib) -> int:
     mounts = [Mount(host_path=args.host_path,
                     container_path=args.container_path, read_only=True)]
-    manager = GpuManager(args.dev_directory, mounts, config, lib=lib)
+    # A fake node's MIG tree is under the fixture, as its /dev and NVML.
+    proc_root = (os.path.join(args.fake_gpu_fixture, "proc")
+                 if args.fake_gpu_fixture else "/proc")
+    manager = GpuManager(
+        args.dev_directory, mounts, config, lib=lib, proc_root=proc_root,
+        mps_pipe_directory=os.environ.get(PIPE_DIRECTORY_ENV)
+        or DEFAULT_PIPE_DIRECTORY)
     stopping = threading.Event()
 
     def on_term(signum, frame):
@@ -118,9 +134,6 @@ def _run(args, config, lib) -> int:
         try:
             manager.start()
             break
-        except NotImplementedError as e:
-            log.error("%s", e)
-            return 2
         except Exception as e:  # retry as the reference's Start loop does
             log.error("failed to start the GPU manager: %s; retrying", e)
             if stopping.wait(START_RETRY_S):

@@ -1,6 +1,6 @@
-"""GPU device manager: discovery, device specs and the serve state
-machine (ref: pkg/gpu/nvidia/manager.go:136-499; the JAX package's
-``deviceplugin/manager.py`` with NVIDIA semantics):
+"""GPU device manager: discovery, device specs, the MPS env contract and
+the serve state machine (ref: pkg/gpu/nvidia/manager.go:136-499; the JAX
+package's ``deviceplugin/manager.py`` with NVIDIA semantics):
 
 - discovery reads ``devDirectory`` for ``nvidia[0-9]+`` (manager.go:231-247)
   and keeps the nodes NVML also reports: a ``/dev`` node that NVML does not
@@ -9,9 +9,15 @@ machine (ref: pkg/gpu/nvidia/manager.go:136-499; the JAX package's
 - every container gets the control nodes ``nvidiactl`` and ``nvidia-uvm``,
   and ``nvidia-uvm-tools`` and ``nvidia-modeset`` where the node has them
   (manager.go:357-365), and the driver's libraries mounted read-only;
-- time-sharing expands each GPU into ``nvidiaN/vgpuM`` virtual devices;
-  MIG partitions (``GPUPartitionSize``) and the MPS strategy are refused
-  until the next node slice ports them;
+- ``GPUPartitionSize`` advertises the MIG partitions ``nvidiaN/giM``
+  that ``partition/mig.py`` finds under ``/proc`` (three device nodes
+  each); a GPU's Xid takes all its partitions down, and its recovery
+  brings them back;
+- sharing expands each GPU (or partition) into ``.../vgpuM`` virtual
+  devices; under ``mps`` the start proves the MPS control daemon answers
+  (``sharing/gate.py``), mounts its pipe directory into containers, and
+  each Allocate asks the daemon again and sets the client's thread and
+  memory limits (manager.go:312-325, :376-386);
 - ``serve`` runs the availability state machine: listen on a timestamped
   socket in the kubelet's plugin directory, register, then poll -- every
   1 s for the socket's deletion (a kubelet restart: re-register) and every
@@ -31,11 +37,20 @@ import grpc
 from container_engine_accelerators_tpu_torch.deviceplugin import api, preferred
 from container_engine_accelerators_tpu_torch.gpulib.types import GpuLib
 from container_engine_accelerators_tpu_torch.metrics import counters
+from container_engine_accelerators_tpu_torch.partition.mig import (
+    MigDeviceManager,
+)
 from container_engine_accelerators_tpu_torch.sharing import (
     SharingStrategy,
     virtual_device_ids,
     virtual_to_physical_device_id,
 )
+from container_engine_accelerators_tpu_torch.sharing.gate import (
+    DEFAULT_PIPE_DIRECTORY,
+    PIPE_DIRECTORY_ENV,
+    MpsGate,
+)
+from container_engine_accelerators_tpu_torch.utils import faults
 from container_engine_accelerators_tpu_torch.utils.config import GPUConfig
 from container_engine_accelerators_tpu_torch.utils.device import (
     HEALTHY,
@@ -56,8 +71,8 @@ DRIVER_CONTAINER_PATH = "/usr/local/nvidia"
 DEVICE_CHECK_INTERVAL_S = 10.0  # hotplug poll (gpuCheckInterval)
 SOCKET_CHECK_INTERVAL_S = 1.0  # kubelet-restart poll (pluginSocketCheckInterval)
 
-NEXT_SLICE = ("the next node slice of the PyTorch port (partition/ for "
-              "MIG, sharing/gate.py for MPS)")
+MPS_THREAD_PERCENTAGE_ENV = "CUDA_MPS_ACTIVE_THREAD_PERCENTAGE"
+MPS_PINNED_MEMORY_ENV = "CUDA_MPS_PINNED_DEVICE_MEM_LIMIT"
 
 # A kubelet mid-restart refuses Register for a few seconds; ride it out
 # instead of crashing the DaemonSet pod.
@@ -75,11 +90,20 @@ class GpuManager:
         lib: Optional[GpuLib] = None,
         device_check_interval_s: float = DEVICE_CHECK_INTERVAL_S,
         socket_check_interval_s: float = SOCKET_CHECK_INTERVAL_S,
+        proc_root: str = "/proc",
+        mps_pipe_directory: str = DEFAULT_PIPE_DIRECTORY,
     ):
         self.dev_directory = dev_directory
+        self.driver_mounts = list(mount_paths)
+        # What Allocate mounts: the driver, and under mps the pipe
+        # directory (set by start).
         self.mount_paths = list(mount_paths)
         self.config = config
         self.lib = lib
+        self.mig = MigDeviceManager(dev_directory, proc_root)
+        self.mps_pipe_directory = mps_pipe_directory
+        self.mps_gate: Optional[MpsGate] = None
+        self.total_memory_per_gpu = 0
         self.devices: Dict[str, Device] = {}
         self.devices_mutex = threading.Lock()
         self.default_devices: List[str] = []
@@ -134,15 +158,9 @@ class GpuManager:
         return len(self._discoverable()) > original
 
     def start(self) -> None:
-        """Discover devices and the default device nodes
-        (ref: manager.go:354-388)."""
-        if self.config.partition_size:
-            raise NotImplementedError(
-                f"GPUPartitionSize {self.config.partition_size!r} (MIG) lands "
-                f"with {NEXT_SLICE}")
-        if self.config.sharing.strategy == SharingStrategy.MPS:
-            raise NotImplementedError(f"the mps sharing strategy lands with "
-                                      f"{NEXT_SLICE}")
+        """Discover devices and the default device nodes, the MIG
+        partitions and the MPS daemon (ref: manager.go:354-388).  Raises
+        when the configured partitions or the MPS daemon are not there."""
         self.default_devices = [
             os.path.join(self.dev_directory, d) for d in CONTROL_DEVICES]
         for d in OPTIONAL_DEVICES:
@@ -150,13 +168,37 @@ class GpuManager:
             if os.path.exists(path):
                 self.default_devices.append(path)
         self.discover_gpus()
+        with self.devices_mutex:
+            gpus = sorted(self.devices, key=preferred.natural_key)
+            if self.config.partition_size:
+                self.mig.start(self.config.partition_size, gpus)
+        mounts = list(self.driver_mounts)
+        if self.config.sharing.strategy == SharingStrategy.MPS:
+            if self.lib is None or not gpus:
+                raise RuntimeError("mps needs a GPU that NVML reports, for "
+                                   "the per-client memory limit")
+            total = self.lib.memory_info(gpus[0]).total_bytes
+            if total <= 0:
+                raise RuntimeError(f"mps: NVML reports {total} bytes of "
+                                   f"memory on {gpus[0]}")
+            gate = MpsGate(self.driver_mounts, self.mps_pipe_directory)
+            gate.verify()
+            mounts.append(Mount(host_path=self.mps_pipe_directory,
+                                container_path=self.mps_pipe_directory))
+            self.total_memory_per_gpu = total
+            self.mps_gate = gate
+        self.mount_paths = mounts
 
     # ---- device views ------------------------------------------------------
 
     def list_physical_devices(self) -> Dict[str, Device]:
-        """Snapshot (a copy: gRPC worker threads iterate it while hotplug
-        rediscovers on the serve thread)."""
+        """What is shared or advertised: the GPUs, or under
+        GPUPartitionSize their MIG partitions.  A snapshot (a copy: gRPC
+        worker threads iterate it while hotplug rediscovers on the serve
+        thread)."""
         with self.devices_mutex:
+            if self.config.partition_size:
+                return dict(self.mig.devices)
             return dict(self.devices)
 
     def list_devices(self) -> Dict[str, Device]:
@@ -170,18 +212,50 @@ class GpuManager:
                 for vid in virtual_device_ids(dev.id, max_clients)}
 
     def set_device_health(self, name: str, health: str) -> None:
+        """A GPU's health, and under GPUPartitionSize its partitions'; or
+        one partition's."""
         with self.devices_mutex:
             if DEVICE_RE.match(name):
                 self.devices[name] = Device(id=name, health=health)
+                if self.config.partition_size:
+                    self.mig.set_gpu_health(name, health)
+            elif self.config.partition_size:
+                self.mig.set_device_health(name, health)
 
     # ---- allocate path -----------------------------------------------------
 
+    def verify_allocatable(self) -> None:
+        """Before an Allocate: under mps, the MPS daemon must still answer
+        (ValueError rejects the request)."""
+        if self.mps_gate is not None:
+            self.mps_gate.check_allocatable()
+
+    def envs(self, request_device_ids: List[str]) -> Dict[str, str]:
+        """The MPS client's limits for a request of n virtual devices
+        (ref: manager.go:312-325; the arithmetic of the JAX manager's
+        core-sharing envs): n/max of the threads and of the GPU's memory.
+        The memory limit names CUDA device 0: an MPS request holds one GPU
+        (several vGPUs only on single-GPU nodes), which the container sees
+        as device 0.  The pipe directory is named too, so a client finds
+        a daemon whose directory is not the default."""
+        if (self.config.sharing.strategy != SharingStrategy.MPS
+                or self.total_memory_per_gpu <= 0 or not request_device_ids):
+            return {}
+        n = len(request_device_ids)
+        max_clients = self.config.sharing.max_shared_clients_per_gpu
+        limit_mib = n * self.total_memory_per_gpu // max_clients // 2**20
+        return {MPS_THREAD_PERCENTAGE_ENV: str(n * 100 // max_clients),
+                MPS_PINNED_MEMORY_ENV: f"0={limit_mib}M",
+                PIPE_DIRECTORY_ENV: self.mps_pipe_directory}
+
     def device_spec(self, device_id: str) -> List[DeviceSpec]:
-        """Map one requested device ID to its device node
-        (ref: manager.go:201-228)."""
+        """Map one requested device ID to its device nodes
+        (ref: manager.go:201-228; a MIG partition: mig.go:73-80)."""
         if self.config.sharing.max_shared_clients_per_gpu > 0:
             device_id = virtual_to_physical_device_id(device_id)
         with self.devices_mutex:
+            if self.config.partition_size:
+                return self.mig.device_spec(device_id)
             dev = self.devices.get(device_id)
         if dev is None:
             raise ValueError(
@@ -242,12 +316,14 @@ class GpuManager:
                 self.grpc_server = None
 
     def _register_with_retry(self, kubelet_socket: str, endpoint: str) -> bool:
-        """Register under REGISTER_RETRY; False when the budget is spent."""
+        """Register under REGISTER_RETRY; False when the budget is spent.
+        Fault site ``kubelet.register`` fires before each attempt."""
         last = None
         for attempt in REGISTER_RETRY.attempts(sleep=self._stop.wait):
             if self._stop.is_set():
                 return False
             try:
+                faults.check("kubelet.register")
                 api.register_with_v1beta1_kubelet(kubelet_socket, endpoint)
                 if attempt > 0:
                     counters.inc("kubelet.register.retried")

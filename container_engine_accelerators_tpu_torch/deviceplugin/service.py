@@ -1,8 +1,9 @@
 """DevicePlugin v1beta1 gRPC service (ref: pkg/gpu/nvidia/beta_plugin.go:
 35-103; the JAX package's ``deviceplugin/service.py``): ListAndWatch
 streams the device list and sends it again on every health transition;
-Allocate validates sharing, maps device IDs to device nodes and adds the
-default device nodes and the driver mount.  PreStartContainer is a logged
+Allocate checks that the MPS daemon still answers (under ``mps``),
+validates sharing, maps device IDs to device nodes and adds the default
+device nodes, the mounts and the MPS envs.  PreStartContainer is a logged
 no-op; GetPreferredAllocation returns the natural-order pick
 (``preferred.py``).
 """
@@ -79,6 +80,7 @@ class DevicePluginService:
     def _allocate_one(self, rqt, context):
         resp = pb.ContainerAllocateResponse()
         try:
+            self.manager.verify_allocatable()
             validate_request(
                 list(rqt.devicesIDs),
                 len(self.manager.list_physical_devices()),
@@ -104,4 +106,6 @@ class DevicePluginService:
             resp.mounts.append(pb.Mount(host_path=m.host_path,
                                         container_path=m.container_path,
                                         read_only=m.read_only))
+        for k, v in self.manager.envs(list(rqt.devicesIDs)).items():
+            resp.envs[k] = v
         return resp

@@ -8,6 +8,10 @@ node layer reads, as files under a root directory.
         memory_used, duty_cycle, xid_supported
     <root>/var/run/nvidia/events/<seq>.json  the Xid queue:
         {"code": int, "device": "nvidia<minor>" | null, "message": str}
+    <root>/proc/driver/nvidia/capabilities/gpu<minor>/mig/gi<G>/access
+        (+ ci0/access) and <root>/dev/nvidia-caps/nvidia-cap<m>
+                                             MIG partitions
+                                             (``write_mig_fixture``)
 
 ``gpulib.open_lib`` returns it only when a flag names a fixture.
 """
@@ -91,6 +95,56 @@ def write_fixture(
                         for i, m in enumerate(minors)])
 
 
+# The driver's capability minors (/proc/driver/nvidia-caps/mig-minors):
+# 1 and 2 for config and monitor, then per GPU 15 GPU instances of 9
+# minors each, the instance's access and its compute instances' ci0-ci7.
+_CAPS_PER_GI = 9
+_CAPS_PER_GPU = 15 * _CAPS_PER_GI
+# The GPU-instance ids an H100 gives the first partition of a layout of
+# n partitions (nvidia-smi mig -lgi after -cgi of the size's maximum).
+_FIRST_GI = {7: 7, 4: 3, 3: 3, 2: 1, 1: 0}
+
+
+def cap_minor(minor: int, gi: int, ci: Optional[int] = None) -> int:
+    """The capability minor of ``gpu<minor>/gi<gi>/access`` (or of its
+    ``ci<ci>/access``)."""
+    base = 3 + minor * _CAPS_PER_GPU + gi * _CAPS_PER_GI
+    return base if ci is None else base + 1 + ci
+
+
+def write_mig_fixture(root: str, count: int,
+                      minors: Optional[Sequence[int]] = None,
+                      caps_nodes: bool = True) -> List[str]:
+    """Program ``count`` MIG partitions on each GPU of the fixture (all of
+    them, or ``minors``): the driver's /proc capability tree and the
+    /dev/nvidia-caps nodes.  Returns the partition ids, ``nvidia<m>/gi<G>``."""
+    from container_engine_accelerators_tpu_torch.partition.mig import (
+        CAPABILITIES,
+        CAPS_DIRECTORY,
+    )
+
+    if minors is None:
+        minors = [e["minor"] for e in _read_table(root)]
+    caps = os.path.join(root, "dev", CAPS_DIRECTORY)
+    os.makedirs(caps, exist_ok=True)
+    ids = []
+    for minor in minors:
+        for gi in range(_FIRST_GI.get(count, 1), _FIRST_GI.get(count, 1)
+                        + count):
+            gi_dir = os.path.join(root, "proc", CAPABILITIES, f"gpu{minor}",
+                                  "mig", f"gi{gi}")
+            os.makedirs(os.path.join(gi_dir, "ci0"), exist_ok=True)
+            for rel, cap in (("access", cap_minor(minor, gi)),
+                             ("ci0/access", cap_minor(minor, gi, 0))):
+                with open(os.path.join(gi_dir, rel), "w") as f:
+                    f.write(f"DeviceFileMinor: {cap}\nDeviceFileMode: 292\n"
+                            f"DeviceFileModify: 1\n")
+                if caps_nodes:
+                    open(os.path.join(caps, f"nvidia-cap{cap}"), "w").close()
+            ids.append(f"nvidia{minor}/gi{gi}")
+    return ids
+
+
 def add_gpu(root: str, minor: int) -> None:
     """Hotplug: one more GPU in the table and its ``/dev`` node."""
     table = _read_table(root)
@@ -133,7 +187,8 @@ class FakeGpuLib(GpuLib):
             raise FileNotFoundError(f"no GPU fixture under {root}")
         self.root = root
         self.events_dir = os.path.join(root, EVENTS)
-        self._registered: Optional[set] = None
+        self._registered: Optional[List[str]] = None
+        self._seen = set()  # GPUs the Xid subscription has looked at
 
     def _entries(self) -> List[dict]:
         return _read_table(self.root)
@@ -159,15 +214,24 @@ class FakeGpuLib(GpuLib):
         return int(self._entry(name)["duty_cycle"])
 
     def register_xid_events(self) -> List[str]:
-        registered = []
-        for info, entry in zip(self.devices(), self._entries()):
+        self._registered = []
+        self._seen.clear()
+        self._subscribe_new()
+        return self._registered
+
+    def _subscribe_new(self) -> None:
+        """Subscribe the GPUs of the table not seen yet (all of them at
+        registration, a hotplugged one later), as NvmlLib does."""
+        for entry in self._entries():
+            name = f"nvidia{entry['minor']}"
+            if name in self._seen:
+                continue
+            self._seen.add(name)
             if not entry["xid_supported"]:
                 log.warning("%s (%s) does not support Xid events; it is "
-                            "not health checked", info.name, info.model)
+                            "not health checked", name, entry["model"])
                 continue
-            registered.append(info.name)
-        self._registered = set(registered)
-        return registered
+            self._registered.append(name)
 
     def _next_event_file(self) -> Optional[str]:
         try:
@@ -184,6 +248,7 @@ class FakeGpuLib(GpuLib):
             raise RuntimeError("wait_for_event before register_xid_events")
         deadline = time.monotonic() + timeout_s
         while True:
+            self._subscribe_new()
             path = self._next_event_file()
             if path is not None:
                 obj = None

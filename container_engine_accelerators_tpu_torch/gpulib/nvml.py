@@ -149,6 +149,7 @@ class NvmlLib(GpuLib):
         self._call("nvmlInit_v2")
         self._open = True
         self._event_set: Optional[ctypes.c_void_p] = None
+        self._xid_registered: List[str] = []
         self._last_sample_us: Dict[str, int] = {}
         self._last_duty: Dict[str, int] = {}
         # Devices whose driver refuses GetSamples read the instantaneous
@@ -203,6 +204,10 @@ class NvmlLib(GpuLib):
         self._devices.append(info)
         self._handles[info.name] = handle
         self._names_by_handle[handle.value] = info.name
+        # A GPU mapped after the checker subscribed (hotplug) is
+        # subscribed here, so its Xids reach the checker too.
+        if self._event_set is not None:
+            self._register(info)
 
     def _pci_bus_id(self, handle) -> Optional[str]:
         """The PCI bus id, or None where the driver answers NOT_SUPPORTED
@@ -306,23 +311,30 @@ class NvmlLib(GpuLib):
     # -- Xid events ----------------------------------------------------------
 
     def register_xid_events(self) -> List[str]:
-        if self._event_set is None:
-            event_set = ctypes.c_void_p()
-            self._call("nvmlEventSetCreate", ctypes.byref(event_set))
-            self._event_set = event_set
-        registered = []
-        for info in self._devices:
-            rc = self._lib.nvmlDeviceRegisterEvents(
-                self._handles[info.name], EVENT_TYPE_XID_CRITICAL_ERROR,
-                self._event_set)
-            if rc == NVML_ERROR_NOT_SUPPORTED:
-                log.warning("%s (%s) does not support Xid events; it is "
-                            "not health checked", info.name, info.model)
-                continue
-            if rc != NVML_SUCCESS:
-                raise self._error(rc, "nvmlDeviceRegisterEvents")
-            registered.append(info.name)
-        return registered
+        """Subscribe every GPU known now.  The list returned is the lib's
+        own: a GPU mapped later (``devices`` after a hotplug) is subscribed
+        as it is mapped and appended to it."""
+        with self._enumerate_lock:
+            if self._event_set is None:
+                event_set = ctypes.c_void_p()
+                self._call("nvmlEventSetCreate", ctypes.byref(event_set))
+                self._event_set = event_set
+            self._xid_registered.clear()
+            for info in self._devices:
+                self._register(info)
+            return self._xid_registered
+
+    def _register(self, info: GpuInfo) -> None:
+        rc = self._lib.nvmlDeviceRegisterEvents(
+            self._handles[info.name], EVENT_TYPE_XID_CRITICAL_ERROR,
+            self._event_set)
+        if rc == NVML_ERROR_NOT_SUPPORTED:
+            log.warning("%s (%s) does not support Xid events; it is "
+                        "not health checked", info.name, info.model)
+            return
+        if rc != NVML_SUCCESS:
+            raise self._error(rc, "nvmlDeviceRegisterEvents")
+        self._xid_registered.append(info.name)
 
     def wait_for_event(self, timeout_s: float) -> Optional[XidEvent]:
         if self._event_set is None:

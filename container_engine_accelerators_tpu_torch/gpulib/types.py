@@ -55,7 +55,9 @@ class GpuLib:
     def register_xid_events(self) -> List[str]:
         """Subscribe to critical Xid events on every device; returns the
         names subscribed.  A device that does not support it is logged and
-        left out (it stays Healthy: health_checker.go:116-118)."""
+        left out (it stays Healthy: health_checker.go:116-118).  The list
+        is the backend's own: a GPU that appears later is subscribed when
+        the backend maps it, and appended."""
         raise NotImplementedError
 
     def wait_for_event(self, timeout_s: float) -> Optional[XidEvent]:

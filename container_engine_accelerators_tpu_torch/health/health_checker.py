@@ -22,11 +22,16 @@ machine of the JAX package's ``health/health_checker.py``):
   (``health.unhealthy``, ``health.recovered``, ``health.flap_backoff``).
 
 An external fault file (``GPU_FAULT_FILE``) feeds the same machine from
-outside the process, one event a line (malformed lines are logged and
-skipped):
+outside the process, one event a line; text after ``#`` is the event's
+message, and malformed lines are logged and skipped:
 
     fault <device> [xid]     # xid defaults to 48
+    fault * [xid]            # no device: the whole node (the maintenance
+                             # watcher's notice, health/maintenance.py)
     clear <device>           # recover now
+
+Fault site ``health.stream`` fires before each event wait; the wait's
+own back-off and the ``health.stream.errors`` count absorb it.
 """
 
 import logging
@@ -37,6 +42,7 @@ from typing import Dict, Iterable, List, Optional, Set
 
 from container_engine_accelerators_tpu_torch.gpulib.types import GpuLib, XidEvent
 from container_engine_accelerators_tpu_torch.metrics import counters
+from container_engine_accelerators_tpu_torch.utils import faults
 from container_engine_accelerators_tpu_torch.utils.device import (
     HEALTHY,
     UNHEALTHY,
@@ -109,6 +115,7 @@ class GpuHealthChecker:
         while not self._stop.is_set():
             event = None
             try:
+                faults.check("health.stream")
                 event = self.lib.wait_for_event(self.event_wait_timeout_s)
             except Exception as e:
                 # Keep monitoring across backend errors, but back off so a
@@ -198,23 +205,26 @@ class GpuHealthChecker:
                    blob[:consumed].decode("utf-8", "replace").splitlines())
 
     def _apply_fault_line(self, line: str) -> bool:
-        if not line or line.startswith("#"):
-            return False
+        line, _, comment = line.partition("#")
         tokens = line.split()
+        if not tokens:
+            return False
         kind = tokens[0].lower()
         try:
             if kind == "fault" and 2 <= len(tokens) <= 3:
                 code = (int(tokens[2]) if len(tokens) == 3
                         else FAULT_FILE_DEFAULT_XID)
+                device = None if tokens[1] == "*" else tokens[1]
                 counters.inc("health.fault_file.events")
-                self.catch_error(XidEvent(code=code, device=tokens[1],
-                                          message="injected via fault file"))
+                self.catch_error(XidEvent(
+                    code=code, device=device,
+                    message=comment.strip() or "injected via fault file"))
                 return True
             if kind == "clear" and len(tokens) == 2:
                 counters.inc("health.fault_file.events")
                 self.clear_device(tokens[1])
                 return True
-            raise ValueError("want 'fault <dev> [xid]' or 'clear <dev>'")
+            raise ValueError("want 'fault <dev>|* [xid]' or 'clear <dev>'")
         except ValueError as e:
             counters.inc("health.fault_file.malformed")
             log.error("ignoring malformed fault line %r: %s", line, e)

@@ -15,8 +15,9 @@ Gauges, labelled as the reference labels them (``make="nvidia"``):
 ``accelerator_id`` is ``nvidia<minor>``, the name the device plugin
 advertises; ``model`` is NVML's device name.  The registry is cleared
 every 60 s so that pods which are gone stop being reported
-(metrics.go:241-253), and ``start`` retries a port that is still taken
-under a bounded budget.
+(metrics.go:241-253), ``start`` retries a port that is still taken
+under a bounded budget, and ``rebind`` moves the listener to another
+port without stopping collection.
 """
 
 import logging
@@ -83,6 +84,7 @@ class MetricServer:
         self._stop = threading.Event()
         self._last_reset = time.monotonic()
         self._httpd = None
+        self._http_thread: Optional[threading.Thread] = None
         self._threads: List[threading.Thread] = []
 
         def gauge(name, doc, labels):
@@ -130,6 +132,7 @@ class MetricServer:
                 log.warning("metrics port %d: %s; retrying", self.port, e)
                 continue
             self._threads.append(thread)
+            self._http_thread = thread
             # port 0 is any free port: report the one bound.
             self.port = self._httpd.server_port
             return
@@ -142,12 +145,34 @@ class MetricServer:
         thread.start()
         self._threads.append(thread)
 
+    def rebind(self, port: Optional[int] = None,
+               retry: Optional[RetryPolicy] = None) -> int:
+        """Move the listener to ``port`` (0: any free port; None: the same
+        one) without restarting collection; returns the bound port.  The
+        recovery path for a port lost after boot: scraping resumes on the
+        new port, and gauges and counters carry over."""
+        self._close_listener()
+        if port is not None:
+            self.port = port
+        self._bind(retry or BIND_RETRY)
+        counters.inc("metrics.rebind")
+        log.warning("metrics server re-bound to port %d", self.port)
+        return self.port
+
+    def _close_listener(self) -> None:
+        if self._httpd is None:
+            return
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._httpd = None
+        thread = self._http_thread
+        self._http_thread = None
+        thread.join(timeout=10)
+        self._threads.remove(thread)
+
     def stop(self) -> None:
         self._stop.set()
-        if self._httpd is not None:
-            self._httpd.shutdown()
-            self._httpd.server_close()
-            self._httpd = None
+        self._close_listener()
         for thread in self._threads:
             thread.join(timeout=10)
         self._threads = []

@@ -9,10 +9,11 @@ Two strategies:
   claiming several buys nothing).
 - ``mps``: co-tenant processes share a GPU through the CUDA Multi-Process
   Service; several virtual devices per request only on single-GPU nodes
-  (gpusharing.go:40-50).  The manager refuses it until the MPS gate is
-  ported.
+  (gpusharing.go:40-50).  The manager gates it on the MPS daemon
+  (``gate.py``).
 
-Virtual IDs: ``nvidia0/vgpu1`` -> physical ``nvidia0``.
+Virtual IDs: ``nvidia0/vgpu1`` -> physical ``nvidia0``; on a MIG
+partition ``nvidia0/gi3/vgpu1`` -> ``nvidia0/gi3``.
 """
 
 import enum
@@ -36,7 +37,7 @@ class SharingStrategy(str, enum.Enum):
             ) from None
 
 
-_VIRTUAL_RE = re.compile(r"^nvidia([0-9]+)/vgpu([0-9]+)$")
+_VIRTUAL_RE = re.compile(r"^nvidia([0-9]+)(/gi[0-9]+)?/vgpu([0-9]+)$")
 _VGPU_SUFFIX_RE = re.compile(r"/vgpu([0-9]+)$")
 
 
@@ -45,7 +46,8 @@ def is_virtual_device_id(device_id: str) -> bool:
 
 
 def virtual_to_physical_device_id(virtual_device_id: str) -> str:
-    """``nvidia0/vgpu1`` -> ``nvidia0``."""
+    """``nvidia0/vgpu1`` -> ``nvidia0``, ``nvidia0/gi3/vgpu1`` ->
+    ``nvidia0/gi3``."""
     if not is_virtual_device_id(virtual_device_id):
         raise ValueError(f"virtual device ID ({virtual_device_id}) is not valid")
     return _VGPU_SUFFIX_RE.split(virtual_device_id)[0]

@@ -1,14 +1,21 @@
-"""Deterministic fault injection — the part of
-``container_engine_accelerators_tpu/utils/faults.py`` that the port's
-``checkpoint.save`` site needs, copied so that the port imports nothing
-of the JAX package.  The JAX module's counters and span annotations are
-left out; the spec grammar and the errors are the same.
+"""Deterministic fault injection, copied from
+``container_engine_accelerators_tpu/utils/faults.py`` so that the port
+imports nothing of the JAX package.  The JAX module's span annotations
+are left out; the spec grammar, the errors and the ``fault.fired.<site>``
+counters are the same.
 
-A named site (``faults.check("checkpoint.save")``) raises when armed
+Sites wired in the port:
+
+    checkpoint.save   TrainCheckpointer.save
+    health.stream     the health checker's Xid event-wait loop
+    kubelet.register  the device plugin's Register RPC to the kubelet
+    k8s.patch         the maintenance watcher's node-taint patch
+
+A named site (``faults.check("kubelet.register")``) raises when armed
 from the ``TPU_FAULT_SPEC`` environment variable, so the binary that
-runs on a node can be told to fail its Nth save::
+runs on a node can be told to fail its Nth attempt::
 
-    TPU_FAULT_SPEC="checkpoint.save:fail@1;checkpoint.save:drop@3x2"
+    TPU_FAULT_SPEC="kubelet.register:fail@1;health.stream:drop@1x2"
 
     site:mode[@N][xK]   fire on the Nth hit of the site (1-based,
                         default 1), for K consecutive hits (default 1,
@@ -16,9 +23,11 @@ runs on a node can be told to fail its Nth save::
 
 Modes: ``fail`` raises FaultInjectedError, ``drop`` raises
 InjectedConnectionDrop, ``conflict`` raises InjectedConflict (``status
-= 409``) — all ``OSError`` subclasses, so the code's own ``except
-OSError`` paths treat them as the real failure.  A malformed entry is
-logged and skipped, never raised.
+= 409``, what the maintenance watcher's 409 retry keys on) — all
+``OSError`` subclasses, so the code's own ``except OSError`` paths treat
+them as the real failure.  A fired site counts ``fault.fired.<site>`` in
+``metrics/counters.py``, which ``/metrics`` exports as ``agent_events``.
+A malformed entry is logged and skipped, never raised.
 """
 
 import contextlib
@@ -27,6 +36,8 @@ import logging
 import os
 import threading
 from typing import Dict, List, Optional
+
+from container_engine_accelerators_tpu_torch.metrics import counters
 
 log = logging.getLogger(__name__)
 
@@ -140,6 +151,7 @@ class FaultInjector:
             if rule is None:
                 return
             self._fired[site] = self._fired.get(site, 0) + 1
+        counters.inc(f"fault.fired.{site}")
         log.warning("fault injection: %s %s at hit %d", site, rule.mode, hit)
         raise _MODES[rule.mode](
             f"injected {rule.mode} at fault site {site!r} (hit {hit})"
@@ -190,9 +202,9 @@ def set_injector(inj: Optional[FaultInjector]) -> Optional[FaultInjector]:
 def armed(spec: str):
     """Scope an explicit spec over the process injector (tests)::
 
-        with faults.armed("checkpoint.save:fail@1") as inj:
+        with faults.armed("kubelet.register:fail@1") as inj:
             ...
-            assert inj.fired("checkpoint.save") == 1
+            assert inj.fired("kubelet.register") == 1
     """
     inj = FaultInjector.from_spec(spec)
     prev = set_injector(inj)

@@ -40,7 +40,9 @@ from container_engine_accelerators_tpu_torch.deviceplugin.manager import (
 from container_engine_accelerators_tpu_torch.gpulib.fake import (
     FakeGpuLib,
     add_gpu,
+    cap_minor,
     write_fixture,
+    write_mig_fixture,
 )
 from container_engine_accelerators_tpu_torch.utils.config import GPUConfig
 from container_engine_accelerators_tpu_torch.utils.device import (
@@ -50,7 +52,11 @@ from container_engine_accelerators_tpu_torch.utils.device import (
     Mount,
 )
 from tests.kubelet_stub import KubeletStub as TpuKubeletStub
-from tests.torch_node_helpers import KubeletStub
+from tests.torch_node_helpers import (
+    KubeletStub,
+    set_mps_daemon,
+    write_fake_mps_control,
+)
 
 PLUGIN_ENDPOINT = "gpu.sock"
 NUM_GPUS = 4
@@ -58,6 +64,8 @@ DRIVER = Mount(host_path="/home/kubernetes/bin/nvidia",
                container_path="/usr/local/nvidia", read_only=True)
 TIME_SHARING = {"GPUSharingConfig": {"GPUSharingStrategy": "time-sharing",
                                      "MaxSharedClientsPerGPU": 2}}
+MPS = {"GPUSharingConfig": {"GPUSharingStrategy": "mps",
+                            "MaxSharedClientsPerGPU": 2}}
 
 
 def make_manager(root, config_json=None, num_gpus=NUM_GPUS, **fixture):
@@ -66,7 +74,8 @@ def make_manager(root, config_json=None, num_gpus=NUM_GPUS, **fixture):
     cfg.add_defaults_and_validate()
     return GpuManager(os.path.join(root, "dev"), [DRIVER], cfg,
                       lib=FakeGpuLib(root), device_check_interval_s=0.3,
-                      socket_check_interval_s=0.1)
+                      socket_check_interval_s=0.1,
+                      proc_root=os.path.join(root, "proc"))
 
 
 class PluginHarness:
@@ -324,15 +333,46 @@ def test_installer_handshake_waits_for_control_nodes(tmp_path):
     assert not manager.check_device_paths()
 
 
-@pytest.mark.parametrize("config_json", [
-    {"GPUPartitionSize": "1g.10gb"},
-    {"GPUSharingConfig": {"GPUSharingStrategy": "mps",
-                          "MaxSharedClientsPerGPU": 2}},
-], ids=["mig", "mps"])
-def test_mig_and_mps_name_the_next_slice(tmp_path, config_json):
-    manager = make_manager(str(tmp_path / "root"), config_json=config_json)
-    with pytest.raises(NotImplementedError, match="next node slice"):
-        manager.start()
+def test_mig_starts_from_a_fixture_tree(tmp_path):
+    """GPUPartitionSize: the partitions under the fixture's /proc are the
+    devices, each with its GPU's node and two capability nodes."""
+    root = str(tmp_path / "root")
+    manager = make_manager(root, config_json={"GPUPartitionSize": "3g.40gb"})
+    ids = write_mig_fixture(root, 2)
+    manager.start()
+    assert sorted(manager.list_devices()) == sorted(ids)
+    assert len(ids) == 2 * NUM_GPUS
+    specs = manager.device_spec("nvidia2/gi1")
+    assert [d.host_path for d in specs] == [
+        os.path.join(root, "dev", "nvidia2"),
+        os.path.join(root, "dev", "nvidia-caps",
+                     f"nvidia-cap{cap_minor(2, 1)}"),
+        os.path.join(root, "dev", "nvidia-caps",
+                     f"nvidia-cap{cap_minor(2, 1, 0)}")]
+
+
+def test_mps_starts_with_a_live_gate(tmp_path):
+    """mps: the start asks the MPS daemon, then mounts its pipe
+    directory and advertises the virtual devices."""
+    root = str(tmp_path / "root")
+    driver = tmp_path / "driver"
+    write_fake_mps_control(driver)
+    pipe = str(tmp_path / "mps")
+    set_mps_daemon(pipe)
+    write_fixture(root, NUM_GPUS)
+    cfg = GPUConfig.from_json(MPS)
+    cfg.add_defaults_and_validate()
+    manager = GpuManager(os.path.join(root, "dev"),
+                         [Mount(str(driver), "/usr/local/nvidia", True)], cfg,
+                         lib=FakeGpuLib(root), mps_pipe_directory=pipe)
+    manager.start()
+    assert set(manager.list_devices()) == {
+        f"nvidia{i}/vgpu{j}" for i in range(NUM_GPUS) for j in range(2)}
+    assert manager.mount_paths[-1] == Mount(pipe, pipe, False)
+    assert manager.envs(["nvidia0/vgpu1"])[
+        "CUDA_MPS_ACTIVE_THREAD_PERCENTAGE"] == "50"
+    assert open(os.path.join(pipe, "queries")).read().split() == [
+        "get_default_active_thread_percentage"]
 
 
 @pytest.mark.parametrize("available,must,size", [

@@ -2,16 +2,19 @@
 ``python -m container_engine_accelerators_tpu_torch.cmd.gpu_device_plugin``,
 as a subprocess on a fake GPU node (``--fake-gpu-fixture``) with a kubelet
 stub: register, watch, a posted Xid 48 makes a device Unhealthy, a kubelet
-restart leads to a new registration, /metrics is served, and a node
-without NVML or with a config of the next slice exits non-zero (the JAX
+restart leads to a new registration, /metrics is served, a node without
+NVML exits non-zero, MIG partitions and MPS vGPUs are advertised, and a
+MIG or MPS config the node cannot serve advertises nothing (the JAX
 package's tests/test_plugin_daemon.py with GPU names)."""
 
 import contextlib
 import json
 import os
+import queue
 import socket
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 
@@ -23,13 +26,18 @@ from container_engine_accelerators_tpu_torch.deviceplugin import (
     deviceplugin_v1beta1_pb2 as pb,
 )
 from container_engine_accelerators_tpu_torch.gpulib.fake import (
+    H100_MEMORY,
+    cap_minor,
     post_event,
     write_fixture,
+    write_mig_fixture,
 )
 from tests.torch_node_helpers import (
     KubeletStub,
     PodResourcesStub,
     make_pod_resources,
+    set_mps_daemon,
+    write_fake_mps_control,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,9 +62,12 @@ def run_daemon(args, env=None, daemon=DAEMON):
 
 
 @contextlib.contextmanager
-def daemon_rig(tmp_path, extra_args, config=None, env=None):
+def daemon_rig(tmp_path, extra_args, config=None, env=None, num_gpus=4,
+               mig=0):
     root = str(tmp_path)
-    write_fixture(root, 4, minors=[3, 0, 1, 2])
+    write_fixture(root, num_gpus, minors=[3, 0, 1, 2][:num_gpus])
+    if mig:
+        write_mig_fixture(root, mig)
     plugdir = os.path.join(root, "p")  # unix socket paths are short
     os.makedirs(plugdir)
     cfg = os.path.join(root, "gpu_config.json")
@@ -193,14 +204,104 @@ def test_daemon_without_nvml_exits_nonzero(tmp_path):
     assert "cannot open NVML" in err
 
 
+def stderr_lines(proc):
+    """The daemon's stderr lines as they come, on a queue (a thread
+    reads them, so a test can wait with a deadline)."""
+    lines = queue.Queue()
+
+    def pump():
+        for line in proc.stderr:
+            lines.put(line)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return lines
+
+
+def wait_for_line(lines, needle, timeout=30.0):
+    deadline, seen = time.monotonic() + timeout, []
+    while time.monotonic() < deadline:
+        try:
+            line = lines.get(timeout=0.2)
+        except queue.Empty:
+            continue
+        seen.append(line)
+        if needle in line:
+            return line
+    pytest.fail(f"{needle!r} not logged; daemon said: {''.join(seen[-20:])}")
+
+
+MPS = {"GPUSharingConfig": {"GPUSharingStrategy": "mps",
+                            "MaxSharedClientsPerGPU": 2}}
+
+
 @pytest.mark.parametrize("config", [
-    {"GPUPartitionSize": "1g.10gb"},
-    {"GPUSharingConfig": {"GPUSharingStrategy": "mps",
-                          "MaxSharedClientsPerGPU": 2}},
-], ids=["mig", "mps"])
+    {"GPUPartitionSize": "1g.10gb"}, MPS], ids=["mig", "mps"])
 def test_daemon_refuses_the_next_slice_config(tmp_path, config):
-    with daemon_rig(tmp_path, [], config=config) as (root, plugdir, stub,
-                                                     proc):
-        _, err = proc.communicate(timeout=60)
-        assert proc.returncode == 2
-        assert "next node slice" in err
+    """MIG partitions that are not there, or an MPS daemon that does not
+    answer: the daemon logs why, advertises nothing and keeps retrying
+    (no fallback to whole GPUs)."""
+    env = {"CUDA_MPS_PIPE_DIRECTORY": str(tmp_path / "mps")}
+    with daemon_rig(tmp_path, ["--host-path", str(tmp_path / "driver")],
+                    config=config, env=env) as (root, plugdir, stub, proc):
+        lines = stderr_lines(proc)
+        line = wait_for_line(lines, "failed to start the GPU manager")
+        if "GPUPartitionSize" in config:
+            assert "nvidia0: no MIG partition under " + os.path.join(
+                root, "proc", "driver/nvidia/capabilities/gpu0/mig") in line
+        else:
+            assert "nvidia-cuda-mps-control under the driver install" in line
+        assert proc.poll() is None  # retrying, not exited
+        with pytest.raises(queue.Empty):
+            stub.requests.get(timeout=1.0)
+
+
+def test_daemon_advertises_mig_partitions(tmp_path):
+    root = str(tmp_path)
+    with daemon_rig(tmp_path, [], config={"GPUPartitionSize": "2g.20gb"},
+                    mig=3) as (root, plugdir, stub, proc):
+        reg = stub.requests.get(timeout=30)
+        with dial(plugdir, reg.endpoint) as client:
+            got = {d.ID for d in next(client.list_and_watch(
+                pb.Empty(), timeout=30)).devices}
+            req = pb.AllocateRequest()
+            req.container_requests.add().devicesIDs.append("nvidia1/gi4")
+            cresp = client.allocate(req, timeout=10).container_responses[0]
+    assert got == {f"nvidia{m}/gi{g}" for m in range(4) for g in (3, 4, 5)}
+    assert [d.host_path for d in cresp.devices][:3] == [
+        os.path.join(root, "dev", "nvidia1"),
+        os.path.join(root, "dev", "nvidia-caps",
+                     f"nvidia-cap{cap_minor(1, 4)}"),
+        os.path.join(root, "dev", "nvidia-caps",
+                     f"nvidia-cap{cap_minor(1, 4, 0)}")]
+
+
+def test_daemon_mps_allocate_sets_the_client_limits(tmp_path):
+    """mps with an MPS daemon that answers: vGPUs advertised, Allocate
+    gives the thread share, the memory limit and the pipe directory;
+    once the daemon is gone Allocate is refused."""
+    pipe = str(tmp_path / "mps")
+    write_fake_mps_control(tmp_path / "driver")
+    set_mps_daemon(pipe)
+    with daemon_rig(tmp_path, ["--host-path", str(tmp_path / "driver")],
+                    config=MPS, env={"CUDA_MPS_PIPE_DIRECTORY": pipe},
+                    num_gpus=1) as (root, plugdir, stub, proc):
+        reg = stub.requests.get(timeout=30)
+        with dial(plugdir, reg.endpoint) as client:
+            got = {d.ID for d in next(client.list_and_watch(
+                pb.Empty(), timeout=30)).devices}
+            req = pb.AllocateRequest()
+            req.container_requests.add().devicesIDs.extend(
+                ["nvidia3/vgpu0", "nvidia3/vgpu1"])
+            cresp = client.allocate(req, timeout=10).container_responses[0]
+            set_mps_daemon(pipe, up=False)
+            with pytest.raises(grpc.RpcError) as e:
+                client.allocate(req, timeout=10)
+    assert got == {"nvidia3/vgpu0", "nvidia3/vgpu1"}
+    assert dict(cresp.envs) == {
+        "CUDA_MPS_ACTIVE_THREAD_PERCENTAGE": "100",
+        "CUDA_MPS_PINNED_DEVICE_MEM_LIMIT": f"0={H100_MEMORY // 2**20}M",
+        "CUDA_MPS_PIPE_DIRECTORY": pipe}
+    assert (pipe, pipe, False) in [(m.host_path, m.container_path,
+                                    m.read_only) for m in cresp.mounts]
+    assert e.value.code() == grpc.StatusCode.INVALID_ARGUMENT
+    assert "not answering" in e.value.details()

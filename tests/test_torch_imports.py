@@ -44,7 +44,10 @@ def test_port_imports_without_jax():
               "deviceplugin.manager", "deviceplugin.service",
               "health.health_checker", "metrics.counters",
               "metrics.podresources_v1_pb2", "metrics.devices",
-              "metrics.metrics", "cmd.gpu_device_plugin"}
+              "metrics.metrics", "cmd.gpu_device_plugin", "sharing.gate",
+              "partition", "partition.mig", "scheduler", "scheduler.k8s",
+              "scheduler.labeler", "health.maintenance",
+              "cmd.partition_gpu", "cmd.maintenance_watcher"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys
@@ -85,13 +88,17 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 
 def test_node_layer_imports_without_torch():
     """The node modules (gpulib, deviceplugin, health, metrics, sharing,
-    the daemon) need no torch: a node agent image carries none."""
+    partition, scheduler, the daemons and tools) need no torch: a node
+    agent image carries none."""
     node = [m for m in _port_modules()
             if m.split(".")[1:2] in (["gpulib"], ["deviceplugin"],
-                                     ["health"], ["metrics"], ["sharing"])
-            or m.endswith((".cmd.gpu_device_plugin", ".utils.config",
-                           ".utils.devname", ".utils.device"))]
-    assert len(node) >= 20
+                                     ["health"], ["metrics"], ["sharing"],
+                                     ["partition"], ["scheduler"])
+            or m.endswith((".cmd.gpu_device_plugin", ".cmd.partition_gpu",
+                           ".cmd.maintenance_watcher", ".utils.config",
+                           ".utils.devname", ".utils.device", ".utils.faults",
+                           ".utils.retry"))]
+    assert len(node) >= 32
     code = f"""
 import importlib, sys
 sys.modules["torch"] = None

@@ -315,6 +315,54 @@ def test_devices_maps_a_gpu_nvml_counts_after_start(fake):
     assert lib.wait_for_event(5.0).device == "nvidia7"
 
 
+def test_hot_added_gpu_gets_xid_registration(fake):
+    """A GPU NVML counts after the checker started is subscribed as it is
+    mapped, the checker's watch list grows, and an Xid 48 on it marks it
+    Unhealthy."""
+    import queue
+
+    from container_engine_accelerators_tpu_torch.health import (
+        GpuHealthChecker,
+    )
+
+    lib = NvmlLib(cdll=fake)
+
+    class Manager:  # the manager's view: the GPUs NVML maps
+        health_events = queue.Queue()
+
+        @property
+        def devices(self):
+            return {d.name: None for d in lib.devices()}
+
+    manager = Manager()
+    checker = GpuHealthChecker(manager, lib, recovery_window_s=None,
+                               event_wait_timeout_s=0.05)
+    checker.start()
+    try:
+        assert checker.registered == ["nvidia5", "nvidia2"]
+        fake.gpus.append({"minor": 7, "uuid": "GPU-0002", "name": H100,
+                          "total": 80 << 30, "used": 0})
+        assert "nvidia7" in manager.devices  # the hotplug poll maps it
+        assert checker.registered == ["nvidia5", "nvidia2", "nvidia7"]
+        assert fake.registered == [0, 1, 2]
+        fake.events = [(SUCCESS, 0x1002,
+                        nvml.EVENT_TYPE_XID_CRITICAL_ERROR, 48)]
+        got = manager.health_events.get(timeout=10)
+    finally:
+        checker.stop()
+    assert (got.id, got.health) == ("nvidia7", "Unhealthy")
+
+
+def test_hot_added_gpu_without_xid_support_is_logged_and_skipped(fake):
+    lib = NvmlLib(cdll=fake)
+    registered = lib.register_xid_events()
+    fake.register_rc[2] = NOT_SUPPORTED
+    fake.gpus.append({"minor": 7, "uuid": "GPU-0002", "name": H100,
+                      "total": 80 << 30, "used": 0})
+    assert [d.name for d in lib.devices()][-1] == "nvidia7"
+    assert registered == ["nvidia5", "nvidia2"]
+
+
 def test_manager_hotplug_advertises_a_gpu_nvml_counts_later(fake, tmp_path):
     """The manager's hotplug poll over NvmlLib: a /dev node alone is not a
     new GPU; once NVML counts it too, serve rediscovers and advertises it."""

@@ -5,6 +5,7 @@ package's ``tests/kubelet_stub.py`` and ``tests/test_metrics.py`` stubs,
 with GPU names)."""
 
 import concurrent.futures
+import os
 import queue
 
 import grpc
@@ -76,3 +77,40 @@ def make_pod_resources():
         resource_name="google.com/tpu")
     d3.device_ids.extend(["accel0"])
     return resp
+
+
+# A stand-in for NVIDIA's nvidia-cuda-mps-control in its client role: it
+# reads one command on stdin and answers as the real one does on the card
+# ("Cannot find MPS control daemon process" and exit 1 without a daemon).
+# The daemon is "up" while <pipe>/control exists; <pipe>/hang makes it
+# hang, <pipe>/answer replaces the answer; every command is logged to
+# <pipe>/queries.
+FAKE_MPS_CONTROL = """#!/bin/sh
+d="${CUDA_MPS_PIPE_DIRECTORY:-/tmp/nvidia-mps}"
+read cmd
+echo "$cmd" >> "$d/queries"
+[ -e "$d/control" ] || { echo "Cannot find MPS control daemon process" >&2; exit 1; }
+[ -e "$d/hang" ] && exec sleep 60
+if [ -e "$d/answer" ]; then cat "$d/answer"; else echo 100.0; fi
+"""
+
+
+def write_fake_mps_control(driver_root):
+    """``<driver_root>/bin/nvidia-cuda-mps-control``; returns its path."""
+    bin_dir = os.path.join(str(driver_root), "bin")
+    os.makedirs(bin_dir, exist_ok=True)
+    path = os.path.join(bin_dir, "nvidia-cuda-mps-control")
+    with open(path, "w") as f:
+        f.write(FAKE_MPS_CONTROL)
+    os.chmod(path, 0o755)
+    return path
+
+
+def set_mps_daemon(pipe_dir, up=True):
+    """Start (``up``) or stop the fake MPS daemon of ``pipe_dir``."""
+    os.makedirs(str(pipe_dir), exist_ok=True)
+    control = os.path.join(str(pipe_dir), "control")
+    if up:
+        open(control, "w").close()
+    elif os.path.exists(control):
+        os.unlink(control)
