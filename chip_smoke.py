@@ -11,7 +11,9 @@ training — ``cmd/train_lm.py``'s ``main`` at its defaults (seq 2048,
 batch 8, bf16) — both again with ``--num-experts 8`` (the Switch MoE-LM),
 and the image paths, ``cmd/train_resnet.py`` and ``cmd/serve_resnet.py``
 at their defaults (ResNet-50, 224x224, batch 128, bf16 with cuDNN) and
-Inception-v3, and the node layer (NVML, the ``nvidia.com/gpu`` device
+Inception-v3, the multi-GPU layer at a world of one card (an NCCL group,
+the trainers and the LM server on the (1, 1) mesh of DTensor weights,
+the sharded ResNet step), and the node layer (NVML, the ``nvidia.com/gpu`` device
 plugin daemon, its Xid health checker and metrics server, its fault
 sites, MIG, the maintenance watcher and MPS) on the card;
 and holds every hand-written CUDA kernel against its plain PyTorch
@@ -188,7 +190,35 @@ version.  Phases, one JSON line each:
     request of the same array, then ``--model-dir`` from phase 22 (the
     saved params, the initial running statistics); phases 21-24 launch
     none of the port's kernels (every counter checked unchanged);
-25. ``nvml``: ``gpulib/nvml.py``'s ``NvmlLib`` against the card: the
+25. ``nccl``: a world-size-1 NCCL group on the card
+    (``parallel/dcn.py::initialize``): NCCL's version, one
+    ``all_reduce``, ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor`` of 4 MiB, each checked, and their ms;
+26. ``mesh_train``: ``cmd/train_lm.py`` at its defaults on the (1, 1)
+    mesh with DTensor weights, 6 steps each: its loop through
+    ``make_lm_train_step(create_mesh(1, 1), ..., "megatron")``, then
+    ``main`` with ``--param-sharding fsdp``; launch counts reset around
+    each (the flash kernels as in phase 8): losses bit-equal to phase
+    8's, step ms, tokens/s and peak memory beside phase 8's;
+27. ``mesh_resume``: 4 steps on the (1, 1) mesh under fsdp with
+    ``--checkpoint-dir``, then the plain single-GPU trainer resumed from
+    that checkpoint to step 6: losses bit-equal to phase 8's;
+28. ``mesh_resnet``: ``models/train.py::make_sharded_train_step`` on the
+    (1, 1) mesh against ``train_step``, ResNet-50 at 224x224 from the
+    seed-0 weights: f32 with TF32 off at batch 32, 4 steps at lr 0.01
+    (losses within 1e-5 relative, running statistics 1e-4), bf16 at
+    batch 128 on the default schedule (losses 1e-4, statistics 2e-3)
+    with both step times; each loss bound at least 10x below how far
+    the updates moved the loss;
+29. ``mesh_serve``: ``cmd/serve_lm.py``'s ``build_generate(args,
+    create_mesh(1, 1))`` and ``start_engine`` at phase 5's
+    flags on the (1, 1) mesh against the plain server: one 64-token
+    prompt's 32-token greedy request (latency, twice) and
+    ``serve_slots``' 8 prompts through ``--slots 8`` (batch wall time,
+    once), identical greedy tokens and flash decode launches; then the
+    f32 greedy tokens (8, after a 300-token prompt) of a TP-sharded
+    decode model equal to the plain model's;
+30. ``nvml``: ``gpulib/nvml.py``'s ``NvmlLib`` against the card: the
     device count equals torch's and nvidia-smi's; each device's name,
     UUID, PCI bus id and total memory equal nvidia-smi's (and torch's,
     where the machine does not redact them), its ``/dev/nvidia<minor>``
@@ -196,11 +226,11 @@ version.  Phases, one JSON line each:
     C program's built with g++ on the toolkit's ``nvml.h``; MIG mode; Xid
     registration on every device; the microseconds of a memory and a duty
     cycle read;
-26. ``nvml_load``: a child holds 8 GiB and runs bf16 matmuls: duty cycle
+31. ``nvml_load``: a child holds 8 GiB and runs bf16 matmuls: duty cycle
     at least 80 and memory up by at least 8 GiB while it runs, duty cycle
     at most 10 and memory back a few seconds after, each reading beside
     nvidia-smi's at the same moment;
-27. ``device_plugin``: ``cmd/gpu_device_plugin.py`` as a subprocess on the
+32. ``device_plugin``: ``cmd/gpu_device_plugin.py`` as a subprocess on the
     real ``/dev`` and NVML with a kubelet stub and a PodResources stub
     that gives the first GPU to one container: it registers
     ``nvidia.com/gpu``, ListAndWatch lists exactly NVML's GPUs as
@@ -209,39 +239,40 @@ version.  Phases, one JSON line each:
     ``/metrics`` serves the node and container gauges; the seconds to
     register and the milliseconds to the first ListAndWatch and per
     Allocate;
-28. ``xid``: Xid registration, then the daemon's health state machine
+33. ``xid``: Xid registration, then the daemon's health state machine
     through its fault file (this machine delivers no Xid: see
     ``XID_INJECTION``): the GPU goes Unhealthy on ListAndWatch, Allocate
     refuses it, and it is Healthy again after the 10 s recovery window;
-29. ``node_faults``: the daemon armed with ``NODE_FAULT_SPEC`` registers
-    on its second attempt (seconds beside phase 27's unarmed start), its
+34. ``node_faults``: the daemon armed with ``NODE_FAULT_SPEC`` registers
+    on its second attempt (seconds beside phase 32's unarmed start), its
     checker rides the dropped event wait and the fault file still turns
     the GPU Unhealthy, ``/metrics`` counts each ``fault.fired.<site>``;
     ``MetricServer.rebind`` moves the listener and the gauges read the
     same; the Xid watch list (a hot-added GPU needs a second card);
-30. ``mig``: MIG mode from NVML and nvidia-smi, ``nvidia-smi mig -lgip``
+35. ``mig``: MIG mode from NVML and nvidia-smi, ``nvidia-smi mig -lgip``
     and ``/proc/driver/nvidia``; the daemon with ``GPUPartitionSize`` on
     this MIG-off card refuses, naming the GPU and the path, and
     advertises nothing; ``cmd/partition_gpu.py`` behind ``MIG_SHIM``
     (read-only queries pass, every other command is recorded and
     refused) reads the card's state and issues exactly ``-i 0 -mig 1``,
     exits 1 and writes no state; the card's MIG mode is never changed;
-31. ``maintenance``: ``cmd/maintenance_watcher.py --once`` against local
+36. ``maintenance``: ``cmd/maintenance_watcher.py --once`` against local
     metadata and API server stubs, armed with one ``k8s.patch`` conflict:
     the node tainted beside its foreign taint, every GPU Unhealthy on the
     daemon's ListAndWatch (``XID_CONFIG`` names the maintenance code),
     the milliseconds from the fault-file line to Unhealthy; ``NONE``
     removes the taint;
-32. ``mps``: the daemon under ``mps`` advertises nothing while no MPS
+37. ``mps``: the daemon under ``mps`` advertises nothing while no MPS
     daemon answers; with NVIDIA's MPS control daemon on a private pipe
     directory it advertises ``nvidia<minor>/vgpu0..1`` and Allocate
     gives the node, the pipe mount, 50% of the threads and half of
     NVML's memory; a child run with those envs (``MPS_CLIENTS``); once
     the MPS daemon quits, Allocate is refused; no MPS process is left;
-    phases 25-32 launch none of the port's kernels;
-33. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
-    ``serve`` and ``serve_slots`` phases' and phases 14-17' and 20's;
-    flash attention's: the ``train`` and ``train_moe`` phases').
+    phases 30-37 launch none of the port's kernels;
+38. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
+    ``serve`` and ``serve_slots`` phases' and phases 14-17', 20's and
+    29's; flash attention's: the ``train``, ``train_moe`` and
+    ``mesh_train`` phases').
 
 Each phase's seconds follow it on a ``timing`` line.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -1113,8 +1144,10 @@ def train(fa, dev, card):
 
     for name in fa.LAUNCHES:
         fa.LAUNCHES[name] = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     losses = train_lm.main(argv, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(fa.LAUNCHES)
     layers_steps = args.num_layers * TRAIN_STEPS
     want = {"flash_attention_fwd": 2 * layers_steps,
@@ -1151,8 +1184,10 @@ def train(fa, dev, card):
            wall_s=round(time.perf_counter() - t0, 3),
            steady_step_ms=step_ms, steady_steps=len(steady),
            step_ms_each=[round(x * 1e3, 3) for x in steady],
-           tokens_per_s=tokens / (step_ms / 1e3))
-    return launches, losses
+           tokens_per_s=tokens / (step_ms / 1e3), peak_memory_bytes=peak)
+    return launches, losses, {"steady_step_ms": step_ms,
+                              "tokens_per_s": tokens / (step_ms / 1e3),
+                              "peak_memory_bytes": peak}
 
 
 def time_fa_kernels(fa, dev):
@@ -1282,7 +1317,7 @@ def profile_train_step(dev):
     model = TransformerLM(device=dev)
     state = lm_train.create_lm_train_state(model,
                                            torch.Generator().manual_seed(0))
-    step = lm_train.make_lm_train_step()
+    step = lm_train.make_lm_train_step()[0]
     batches = [tuple(torch.from_numpy(x).to(dev) for x in batch)
                for batch in train_lm.synthetic_batches(args)[:2]]
     batches = [(t.long(), l.long(), m) for t, l, m in batches]
@@ -2542,7 +2577,7 @@ def train_moe(fa, dev, card, ckpt):
     model = _moe_lm(args, dev)
     state = lm_train.create_lm_train_state(model,
                                            torch.Generator().manual_seed(0))
-    step = lm_train.make_lm_train_step()
+    step = lm_train.make_lm_train_step()[0]
     batches = [tuple(torch.from_numpy(x).to(dev) for x in b)
                for b in train_lm.synthetic_batches(args)[:2]]
     batches = [(t.long(), lb.long(), m) for t, lb, m in batches]
@@ -4360,6 +4395,479 @@ def node_mps(card):
                              f"daemon: {rig.log_tail()}")
 
 
+# ---- phases 25-29: the multi-GPU layer on a world of one card --------------
+#
+# The card's machine has one GPU, and NCCL refuses two ranks on one GPU, so
+# these phases run the mesh paths at world size 1 on a real NCCL group and
+# real DTensors: what they show is the host cost of DTensor dispatch on
+# paths that are host-bound already.  Multi-rank correctness is held on the
+# CPU under gloo (tests/test_torch_dist_*.py).
+
+MESH_STEPS = 6  # == TRAIN_STEPS: mesh_train's losses beside the train phase's
+MESH_IMAGE_STEPS = 8
+MESH_PARITY_BATCH = 32  # ResNet-50 f32 parity step (TF32 off)
+# Its steps and schedule: step 0 trains at lr 0 (warmup), so four steps
+# at lr 0.01 compare the losses after two real updates.
+MESH_PARITY_STEPS, MESH_PARITY_LR = 4, 0.01
+MESH_SERVE_NEW = 32
+# A request through DTensor decode costs ~11.5 s of host dispatch on the
+# card (torch 2.11, PERF.md §6): few repeats, and the f32 check decodes few
+# tokens.
+MESH_REQUEST_REPS, MESH_SLOTS_REPS = 2, 1
+MESH_F32_NEW = 8
+
+
+def _cuda_ms(fn, reps=5):
+    """Median wall ms of ``fn()`` with the device synchronized around."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out), out
+
+
+def nccl_phase(card):
+    """Phase 25: a world-size-1 NCCL group on the card (kept for the mesh
+    phases): NCCL's version, one all_reduce, all_gather_into_tensor and
+    reduce_scatter_tensor, each checked."""
+    import torch
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.parallel import dcn
+
+    t0 = time.perf_counter()
+    world, rank = dcn.initialize(device="cuda", force=True)
+    init_s = time.perf_counter() - t0
+    if (world, rank) != (1, 0) or dist.get_backend() != "nccl":
+        raise AssertionError(f"group {world}/{rank} {dist.get_backend()}")
+    x = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+    checks = {}
+    y = x.clone()
+    dist.all_reduce(y)
+    checks["all_reduce"] = torch.equal(y, x)
+    g = torch.empty_like(x)
+    dist.all_gather_into_tensor(g, x)
+    checks["all_gather_into_tensor"] = torch.equal(g, x)
+    r = torch.empty_like(x)
+    dist.reduce_scatter_tensor(r, x)
+    checks["reduce_scatter_tensor"] = torch.equal(r, x)
+    if not all(checks.values()):
+        raise AssertionError(f"NCCL collectives on one rank: {checks}")
+    ms = {"all_reduce": _cuda_ms(lambda: dist.all_reduce(y))[0],
+          "all_gather_into_tensor": _cuda_ms(
+              lambda: dist.all_gather_into_tensor(g, x))[0],
+          "reduce_scatter_tensor": _cuda_ms(
+              lambda: dist.reduce_scatter_tensor(r, x))[0]}
+    version = torch.cuda.nccl.version()
+    _phase("nccl", card=card, backend=dist.get_backend(), world=world,
+           nccl_version=".".join(map(str, version)) if isinstance(
+               version, tuple) else version,
+           init_s=init_s, checked=checks, bytes=x.numel() * 4,
+           ms_one_rank=ms,
+           note="one rank: each collective is a local copy through NCCL; "
+                "NCCL across ranks is not measured on this machine")
+
+
+def _megatron_lm(args, on_step):
+    """``cmd/train_lm.py``'s training loop at ``args`` on the (1, 1) mesh
+    under ``megatron``: the trainer's model, seed, AdamW and synthetic
+    batches through ``make_lm_train_step(create_mesh(1, 1), ...)`` (the
+    CLI takes the mesh at one rank only for ``--param-sharding fsdp``).
+    -> the losses as floats."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+    from container_engine_accelerators_tpu_torch.models.lm_train import (
+        create_lm_train_state,
+        make_lm_train_step,
+    )
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import dcn
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        create_mesh,
+        from_local_batch,
+    )
+
+    dcn.initialize(device="cuda", force=True)
+    mesh = create_mesh(1, 1)
+    device = dcn.local_device("cuda")
+    model = TransformerLM(
+        vocab_size=args.vocab_size, num_layers=args.num_layers,
+        num_heads=args.num_heads, head_dim=args.head_dim,
+        mlp_dim=args.mlp_dim, num_kv_heads=args.kv_heads or None,
+        num_experts=args.num_experts, device=device)
+    state = create_lm_train_state(
+        model, torch.Generator().manual_seed(0),
+        torch.optim.AdamW(model.parameters(), lr=args.learning_rate,
+                          weight_decay=0.1))
+    step_fn, state = make_lm_train_step(mesh, state, None, "megatron")
+
+    def on_device(toks, labels, mask):
+        return tuple(from_local_batch(x, mesh) for x in (
+            torch.from_numpy(toks).to(device, torch.long),
+            torch.from_numpy(labels).to(device, torch.long),
+            torch.from_numpy(mask).to(device)))
+
+    batches = [on_device(*b) for b in train_lm.synthetic_batches(args)]
+    losses = []
+    for step in range(args.train_steps):
+        state, metrics = step_fn(state, *batches[step % len(batches)])
+        losses.append(metrics["loss"])
+        on_step(step, metrics["loss"], metrics)
+    return [float(x) for x in losses]
+
+
+def mesh_train(fa, card, plain_losses, plain):
+    """Phase 26: cmd/train_lm.py at its defaults on the (1, 1) mesh,
+    megatron (its training loop through ``make_lm_train_step`` on
+    ``create_mesh(1, 1)``) and then ``main()`` with ``--param-sharding
+    fsdp``: losses equal to the train phase's (same seed), flash launch
+    counts, step ms, tokens/s, peak memory."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+
+    args = train_lm.parse_args(["--train-steps", str(MESH_STEPS)])
+    tokens = args.train_batch_size * args.seq_len
+    layers_steps = args.num_layers * MESH_STEPS
+    want = {"flash_attention_fwd": 2 * layers_steps,
+            "flash_attention_bwd_dq": layers_steps,
+            "flash_attention_bwd_dkv": layers_steps}
+    runs, total = {}, {k: 0 for k in fa.LAUNCHES}
+    for sharding in ("megatron", "fsdp"):
+        ends = []
+
+        def on_step(step, loss, metrics):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if sharding == "megatron":
+            losses = _megatron_lm(args, on_step)
+        else:
+            losses = train_lm.main(["--train-steps", str(MESH_STEPS),
+                                    "--steps-per-eval", str(MESH_STEPS),
+                                    "--param-sharding", sharding],
+                                   on_step=on_step)
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(fa.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"mesh_train {sharding}: flash launches "
+                                 f"{launches}, expected {want}")
+        for k, v in launches.items():
+            total[k] += v
+        if losses != plain_losses:
+            raise AssertionError(f"mesh_train {sharding} losses {losses} "
+                                 f"differ from the plain trainer's "
+                                 f"{plain_losses}")
+        steady = [b - a for a, b in zip(ends[1:], ends[2:])]
+        step_ms = statistics.median(steady) * 1e3
+        runs[sharding] = {"losses": losses, "launches": launches,
+                          "steady_step_ms": step_ms,
+                          "step_ms_each": [round(x * 1e3, 3) for x in steady],
+                          "tokens_per_s": tokens / (step_ms / 1e3),
+                          "peak_memory_bytes": peak}
+    _phase("mesh_train", card=card,
+           entry={"megatron": "cmd/train_lm.py's loop at its defaults "
+                              "through make_lm_train_step(create_mesh(1, 1),"
+                              " state, None, 'megatron')",
+                  "fsdp": "cmd/train_lm.py main() at its defaults with "
+                          "--param-sharding fsdp: the (1, 1) mesh"},
+           steps=MESH_STEPS, plain=plain, plain_losses=plain_losses,
+           megatron=runs["megatron"], fsdp=runs["fsdp"],
+           expected_launches=f"fwd 2 x {args.num_layers} layers x "
+                             f"{MESH_STEPS} steps (remat), bwd "
+                             f"{args.num_layers} x {MESH_STEPS}, each run",
+           tolerance="bit-equal losses: one rank computes the plain "
+                     "trainer's operations in its order")
+    return total
+
+
+def mesh_resume(card, plain_losses):
+    """Phase 27: a checkpoint saved on the (1, 1) mesh under fsdp restored
+    into the plain single-GPU trainer: its resumed losses beside the
+    train phase's unbroken ones."""
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mckpt_") as tmp:
+        argv = ["--checkpoint-dir", tmp, "--checkpoint-interval", "2",
+                "--steps-per-eval", str(MESH_STEPS)]
+        t0 = time.perf_counter()
+        first = train_lm.main(argv + ["--train-steps", "4",
+                                      "--param-sharding", "fsdp"])
+        first_s = time.perf_counter() - t0
+        resumed = train_lm.main(argv + ["--train-steps", str(MESH_STEPS)])
+    losses = first + resumed
+    if len(first) != 4 or len(resumed) != MESH_STEPS - 4:
+        raise AssertionError(f"mesh_resume ran {len(first)} + "
+                             f"{len(resumed)} steps")
+    if losses != plain_losses:
+        raise AssertionError(f"mesh_resume losses {losses} differ from the "
+                             f"unbroken {plain_losses}")
+    _phase("mesh_resume", card=card,
+           entry="cmd/train_lm.py: 4 steps on the (1, 1) mesh under fsdp "
+                 "with --checkpoint-dir (interval 2), then the plain "
+                 f"single-GPU trainer resumed to step {MESH_STEPS}",
+           losses=losses, unbroken_losses=plain_losses,
+           mesh_run_s=first_s, tolerance="bit-equal losses")
+
+
+def mesh_resnet(dev, card):
+    """Phase 28: the sharded ResNet-50 step (models/train.py::
+    make_sharded_train_step) on the (1, 1) mesh beside the plain step:
+    f32 with TF32 off at batch 32, four steps at lr 0.01 (loss and
+    running statistics after two updates), then bf16 at batch 128 on the
+    default schedule (loss, running statistics and step ms)."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models.resnet import (
+        BatchNorm,
+        init_params,
+        resnet,
+    )
+    from container_engine_accelerators_tpu_torch.models.train import (
+        cosine_sgd,
+        create_train_state,
+        make_sharded_train_step,
+        train_step,
+    )
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        create_mesh,
+    )
+
+    before = _kernel_counts()
+    mesh = create_mesh(1, 1)
+    weights = init_params(resnet(50, device="meta"),
+                          torch.Generator().manual_seed(0))
+
+    def stats(model):
+        return {n: torch.cat([m.running_mean, m.running_var]).float().cpu()
+                for n, m in model.named_modules()
+                if isinstance(m, BatchNorm)}
+
+    def run(dtype, batch, steps, sharded, timed=False, tx=None):
+        model = resnet(50, dtype=dtype, device=dev)
+        model.load_state_dict(weights)
+        state = create_train_state(model, tx=tx)
+        step = train_step
+        if sharded:
+            step, state = make_sharded_train_step(mesh, state)
+        rng = np.random.default_rng(3)
+        xs = [torch.from_numpy(rng.standard_normal(
+            (batch, 224, 224, 3), dtype=np.float32)).to(dev).permute(
+                0, 3, 1, 2) for _ in range(2)]
+        ys = [torch.from_numpy(rng.integers(0, 1000, batch)).to(dev)
+              for _ in range(2)]
+        losses, ends = [], []
+        for i in range(steps):
+            state, m = step(state, xs[i % 2], ys[i % 2])
+            losses.append(m["loss"])
+            if timed:
+                torch.cuda.synchronize()
+                ends.append(time.perf_counter())
+        losses = [float(v) for v in losses]
+        steady = [(b - a) * 1e3 for a, b in zip(ends[1:], ends[2:])]
+        out = losses, stats(model), steady
+        del model, state
+        torch.cuda.empty_cache()
+        return out
+
+    def compare(a, b):
+        return max(float((a[k] - b[k]).abs().max() / b[k].abs().max())
+                   for k in b)
+
+    def moved(losses):
+        """How far the updates moved the loss: the relative change
+        between two steps on the same batch, the last and the first."""
+        return abs(losses[(len(losses) - 1) // 2 * 2] - losses[0]) / losses[0]
+
+    # Tolerances: one-pass statistics over DTensors against cuDNN's, the
+    # only arithmetic that differs on one rank (CPU probe of the same
+    # f32 run at ResNet-50 64x64: losses 1.2e-7 apart); each loss bound
+    # is held at least 10x below the change the updates made.
+    tol32, stat_tol32, tol16, stat_tol16 = 1e-5, 1e-4, 1e-4, 2e-3
+    torch.backends.cudnn.allow_tf32 = False
+    tx = cosine_sgd(base_lr=MESH_PARITY_LR, total_steps=100, warmup_steps=1)
+    plain32, stats32, _ = run(torch.float32, MESH_PARITY_BATCH,
+                              MESH_PARITY_STEPS, False, tx=tx)
+    mesh32, mstats32, _ = run(torch.float32, MESH_PARITY_BATCH,
+                              MESH_PARITY_STEPS, True, tx=tx)
+    rel32 = max(abs(a - b) / abs(b) for a, b in zip(mesh32, plain32))
+    stat32 = compare(mstats32, stats32)
+    if not (rel32 <= tol32 and stat32 <= stat_tol32
+            and moved(plain32) > 10 * tol32):
+        raise AssertionError(f"mesh_resnet f32: loss rel {rel32}, running "
+                             f"statistics {stat32}, moved "
+                             f"{moved(plain32)}")
+    plain16, stats16, plain_ms = run(torch.bfloat16, 128, MESH_IMAGE_STEPS,
+                                     False, timed=True)
+    torch.cuda.reset_peak_memory_stats()
+    mesh16, mstats16, mesh_ms = run(torch.bfloat16, 128, MESH_IMAGE_STEPS,
+                                    True, timed=True)
+    peak = torch.cuda.max_memory_allocated()
+    rel16 = max(abs(a - b) / abs(b) for a, b in zip(mesh16, plain16))
+    stat16 = compare(mstats16, stats16)
+    if not (rel16 <= tol16 and stat16 <= stat_tol16
+            and moved(plain16) > 10 * tol16):
+        raise AssertionError(f"mesh_resnet bf16: loss rel {rel16}, running "
+                             f"statistics {stat16}, moved "
+                             f"{moved(plain16)}")
+    _launches_none("mesh_resnet", before)
+    _phase("mesh_resnet", card=card,
+           entry="models/train.py::make_sharded_train_step on the (1, 1) "
+                 "mesh vs train_step: ResNet-50, 224x224, seed-0 weights",
+           f32={"batch": MESH_PARITY_BATCH, "steps": MESH_PARITY_STEPS,
+                "lr": f"{MESH_PARITY_LR} after a 1-step warmup",
+                "plain_losses": plain32, "mesh_losses": mesh32,
+                "loss_max_rel_diff": rel32, "loss_moved": moved(plain32),
+                "running_stats_max_err_to_max": stat32,
+                "tolerance": f"loss {tol32}, statistics {stat_tol32} (TF32 "
+                             f"off): BatchNorm's statistics are flax's "
+                             f"one-pass mean(x^2) - mean^2 over DTensors on "
+                             f"the mesh, cuDNN's own in the plain step"},
+           bf16={"batch": 128, "steps": MESH_IMAGE_STEPS,
+                 "plain_losses": plain16, "mesh_losses": mesh16,
+                 "loss_max_rel_diff": rel16, "loss_moved": moved(plain16),
+                 "running_stats_max_err_to_max": stat16,
+                 "tolerance": f"loss {tol16}, statistics {stat_tol16}",
+                 "plain_step_ms": statistics.median(plain_ms),
+                 "mesh_step_ms": statistics.median(mesh_ms),
+                 "plain_step_ms_each": [round(v, 3) for v in plain_ms],
+                 "mesh_step_ms_each": [round(v, 3) for v in mesh_ms],
+                 "mesh_peak_memory_bytes": peak},
+           launches="none of the port's kernels")
+
+
+def mesh_serve(fd, dev, card):
+    """Phase 29: cmd/serve_lm.py's TP serving functions on the (1, 1) mesh
+    (build_generate with ``create_mesh(1, 1)`` — ``serving_mesh`` takes a
+    mesh only for ``--tp > 1`` —, the engine with the broadcast hook)
+    beside the plain server:
+    one 32-token greedy request's latency (2 repeats) and an 8-request
+    --slots 8 batch's wall time; identical greedy tokens; flash decode
+    launched alike; then f32 greedy tokens of a TP-sharded model equal
+    to the plain model's."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import serve_lm
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+        init_params,
+    )
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        create_mesh,
+        shard_params,
+    )
+
+    flags = SERVE_FLAGS + ["--port", "0", "--max-new-tokens",
+                           str(MESH_SERVE_NEW)]
+    rng = np.random.default_rng(11)
+    vocab = serve_lm.parse_args([]).vocab_size
+    one = rng.integers(0, vocab, 64).tolist()
+    batch = slot_prompts(vocab, rng)
+    out = {}
+    for name, on_mesh in (("plain", False), ("mesh", True)):
+        res = {}
+        for slots in (0, SLOTS):
+            argv = flags + (["--slots", str(SLOTS)] if slots else [])
+            args = serve_lm.parse_args(argv)
+            serve_lm.validate_args(args)
+            if serve_lm.serving_mesh(args) is not None:
+                raise AssertionError("serving_mesh took a mesh at --tp 1")
+            mesh = create_mesh(1, 1) if on_mesh else None
+            run = serve_lm.build_generate(args, mesh)
+            engine_loop = serve_lm.start_engine(run, args)
+            srv = _http_server(serve_lm.make_handler(run, args, engine_loop))
+            port = srv[0].server_address[1]
+            try:
+                _reset(fd)
+                if not slots:
+                    lat = []
+                    for _ in range(MESH_REQUEST_REPS):
+                        t0 = time.perf_counter()
+                        rows = _post(port, {"prompt_ids": [one],
+                                            "temperature": 0})[1]["tokens"]
+                        lat.append((time.perf_counter() - t0) * 1e3)
+                    res["request_ms"] = statistics.median(lat)
+                    res["request_ms_each"] = [round(v, 3) for v in lat]
+                    res["one_row"] = rows[0]
+                else:
+                    walls = []
+                    for _ in range(MESH_SLOTS_REPS):
+                        rows, _, wall = _ask_all(srv, _greedy_bodies(batch))
+                        walls.append(wall)
+                    res["slots_batch_ms"] = min(walls)
+                    res["slots_batch_ms_each"] = [round(v, 3) for v in walls]
+                    res["slots_rows"] = rows
+                res.setdefault("flash_decode_launches", {})[
+                    "slots" if slots else "per_request"] = dict(fd.LAUNCHES)
+            finally:
+                _shutdown(*srv)
+                serve_lm.stop_followers(run, engine_loop)
+        out[name] = res
+    if out["mesh"]["one_row"] != out["plain"]["one_row"] or \
+            out["mesh"]["slots_rows"] != out["plain"]["slots_rows"]:
+        raise AssertionError("mesh_serve: the TP server's greedy tokens "
+                             "differ from the plain server's")
+    if out["mesh"]["flash_decode_launches"] != \
+            out["plain"]["flash_decode_launches"]:
+        raise AssertionError(f"mesh_serve: flash decode launches "
+                             f"{out['mesh']['flash_decode_launches']} vs "
+                             f"plain {out['plain']['flash_decode_launches']}")
+    launches = sum(out["mesh"]["flash_decode_launches"][k]["flash_decode"]
+                   for k in ("per_request", "slots"))
+
+    # f32: a TP-sharded decode model's greedy tokens equal the plain one's.
+    args = serve_lm.parse_args([])
+    cfg = dict(vocab_size=args.vocab_size, num_layers=args.num_layers,
+               num_heads=args.num_heads, head_dim=args.head_dim,
+               mlp_dim=args.mlp_dim)
+    weights = init_params(TransformerLM(**cfg, decode=True, device="meta"),
+                          torch.Generator().manual_seed(0))
+    models = []
+    for sharded in (False, True):
+        m = TransformerLM(**cfg, dtype=torch.float32, decode=True,
+                          device=dev)
+        m.load_state_dict(weights)
+        if sharded:
+            shard_params(m, create_mesh(1, 1))
+        models.append(m)
+    prompts = [rng.integers(0, args.vocab_size, n).tolist() for n in (300,)]
+    f32 = [[_solo_tokens(m, p, MESH_F32_NEW, args.max_prompt_len)
+            for p in prompts] for m in models]
+    if f32[0] != f32[1]:
+        raise AssertionError("mesh_serve: f32 greedy tokens of the sharded "
+                             "model differ from the plain model's")
+    del models
+    torch.cuda.empty_cache()
+    for res in out.values():
+        for k in ("one_row", "slots_rows"):
+            res.pop(k)
+    _phase("mesh_serve", card=card,
+           entry="cmd/serve_lm.py build_generate(args, create_mesh(1, 1)) "
+                 "+ start_engine behind a real HTTP server, "
+                 + " ".join(SERVE_FLAGS) + f", {MESH_SERVE_NEW} new tokens",
+           plain=out["plain"], mesh=out["mesh"],
+           greedy_rows_identical=f"per request (1 row x "
+                                 f"{MESH_REQUEST_REPS}) and --slots 8 (8 "
+                                 f"rows x {MESH_SLOTS_REPS})",
+           f32_greedy_identical=f"{len(prompts)} prompt of 300 tokens, "
+                                f"{MESH_F32_NEW} new tokens")
+    return launches
+
+
 def _plain_server():
     """The per-request server at SERVE_FLAGS (bf16 compute on the seed-0
     weights): the feature phases' reference.  -> (run, server)."""
@@ -4420,7 +4928,7 @@ def main():
     fd_launches, run = _timed("serve", serve, fd)
     _timed("fa_kernel_check", check_fa_kernels, fa, dev)
     _timed("train_parity", check_train_parity, dev)
-    fa_launches, losses = _timed("train", train, fa, dev, smi)
+    fa_launches, losses, plain_train = _timed("train", train, fa, dev, smi)
     t0 = time.perf_counter()
     serving = time_kernel(fd, dev, cache_len=1056, lengths=[731])
     time_kernel(fd, dev, cache_len=4096, lengths=[4096])
@@ -4467,6 +4975,17 @@ def main():
         _timed("train_resnet_resume", train_resnet_resume, smi)
         _timed("serve_resnet", serve_resnet, dev, smi, model_dir)
 
+    from container_engine_accelerators_tpu_torch.parallel import dcn
+
+    _timed("nccl", nccl_phase, smi)
+    mesh_launches = _timed("mesh_train", mesh_train, fa, smi, losses,
+                           plain_train)
+    _timed("mesh_resume", mesh_resume, smi, losses)
+    _timed("mesh_resnet", mesh_resnet, dev, smi)
+    fd_launches += _timed("mesh_serve", mesh_serve, fd, dev, smi)
+    dcn.shutdown()
+    torch.cuda.empty_cache()
+
     before = _kernel_counts()
     _timed("nvml", node_nvml, smi)
     _timed("nvml_load", node_nvml_load, smi)
@@ -4491,7 +5010,8 @@ def main():
                 **{k: serving[k] for k in keys}}]
     kernels += [{"name": name, "route": "cuda", "source": src,
                  "replaces": line,
-                 "launches": fa_launches[name] + moe_launches[name],
+                 "launches": (fa_launches[name] + moe_launches[name]
+                              + mesh_launches[name]),
                  **{k: fa_rows[name][k] for k in keys}}
                 for name, (line, _, src) in FA_KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,6 +17,8 @@ resumes and profiles itself — ``cmd/train_lm.py`` ->
 with ``cmd/trace_summary.py`` to read its traces — and the image models,
 trained and served on cuDNN — ``cmd/train_resnet.py`` ->
 ``models/train.py`` -> ``models/resnet.py`` / ``models/inception.py``,
-and ``cmd/serve_resnet.py``.  The kernels are hand-written CUDA in
+and ``cmd/serve_resnet.py`` — and the same trainers and the LM server
+across GPUs, one process a GPU over a (data, model) mesh of DTensor
+weights (``parallel/``).  The kernels are hand-written CUDA in
 ``ops/csrc/``, built together by ``ops/build.py``.
 """

@@ -29,8 +29,24 @@ once and their block copied into each request's cache) and
 ``--slots`` but not with those two.  ``--num-experts E`` serves the
 MoE-LM (drop-free top-1 routing, ``ops/moe.py``) and composes with all
 of them; the ``--speculative`` draft is an MoE-LM of the same experts.
-The flag of the multi-GPU slice (``--tp > 1``) is accepted by the parser
-and rejected by :func:`validate_args` with a message naming that slice.
+``--tp N`` serves the model tensor parallel over N ranks, one process a
+GPU (``torchrun --nproc-per-node N -m ...serve_lm --tp N``; the K8s env
+contract of ``parallel/dcn.py``), per request or with ``--slots``: the
+weights are DTensors laid out by the JAX rule over a (1, N) mesh and
+each rank's cache holds its KV heads (``models/generate.py``,
+``models/batching.py``).  Rank 0 alone serves HTTP and admits requests;
+before each collective step it broadcasts what the other ranks need —
+a request's padded prompt, its length, temperature, seed and sampling
+flag (per request), or the batch of jobs the engine is about to advance
+(prompt, ``max_new``, temperature, seed) — and the others repeat that
+step in :func:`follow`, which they leave on a broadcast shutdown.  A
+request is parsed and checked on rank 0 before anything is broadcast,
+and the engine refuses an over-long one on every rank alike before any
+collective, so a failed request fails alone and no rank waits on a
+collective the others skip; a fault inside a collective (a lost rank, a
+device error) ends the server.  ``--flash-decode``, ``--speculative``,
+``--weights int8``, ``--prefix-cache`` and ``--num-experts`` with
+``--tp > 1`` come with the next multi-GPU slice and exit naming it.
 """
 
 import argparse
@@ -47,8 +63,8 @@ from container_engine_accelerators_tpu_torch.models.batching import bucket_len
 
 log = logging.getLogger("serve-lm")
 
-_LATER = ("is not ported yet: it comes with a later serving slice of the "
-          "PyTorch port (the multi-GPU slice)")
+_NEXT_SLICE = ("is not ported yet: it comes with the next multi-GPU slice "
+               "of the PyTorch port")
 
 
 def parse_args(argv=None):
@@ -95,7 +111,8 @@ def parse_args(argv=None):
                         "--prefix-cache, --speculative (a speculative "
                         "round per fleet step) and --prefill-chunk")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (only 1 is ported)")
+                   help="tensor-parallel degree: one rank a GPU, launched "
+                        "by torchrun (or the K8s env of parallel/dcn.py)")
     p.add_argument("--speculative", type=int, default=0, metavar="K",
                    help="speculative decoding (models/speculative.py): a "
                         "draft proposes K tokens a round, the target "
@@ -123,11 +140,18 @@ def parse_args(argv=None):
 
 
 def validate_args(args):
-    """Flag gates: the JAX server's composition rules, plus the feature
-    of the multi-GPU slice, which the port does not serve yet."""
+    """Flag gates: the JAX server's composition rules, plus the
+    combinations with ``--tp > 1`` the next multi-GPU slice brings."""
+    if args.tp < 1:
+        raise SystemExit("--tp must be >= 1")
     if args.speculative and args.tp > 1:
         raise SystemExit("--speculative and --tp > 1 are mutually "
-                         "exclusive (the draft runs single-device)")
+                         "exclusive (the draft runs single-device); a "
+                         f"sharded draft {_NEXT_SLICE}")
+    if args.flash_decode and args.tp > 1:
+        raise SystemExit("--flash-decode and --tp > 1 are mutually "
+                         "exclusive (the kernel is single-device); a "
+                         f"head-sharded kernel call {_NEXT_SLICE}")
     if args.prefill_chunk < 0:
         raise SystemExit("--prefill-chunk must be >= 0")
     if args.prefill_chunk and (args.speculative or args.prefix_cache):
@@ -138,12 +162,38 @@ def validate_args(args):
     if args.slots < 0:
         raise SystemExit("--slots must be >= 0")
     unported = [
-        ("--slots with --tp > 1", args.slots and args.tp > 1),
-        ("--tp > 1 (tensor parallelism)", args.tp > 1),
+        ("--num-experts with --tp > 1 (expert sharding)",
+         args.num_experts and args.tp > 1),
+        ("--weights int8 with --tp > 1", args.weights == "int8"
+         and args.tp > 1),
+        ("--prefix-cache with --tp > 1", args.prefix_cache and args.tp > 1),
     ]
     for flag, on in unported:
         if on:
-            raise SystemExit(f"{flag} {_LATER}")
+            raise SystemExit(f"{flag} {_NEXT_SLICE}")
+
+
+def serving_mesh(args):
+    """The (1, tp) mesh to serve over, or None: with ``--tp > 1``, or
+    when a launcher (torchrun) started more than one rank, the process
+    group is joined (``parallel/dcn.py::initialize``) and its world must
+    be ``--tp`` ranks.  One rank at ``--tp 1`` serves the plain path,
+    launcher or not, so every combination ``validate_args`` refuses with
+    ``--tp > 1`` is refused wherever a mesh is taken."""
+    from container_engine_accelerators_tpu_torch.parallel import dcn
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        create_mesh,
+    )
+
+    if args.tp == 1 and dcn.resolve_cluster()[1] == 1:
+        return None
+    world, rank = dcn.initialize(device=args.device, force=True)
+    if world != args.tp:
+        raise SystemExit(f"--tp {args.tp} needs {args.tp} ranks, one a "
+                         f"GPU; the process group has {world}")
+    log.info("rank %d/%d: params sharded %d-way tensor parallel", rank,
+             world, args.tp)
+    return create_mesh(data=1, model=args.tp)
 
 
 def _model_cfg(args, **over) -> dict:
@@ -236,7 +286,7 @@ def load_draft_params(args) -> dict:
     return _random_params(cfg, 1)
 
 
-def build_generate(args):
+def build_generate(args, mesh=None):
     """Build the decode model on ``args.device`` with the weights of
     :func:`load_params` (cast or quantized to ``--weights``), and with
     ``--speculative`` its draft, and return ``run(prompt, prompt_len,
@@ -251,7 +301,12 @@ def build_generate(args):
     ``run.spec_rounds`` / ``spec_drafted`` / ``spec_accepted`` count the
     per-request speculative rounds.  With ``--prefix-cache``,
     ``run.prefix_cache`` (and ``run.draft_prefix_cache`` with
-    ``--speculative``) hold the prefix blocks."""
+    ``--speculative``) hold the prefix blocks.
+
+    With a ``mesh`` (:func:`serving_mesh`) the weights are sharded over
+    it, the device is this rank's GPU, and every rank calls ``run`` alike:
+    rank 0's arguments are broadcast and the others run with them
+    (:func:`follow` makes those calls on the follower ranks)."""
     from container_engine_accelerators_tpu_torch.models.generate import (
         generate,
     )
@@ -269,11 +324,21 @@ def build_generate(args):
     from container_engine_accelerators_tpu_torch.models.transformer import (
         TransformerLM,
     )
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        broadcast_control,
+        shard_params,
+    )
     from container_engine_accelerators_tpu_torch.utils.device import (
         resolve_device,
     )
 
     device = resolve_device(args.device)
+    if mesh is not None:
+        from container_engine_accelerators_tpu_torch.parallel.dcn import (
+            local_device,
+        )
+
+        device = local_device(args.device)
     model = TransformerLM(**_model_cfg(args), decode=True,
                           quant=args.weights == "int8",
                           use_flash_decode=args.flash_decode, device=device)
@@ -283,6 +348,8 @@ def build_generate(args):
         log.info("serving weights cast to %s", args.weights)
     model.load_state_dict(params)  # casts to the compute dtype once
     model.eval()
+    if mesh is not None:
+        shard_params(model, mesh)
 
     # Speculative decoding: greedy requests draft/verify with the
     # argmax-match rule (the target's own greedy tokens); sampled
@@ -301,7 +368,19 @@ def build_generate(args):
     n_new = args.max_new_tokens
 
     def run(prompt, prompt_len, temperature, seed, sample, prefix=None):
-        with lock, torch.inference_mode():
+        with lock:
+            if mesh is not None:
+                # Every rank enters here with rank 0's arguments.
+                prompt, prompt_len, temperature, seed, sample = \
+                    broadcast_control(("run", (prompt, prompt_len,
+                                               temperature, seed,
+                                               sample)))[1]
+            return run_local(prompt, prompt_len, temperature, seed, sample,
+                             prefix)
+
+    def run_local(prompt, prompt_len, temperature, seed, sample,
+                  prefix=None):
+        with torch.inference_mode():
             prompt = prompt.to(device)
             sample = sample and temperature > 0
             gen = (torch.Generator(device=device).manual_seed(seed)
@@ -334,6 +413,9 @@ def build_generate(args):
             return out.cpu()
 
     run.model = model
+    run.mesh = mesh
+    run.lock = lock
+    run.local = run_local
     run.params = f32_params
     run.draft = draft
     run.spec_rounds = run.spec_drafted = run.spec_accepted = 0
@@ -378,17 +460,37 @@ def build_engine(run, args):
                         prefill_chunk=args.prefill_chunk or None)
 
 
+def _leader(run) -> bool:
+    import torch.distributed as dist
+
+    return run.mesh is None or dist.get_rank() == 0
+
+
 def start_engine(run, args):
     """With ``--slots``: the engine's stepper (an ``EngineLoop``), warmed
     before traffic (max_new 2, so that a fleet step runs: a 1-token
-    request retires inside submit).  None without ``--slots``."""
+    request retires inside submit).  None without ``--slots``.  On a
+    mesh, rank 0's loop broadcasts each batch of jobs before it advances
+    it, and a follower rank gets its bare engine (it steps in
+    :func:`follow`)."""
     if not args.slots:
         return None
     from container_engine_accelerators_tpu_torch.models.batching import (
         EngineLoop,
+        job_args,
+    )
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        broadcast_control,
     )
 
-    engine_loop = EngineLoop(build_engine(run, args))
+    engine = build_engine(run, args)
+    if not _leader(run):
+        return engine
+    hook = None
+    if run.mesh is not None:
+        def hook(jobs):
+            broadcast_control(("advance", job_args(jobs)))
+    engine_loop = EngineLoop(engine, on_advance=hook)
     engine_loop.generate([0], 2)
     log.info("continuous batching: %d decode slots%s", args.slots,
              f" (speculative, k={args.speculative})" if args.speculative
@@ -510,17 +612,68 @@ def make_handler(run, args, engine_loop=None):
     return Handler
 
 
+def follow(run, engine=None):
+    """A follower rank's loop: take each step rank 0 broadcasts — a
+    per-request ``run`` (``run.local``) or an engine advance
+    (``models/batching.py::follow_advance`` on ``engine``, what
+    :func:`start_engine` returned here) — until the shutdown (None).  A
+    request that raises here raised on rank 0 too (the same call on the
+    same inputs), where the handler answers 400: the loop goes on."""
+    from container_engine_accelerators_tpu_torch.models.batching import (
+        follow_advance,
+    )
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        broadcast_control,
+    )
+
+    while True:
+        msg = broadcast_control(None)
+        if msg is None:
+            return
+        kind, payload = msg
+        if kind == "advance":
+            follow_advance(engine, payload)
+            continue
+        try:
+            run.local(*payload)
+        except Exception:  # noqa: BLE001 — rank 0 answers it with a 400
+            log.exception("request failed on this rank, as on rank 0")
+
+
+def stop_followers(run, engine_loop=None):
+    """Rank 0: stop the engine's stepper, then broadcast the shutdown
+    (under ``run``'s lock, so it cannot interleave with a request's
+    broadcast)."""
+    if engine_loop is not None:
+        engine_loop.close()
+    if run.mesh is None:
+        return
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        broadcast_control,
+    )
+
+    with run.lock:
+        broadcast_control(None)
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     args = parse_args(argv)
     validate_args(args)
-    run = build_generate(args)
+    mesh = serving_mesh(args)
+    run = build_generate(args, mesh)
     engine_loop = start_engine(run, args)
+    if not _leader(run):
+        follow(run, engine_loop)
+        return
     server = ThreadingHTTPServer(("0.0.0.0", args.port),
                                  make_handler(run, args, engine_loop))
     log.info("serving LM on :%d", server.server_address[1])
-    server.serve_forever()
+    try:
+        server.serve_forever()
+    finally:
+        stop_followers(run, engine_loop)
 
 
 if __name__ == "__main__":

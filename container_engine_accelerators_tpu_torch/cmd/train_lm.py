@@ -20,11 +20,24 @@ With ``--num-experts E`` it trains the MoE-LM (a Switch top-1 FFN of E
 experts in every block, capacity factor 1.25, the load-balance loss at
 weight 0.01 in the objective; ``ops/moe.py``).
 
+Across GPUs it runs one process a GPU, over a (data, model) mesh
+(``parallel/``): launch it with ``torchrun --nproc-per-node N -m
+container_engine_accelerators_tpu_torch.cmd.train_lm`` (or under the K8s
+env contract of ``parallel/dcn.py``).  ``--model-par M`` shards every
+weight over the model axis by the JAX rule, ``--param-sharding fsdp``
+also over the data axis (with the AdamW moments), and the batch splits
+by rows over the data axis.  The mesh path runs when a launcher started
+more than one rank, or with ``--model-par > 1`` or ``--param-sharding
+fsdp`` (on one rank, the (1, 1) mesh); one rank without them is the
+single-device trainer, launcher or not.  Every rank builds the same global
+batch and keeps its rows (``--data-dir``: reads only its rows); rank 0
+logs and writes the checkpoints.  ``--seq-parallel`` and
+``--num-experts`` on a mesh come with the next multi-GPU slice and exit
+naming it.
+
 Run: ``python -m container_engine_accelerators_tpu_torch.cmd.train_lm
 [--train-steps N] [--num-experts E] ...``.  It takes the JAX trainer's
-flags; those of the multi-GPU slice of the port (``--seq-parallel``,
-``--model-par > 1``, ``--param-sharding fsdp``) exit with a message
-naming the slice.
+flags.
 """
 
 import argparse
@@ -36,11 +49,17 @@ import time
 import numpy as np
 import torch
 
+from container_engine_accelerators_tpu_torch.parallel.launch import (
+    stop_agreed,
+    trainer_mesh,
+    wants_mesh,
+)
 from container_engine_accelerators_tpu_torch.utils.profile import ProfileWindow
 
 log = logging.getLogger("train-lm")
 
-_MULTI_GPU = "is not ported yet: it comes with the multi-GPU slice of the PyTorch port"
+_NEXT_SLICE = ("is not ported yet: it comes with the next multi-GPU slice "
+               "of the PyTorch port")
 
 
 def parse_args(argv=None):
@@ -64,10 +83,11 @@ def parse_args(argv=None):
                    help="sequence parallelism (only none is ported)")
     p.add_argument("--param-sharding", default="megatron",
                    choices=("megatron", "fsdp"),
-                   help="weight layout across devices (only the "
-                        "single-device megatron default is ported)")
+                   help="weight layout over the mesh: megatron (model "
+                        "axis) or fsdp (also the data axis, with the "
+                        "AdamW moments)")
     p.add_argument("--model-par", type=int, default=1,
-                   help="tensor-parallel degree (only 1 is ported)")
+                   help="tensor-parallel degree (ranks on the model axis)")
     p.add_argument("--learning-rate", type=float, default=3e-4)
     p.add_argument("--train-steps", type=int, default=100)
     p.add_argument("--steps-per-eval", type=int, default=20)
@@ -94,16 +114,17 @@ def validate_args(args):
             "--num-experts with --seq-parallel is not validated: MoE "
             "capacity routing under sequence sharding changes the "
             "global token-drop semantics; drop one of the flags")
+    if args.model_par < 1:
+        raise SystemExit("--model-par must be >= 1")
     unported = [
-        (f"--seq-parallel {args.seq_parallel}", args.seq_parallel != "none",
-         _MULTI_GPU),
-        ("--model-par > 1 (tensor parallelism)", args.model_par > 1,
-         _MULTI_GPU),
-        ("--param-sharding fsdp", args.param_sharding == "fsdp", _MULTI_GPU),
+        (f"--seq-parallel {args.seq_parallel}", args.seq_parallel != "none"),
+        ("--num-experts on a mesh (expert sharding)",
+         args.num_experts and wants_mesh(args.model_par,
+                                         args.param_sharding)),
     ]
-    for flag, on, why in unported:
+    for flag, on in unported:
         if on:
-            raise SystemExit(f"{flag} {why}")
+            raise SystemExit(f"{flag} {_NEXT_SLICE}")
 
 
 def synthetic_batches(args, n_batches=4):
@@ -134,7 +155,21 @@ def main(argv=None, on_step=None):
                         format="%(asctime)s %(levelname)s %(message)s")
     args = parse_args(argv)
     validate_args(args)
+    import torch.distributed as dist
 
+    from container_engine_accelerators_tpu_torch.parallel import dcn
+
+    # A process group this run creates, it destroys.
+    owns_group = (wants_mesh(args.model_par, args.param_sharding)
+                  and not dist.is_initialized())
+    try:
+        return _train(args, on_step)
+    finally:
+        if owns_group:
+            dcn.shutdown()
+
+
+def _train(args, on_step):
     from container_engine_accelerators_tpu_torch.models.lm_train import (
         create_lm_train_state,
         make_lm_train_step,
@@ -150,7 +185,13 @@ def main(argv=None, on_step=None):
         checkpoint_and_exit,
     )
 
+    mesh, rank = None, 0
     device = resolve_device(args.device)
+    if wants_mesh(args.model_par, args.param_sharding):
+        mesh, rank, device = trainer_mesh(args.device, args.model_par,
+                                          args.train_batch_size)
+        if rank:
+            log.setLevel(logging.WARNING)  # rank 0 logs
     model = TransformerLM(
         vocab_size=args.vocab_size, num_layers=args.num_layers,
         num_heads=args.num_heads, head_dim=args.head_dim,
@@ -160,7 +201,8 @@ def main(argv=None, on_step=None):
         model, torch.Generator().manual_seed(0),
         torch.optim.AdamW(model.parameters(), lr=args.learning_rate,
                           weight_decay=0.1))
-    step_fn = make_lm_train_step(None, args.param_sharding)
+    step_fn, state = make_lm_train_step(mesh, state, None,
+                                        args.param_sharding)
     log.info("device %s, %d params, seq_len %d, batch %d%s", device,
              sum(p.numel() for p in model.parameters()), args.seq_len,
              args.train_batch_size,
@@ -179,10 +221,28 @@ def main(argv=None, on_step=None):
             start_step = restored_step
             log.info("resuming from checkpoint at step %d", start_step)
 
-    def on_device(toks, labels, mask):
-        return (torch.from_numpy(toks).to(device, torch.long),
-                torch.from_numpy(labels).to(device, torch.long),
-                torch.from_numpy(mask).to(device))
+    rows = slice(None)
+    shard = (0, 1)
+    if mesh is not None:
+        from container_engine_accelerators_tpu_torch.parallel.mesh import (
+            batch_rows,
+            data_shard,
+            from_local_batch,
+        )
+
+        start, n = batch_rows(mesh, args.train_batch_size)
+        rows = slice(start, start + n)
+        shard = data_shard(mesh)
+
+    def on_device(toks, labels, mask, rows=rows):
+        """A batch on the device: this rank's rows of the global batch,
+        as the batch DTensor on a mesh."""
+        out = (torch.from_numpy(toks[rows]).to(device, torch.long),
+               torch.from_numpy(labels[rows]).to(device, torch.long),
+               torch.from_numpy(mask[rows]).to(device))
+        if mesh is None:
+            return out
+        return tuple(from_local_batch(x, mesh) for x in out)
 
     # Both sources are pure functions of the step, so a resumed run sees
     # the batches the unbroken run would have seen from start_step on.
@@ -195,7 +255,7 @@ def main(argv=None, on_step=None):
 
         reader = TokenShardReader(args.data_dir)
         loader = TokenBatchLoader(reader, args.train_batch_size, args.seq_len,
-                                  vocab_size=args.vocab_size)
+                                  vocab_size=args.vocab_size, shard=shard)
         log.info("dataset: %d tokens (%d steps/epoch) from %s",
                  reader.total_tokens, loader.steps_per_epoch(), args.data_dir)
         batch_iter = loader.iter_batches(start_step,
@@ -216,7 +276,8 @@ def main(argv=None, on_step=None):
                     profile = ProfileWindow(args.profile_dir, device,
                                             "train_lm")
                 if batch_iter is not None:
-                    toks, labels, mask = on_device(*next(batch_iter))
+                    toks, labels, mask = on_device(*next(batch_iter),
+                                                   rows=slice(None))
                 else:
                     toks, labels, mask = batches[step % len(batches)]
                 with (profile.step(step) if profile
@@ -238,7 +299,7 @@ def main(argv=None, on_step=None):
                                      if k.startswith("moe_")))
                 if checkpointer and (step + 1) % args.checkpoint_interval == 0:
                     checkpointer.save(state)
-                if guard.should_stop:
+                if stop_agreed(guard.should_stop, mesh):
                     checkpoint_and_exit(checkpointer, state, step,
                                         args.checkpoint_interval, profile)
     finally:

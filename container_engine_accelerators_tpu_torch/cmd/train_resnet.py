@@ -19,9 +19,24 @@ SIGTERM finishes the current step, saves, and exits 80
 BatchNorm statistics, as the JAX trainer writes ``state.params`` alone);
 ``cmd/serve_resnet.py --model-dir`` serves them.
 
+Across GPUs it runs one process a GPU over a (data, model) mesh
+(``torchrun --nproc-per-node N -m ...train_resnet [--model-par M]``, or
+the K8s env contract of ``parallel/dcn.py``): the weights and their
+momentum are laid out tensor parallel by the JAX rule, the batch splits
+by rows over the data axis, and BatchNorm takes the global batch's
+statistics (``models/train.py::make_sharded_train_step``).  The mesh
+path runs when a launcher started more than one rank or with
+``--model-par > 1``; one rank without it is the single-device trainer.
+Each model rank repeats the whole convolutions (``models/resnet.py::
+Conv``), so ``--model-par`` shards memory, not compute.  Inception-v3 on
+a mesh comes with the next multi-GPU slice and exits naming it.  Each
+data-parallel rank makes its own rows
+(synthetic: ``np.random.default_rng(<data index>)``, the JAX trainer's
+per-process stream; ``--data-dir``: its rows of the global batch); rank
+0 logs and writes.
+
 Run: ``python -m container_engine_accelerators_tpu_torch.cmd.train_resnet
-[--train-steps N] ...``.  It takes the JAX trainer's flags;
-``--model-par > 1`` exits naming the multi-GPU slice.
+[--train-steps N] ...``.  It takes the JAX trainer's flags.
 """
 
 import argparse
@@ -33,12 +48,18 @@ import time
 import numpy as np
 import torch
 
+from container_engine_accelerators_tpu_torch.parallel.launch import (
+    stop_agreed,
+    trainer_mesh,
+    wants_mesh,
+)
 from container_engine_accelerators_tpu_torch.utils.profile import ProfileWindow
 
 log = logging.getLogger("train-resnet")
 
-_MULTI_GPU = "is not ported yet: it comes with the multi-GPU slice of the PyTorch port"
 PARAMS_FILE = "params.pt"
+_NEXT_SLICE = ("is not ported yet: it comes with the next multi-GPU slice "
+               "of the PyTorch port")
 
 
 def parse_args(argv=None):
@@ -58,7 +79,10 @@ def parse_args(argv=None):
     p.add_argument("--num-classes", type=int, default=1000)
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--model-par", type=int, default=1,
-                   help="tensor-parallel degree (only 1 is ported)")
+                   help="tensor-parallel degree (ranks on the model "
+                        "axis).  The weights are sharded, but each model "
+                        "rank repeats the whole convolutions: M ranks add "
+                        "collectives and split no convolution compute")
     p.add_argument("--data-dir", default=None,
                    help="array-shard dataset dir (data/arrays.py format: "
                         "images + labels).  Default: synthetic images")
@@ -76,12 +100,14 @@ def parse_args(argv=None):
 
 
 def validate_args(args):
-    """The JAX trainer's own check, and the flag this slice of the port
-    does not train with yet."""
+    """The JAX trainer's own checks, plus the model the port does not
+    train on a mesh yet."""
     if args.checkpoint_interval < 1:
         raise SystemExit("--checkpoint-interval must be >= 1")
-    if args.model_par > 1:
-        raise SystemExit(f"--model-par > 1 (tensor parallelism) {_MULTI_GPU}")
+    if args.model_par < 1:
+        raise SystemExit("--model-par must be >= 1")
+    if args.model == "inception-v3" and wants_mesh(args.model_par):
+        raise SystemExit(f"--model inception-v3 on a mesh {_NEXT_SLICE}")
 
 
 def build_model(args, device):
@@ -98,24 +124,29 @@ def build_model(args, device):
                   device=device)
 
 
-def synthetic_batches(args, n_batches=4):
-    """The JAX trainer's synthetic data for process 0: ``n_batches`` NHWC
-    f32 image batches from ``np.random.default_rng(0)``, then as many
-    label batches (identical batches could let a measurement
+def synthetic_batches(args, n_batches=4, index=0, count=1):
+    """The JAX trainer's synthetic data for process ``index`` of
+    ``count``: ``n_batches`` NHWC f32 image batches of its
+    ``batch / count`` rows from ``np.random.default_rng(index)``, then as
+    many label batches (identical batches could let a measurement
     short-circuit, so they rotate)."""
-    rng = np.random.default_rng(0)
-    shape = (args.train_batch_size, args.image_size, args.image_size, 3)
+    rng = np.random.default_rng(index)
+    shape = (args.train_batch_size // count, args.image_size,
+             args.image_size, 3)
     xs = [rng.standard_normal(shape, dtype=np.float32)
           for _ in range(n_batches)]
-    ys = [rng.integers(0, args.num_classes, (args.train_batch_size,),
+    ys = [rng.integers(0, args.num_classes, (shape[0],),
                        dtype=np.int32) for _ in range(n_batches)]
     return list(zip(xs, ys))
 
 
 def params_state(model: torch.nn.Module) -> dict:
-    """The model's parameters alone (no BatchNorm statistics), on the
-    CPU: what ``--model-dir`` receives."""
-    return {name: p.detach().cpu() for name, p in model.named_parameters()}
+    """The model's parameters alone (no BatchNorm statistics), whole and
+    on the CPU: what ``--model-dir`` receives."""
+    from container_engine_accelerators_tpu_torch.parallel.mesh import full
+
+    return {name: full(p.detach()).cpu()
+            for name, p in model.named_parameters()}
 
 
 def main(argv=None, on_step=None):
@@ -127,10 +158,24 @@ def main(argv=None, on_step=None):
                         format="%(asctime)s %(levelname)s %(message)s")
     args = parse_args(argv)
     validate_args(args)
+    import torch.distributed as dist
 
+    from container_engine_accelerators_tpu_torch.parallel import dcn
+
+    # A process group this run creates, it destroys.
+    owns_group = wants_mesh(args.model_par) and not dist.is_initialized()
+    try:
+        return _train(args, on_step)
+    finally:
+        if owns_group:
+            dcn.shutdown()
+
+
+def _train(args, on_step):
     from container_engine_accelerators_tpu_torch.models.train import (
         cosine_sgd,
         create_train_state,
+        make_sharded_train_step,
         train_step,
     )
     from container_engine_accelerators_tpu_torch.utils.device import (
@@ -141,13 +186,22 @@ def main(argv=None, on_step=None):
         checkpoint_and_exit,
     )
 
+    mesh, rank = None, 0
     device = resolve_device(args.device)
+    if wants_mesh(args.model_par):
+        mesh, rank, device = trainer_mesh(args.device, args.model_par,
+                                          args.train_batch_size)
+        if rank:
+            log.setLevel(logging.WARNING)  # rank 0 logs
     model = build_model(args, device)
     state = create_train_state(
         model, torch.Generator().manual_seed(0),
         cosine_sgd(base_lr=args.base_learning_rate,
                    total_steps=args.train_steps,
                    warmup_steps=min(500, max(1, args.train_steps // 10))))
+    step_fn = train_step
+    if mesh is not None:
+        step_fn, state = make_sharded_train_step(mesh, state)
     name = (args.model if args.model != "resnet"
             else f"resnet-{args.resnet_depth}")
     log.info("device %s, %s, %d params, batch %d at %dx%d", device, name,
@@ -167,10 +221,24 @@ def main(argv=None, on_step=None):
             start_step = restored_step
             log.info("resuming from checkpoint at step %d", start_step)
 
+    shard = (0, 1)
+    if mesh is not None:
+        from container_engine_accelerators_tpu_torch.parallel.mesh import (
+            data_shard,
+            from_local_batch,
+        )
+
+        shard = data_shard(mesh)
+
     def on_device(images, labels):
-        # NHWC permuted to NCHW is channels_last: no copy on the device.
-        return (torch.from_numpy(images).to(device).permute(0, 3, 1, 2),
-                torch.from_numpy(labels).to(device, torch.long))
+        """This rank's rows on the device (the batch DTensor on a
+        mesh).  NHWC permuted to NCHW is channels_last: no copy on the
+        device."""
+        out = (torch.from_numpy(images).to(device).permute(0, 3, 1, 2),
+               torch.from_numpy(labels).to(device, torch.long))
+        if mesh is None:
+            return out
+        return tuple(from_local_batch(x, mesh) for x in out)
 
     # Both sources are pure functions of the step, so a resumed run sees
     # the batches the unbroken run would have seen from start_step on.
@@ -188,14 +256,15 @@ def main(argv=None, on_step=None):
                 f"--data-dir samples are {reader.sample_shape}, model "
                 f"expects {want} (set --image-size to match)")
         loader = ImageBatchLoader(reader, args.train_batch_size,
-                                  num_classes=args.num_classes)
+                                  num_classes=args.num_classes, shard=shard)
         log.info("dataset: %d samples (%d steps/epoch) from %s",
                  reader.total_samples, loader.steps_per_epoch(),
                  args.data_dir)
         batch_iter = loader.iter_batches(start_step,
                                          args.train_steps - start_step)
     else:
-        batches = [on_device(*b) for b in synthetic_batches(args)]
+        batches = [on_device(*b) for b in synthetic_batches(args, 4,
+                                                            *shard)]
 
     losses = []
     profile = None
@@ -214,7 +283,7 @@ def main(argv=None, on_step=None):
                     images, labels = batches[step % len(batches)]
                 with (profile.step(step) if profile
                       else contextlib.nullcontext()):
-                    state, metrics = train_step(state, images, labels)
+                    state, metrics = step_fn(state, images, labels)
                 losses.append(metrics["loss"])
                 if on_step is not None:
                     on_step(step, metrics["loss"])
@@ -230,7 +299,7 @@ def main(argv=None, on_step=None):
                              / dt)
                 if checkpointer and (step + 1) % args.checkpoint_interval == 0:
                     checkpointer.save(state)
-                if guard.should_stop:
+                if stop_agreed(guard.should_stop, mesh):
                     checkpoint_and_exit(checkpointer, state, step,
                                         args.checkpoint_interval, profile)
     finally:
@@ -246,10 +315,12 @@ def main(argv=None, on_step=None):
             checkpointer.save(state)
         checkpointer.close()
     if args.model_dir:
-        os.makedirs(args.model_dir, exist_ok=True)
-        path = os.path.join(args.model_dir, PARAMS_FILE)
-        torch.save(params_state(state.model), path)
-        log.info("wrote final params to %s", path)
+        params = params_state(state.model)  # every rank: a collective
+        if rank == 0:
+            os.makedirs(args.model_dir, exist_ok=True)
+            path = os.path.join(args.model_dir, PARAMS_FILE)
+            torch.save(params, path)
+            log.info("wrote final params to %s", path)
     return losses
 
 

@@ -82,11 +82,22 @@ def _prefetched(batch_fn, start_step: int, num_steps: int,
 
 
 class TokenBatchLoader:
+    """``shard=(index, count)`` makes ``batch_at`` return only rows
+    ``[index * b/count, (index + 1) * b/count)`` of the global batch
+    (one data-parallel rank's), as :class:`ImageBatchLoader` does: the
+    union over the shards is the global batch, and the mapping stays
+    pure."""
+
     def __init__(self, reader: TokenShardReader, batch_size: int,
                  seq_len: int, vocab_size: Optional[int] = None,
-                 prefetch: int = 2):
+                 prefetch: int = 2, shard: Tuple[int, int] = (0, 1)):
         if batch_size < 1 or seq_len < 1:
             raise ValueError("batch_size and seq_len must be >= 1")
+        index, count = shard
+        if count < 1 or not 0 <= index < count or batch_size % count:
+            raise ValueError(
+                f"shard {shard} invalid for batch_size {batch_size}")
+        self.shard = shard
         self.reader = reader
         self.batch_size = batch_size
         self.seq_len = seq_len
@@ -94,11 +105,14 @@ class TokenBatchLoader:
         self.prefetch = prefetch
 
     def batch_at(self, step: int) -> Batch:
-        """(tokens, labels, mask), each [B, T] — pure in ``step``."""
+        """(tokens, labels, mask), each [B, T] (this shard's rows) — pure
+        in ``step``."""
         b, t = self.batch_size, self.seq_len
+        index, count = self.shard
+        rows = b // count
         window = np.stack([
             self.reader.read((step * b + r) * t, t + 1)
-            for r in range(b)
+            for r in range(index * rows, (index + 1) * rows)
         ])
         peak = int(window.max())
         if peak >= 2**31:
@@ -114,7 +128,7 @@ class TokenBatchLoader:
                 f"raise --vocab-size")
         tokens = window[:, :-1].astype(np.int32)
         labels = window[:, 1:].astype(np.int32)
-        return tokens, labels, np.ones((b, t), np.float32)
+        return tokens, labels, np.ones((rows, t), np.float32)
 
     def iter_batches(self, start_step: int,
                      num_steps: int) -> Iterator[Batch]:

@@ -1,7 +1,7 @@
 """Continuous-batching decode engine (slot-based serving) — counterpart of
 ``container_engine_accelerators_tpu/models/batching.py`` (``bucket_len``,
-``DecodeEngine`` with its prefix-cache branch, ``SpecDecodeEngine`` and
-``EngineLoop``; the mesh branch comes with the multi-GPU slice).
+``DecodeEngine`` with its prefix-cache branch, ``SpecDecodeEngine``,
+``EngineLoop`` and the mesh branch).
 
 Per-request ``generate()`` leaves the card idle between requests and pays
 each request's decode serially.  This engine keeps one single-token step
@@ -33,6 +33,20 @@ its lane is the block copied into a fresh lane, and its prompt ids are
 the suffix.  ``SpecDecodeEngine`` runs speculative rounds over the fleet
 (``models/speculative.py::spec_round``) with a parallel draft-cache
 fleet.
+
+The mesh branch (``serve_lm --tp --slots``): over a model sharded on a
+(1, tp) mesh, the fleet cache holds this rank's KV heads when the model
+axis divides them (``generate.init_cache``; else every head, with a
+warning), and the cursor, token and live-lane vectors are whole on every
+rank.  JAX drives every chip from one process; here each rank is a
+process with an engine of its own, and every rank must make the same
+engine calls in the same order, since each forward is a collective.
+Rank 0's ``EngineLoop`` sends each batch of jobs it is about to advance
+through ``on_advance`` before it submits and steps (``cmd/serve_lm.py``
+broadcasts them), and each other rank repeats the same
+:func:`follow_advance` on its own engine.  A submit the engine refuses
+(too long for a slot) is refused on every rank alike, before any
+collective, so no rank waits on a step another will not take.
 """
 
 import collections
@@ -56,6 +70,7 @@ from container_engine_accelerators_tpu_torch.models.generate import (
 from container_engine_accelerators_tpu_torch.models.speculative import (
     spec_round,
 )
+from container_engine_accelerators_tpu_torch.parallel.mesh import local_heads
 
 log = logging.getLogger(__name__)
 
@@ -159,6 +174,14 @@ class DecodeEngine:
         self.eos_id = eos_id
         self.prefill_chunk = prefill_chunk
         self.device = model.embed.device
+        mesh = model.mesh
+        if mesh is not None and local_heads(mesh, model.num_kv_heads) \
+                == model.num_kv_heads and mesh.size() > 1:
+            # Per-rank cache memory does not shrink with tp: an operator
+            # who sized slots for sharded lanes must hear about it.
+            log.warning("fleet KV heads (%d) do not divide the model axis; "
+                        "cache replicated on every rank",
+                        model.num_kv_heads)
         with torch.inference_mode():
             self.cache = init_cache(model, max_slots, max_len, self.device)
             self.pos = torch.zeros(max_slots, dtype=torch.int32,
@@ -294,6 +317,11 @@ class DecodeEngine:
         """Generated tokens (first token included) once finished."""
         return self._results.get(rid)
 
+    def drop_results(self) -> None:
+        """Forget every finished request's tokens (a follower rank's
+        engine, whose results nobody reads)."""
+        self._results.clear()
+
     def take_result(self, rid: int) -> Optional[List[int]]:
         """Like :meth:`result` but removes the entry — long-running
         servers must take, not peek, or finished requests accumulate for
@@ -413,8 +441,11 @@ class EngineLoop:
     waiter).
     """
 
-    def __init__(self, engine: DecodeEngine):
+    def __init__(self, engine: DecodeEngine, on_advance=None):
         self.engine = engine
+        # Called with each batch of jobs before it is advanced (the mesh
+        # branch's broadcast to the follower ranks).
+        self.on_advance = on_advance
         self.cond = threading.Condition()
         self._queue: collections.deque = collections.deque()
         self._running: Dict[int, dict] = {}  # request id -> job
@@ -437,6 +468,8 @@ class EngineLoop:
                     jobs = [self._queue.popleft() for _ in range(
                         min(len(self._queue), self.engine.free_slots))]
                 try:
+                    if self.on_advance is not None:
+                        self.on_advance(jobs)
                     done = self._advance(jobs)
                 except Exception as e:  # noqa: BLE001 — reported to waiters
                     log.exception("decode engine failed")
@@ -526,3 +559,27 @@ class EngineLoop:
             self._closed = True
             self.cond.notify_all()
         self._thread.join(timeout)
+
+
+def job_args(jobs) -> List[dict]:
+    """What a follower rank needs of a batch of :class:`EngineLoop` jobs
+    to repeat it: each job's prompt, ``max_new``, temperature and
+    seed."""
+    return [{k: j[k] for k in ("prompt", "max_new", "temperature", "seed")}
+            for j in jobs]
+
+
+@torch.inference_mode()
+def follow_advance(engine: DecodeEngine, jobs: List[dict]) -> None:
+    """A follower rank's copy of ``EngineLoop._advance`` on rank 0's
+    ``job_args``: the same submits (a refused one refused alike), the same
+    fleet step, the results dropped."""
+    for job in jobs:
+        try:
+            engine.submit(job["prompt"], job["max_new"],
+                          temperature=job["temperature"], seed=job["seed"])
+        except ValueError:
+            pass
+    if engine.live:
+        engine.step()
+    engine.drop_results()

@@ -11,6 +11,15 @@ A save is atomic: it writes into a temporary directory beside the steps
 and ``os.replace``-s it into place, so a step either landed whole or is
 absent, whatever kills the writer.  The server (``cmd/serve_lm.py
 --checkpoint-dir``) restores the same files through the same class.
+
+A file does not depend on the layout it was trained under.  A state
+sharded over a mesh (``parallel/mesh.py``) is gathered whole on every
+rank, rank 0 alone writes it, in the same format and with the same
+atomic rename and fsyncs, and the other ranks wait for its outcome (an
+error is raised on every rank).  A restore reads the file on every rank
+and lays each tensor out as the state's own parameter is laid out, so a
+checkpoint of a 2-rank FSDP run restores on one GPU and the other way
+round.
 """
 
 import logging
@@ -19,8 +28,14 @@ import shutil
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from container_engine_accelerators_tpu_torch.models.train import TrainState
+from container_engine_accelerators_tpu_torch.parallel.mesh import (
+    broadcast_control,
+    full,
+)
 from container_engine_accelerators_tpu_torch.utils import faults
 from container_engine_accelerators_tpu_torch.utils.retry import RetryPolicy
 
@@ -35,6 +50,28 @@ _TMP_PREFIX = ".tmp-"
 # times is a real outage and should surface.
 SAVE_RETRY = RetryPolicy(max_attempts=3, initial_backoff_s=0.2,
                          max_backoff_s=2.0)
+
+
+def _whole_tree(state: TrainState) -> dict:
+    """The state as one layout-free tree of plain tensors: every DTensor
+    gathered whole (a collective: every rank calls this, in one order),
+    a plain tensor as it is."""
+    opt = state.optimizer.state_dict()
+    opt["state"] = {i: {k: full(v) for k, v in entry.items()}
+                    for i, entry in opt["state"].items()}
+    return {"step": int(state.step),
+            "model": {k: full(v) for k, v in state.model.state_dict().items()},
+            "optimizer": opt}
+
+
+def _lay_out(value, like):
+    """``value`` (whole, on the CPU) laid out as ``like`` is: a DTensor of
+    ``like``'s placements, or ``value`` itself when ``like`` is a plain
+    tensor (or absent)."""
+    if isinstance(like, DTensor):
+        return distribute_tensor(value.to(like.device), like.device_mesh,
+                                 like.placements)
+    return value
 
 
 def _fsync_dir(path: str) -> None:
@@ -68,7 +105,7 @@ class TrainCheckpointer:
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
 
-    def _write(self, step: int, state: TrainState) -> None:
+    def _write(self, step: int, tree: dict) -> None:
         """One attempt: write into a temporary directory, fsync, rename it
         to the step's directory, then drop the steps past ``max_to_keep``
         and any temporary directory left behind."""
@@ -78,9 +115,7 @@ class TrainCheckpointer:
         os.makedirs(tmp)
         try:
             with open(os.path.join(tmp, STATE_FILE), "wb") as f:
-                torch.save({"step": step,
-                            "model": state.model.state_dict(),
-                            "optimizer": state.optimizer.state_dict()}, f)
+                torch.save(tree, f)
                 f.flush()
                 os.fsync(f.fileno())
             os.replace(tmp, self._step_dir(step))
@@ -101,6 +136,21 @@ class TrainCheckpointer:
         nothing.  A step already on disk is not written again."""
         del wait
         step = int(state.step)
+        tree = _whole_tree(state)
+        if not dist.is_initialized():
+            self._save_tree(step, tree)
+            return
+        error = None
+        if dist.get_rank() == 0:
+            try:
+                self._save_tree(step, tree)
+            except Exception as e:  # noqa: BLE001 — raised on every rank
+                error = e
+        error = broadcast_control(error)
+        if error is not None:
+            raise error
+
+    def _save_tree(self, step: int, tree: dict) -> None:
         # Transient filesystem faults (and the armed ``checkpoint.save``
         # site) retry under a small budget.  A failed attempt may still
         # have committed (the error hit after the rename), so each retry
@@ -117,7 +167,7 @@ class TrainCheckpointer:
                                     step)
                     return
                 faults.check("checkpoint.save")
-                self._write(step, state)
+                self._write(step, tree)
                 return
             except OSError as e:
                 log.warning("checkpoint save attempt %d for step %d "
@@ -142,6 +192,17 @@ class TrainCheckpointer:
             return state, None
         tree = torch.load(os.path.join(self._step_dir(step), STATE_FILE),
                           map_location="cpu", weights_only=True)
+        own = state.model.state_dict()
+        tree["model"] = {k: _lay_out(v, own.get(k))
+                         for k, v in tree["model"].items()}
+        params = [p for g in state.optimizer.param_groups
+                  for p in g["params"]]
+        for i, entry in tree["optimizer"]["state"].items():
+            p = params[i]
+            for k, v in entry.items():
+                # Moments; not AdamW's step (nor an absent buffer).
+                if isinstance(v, torch.Tensor) and v.shape == p.shape:
+                    entry[k] = _lay_out(v, p)
         state.model.load_state_dict(tree["model"])
         state.optimizer.load_state_dict(tree["optimizer"])
         state.step = int(tree["step"])

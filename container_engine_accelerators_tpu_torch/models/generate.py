@@ -20,6 +20,13 @@ writes the cache in place, so a splice copies the block into the
 request's own cache: a cached block is never aliased, or the first
 request's suffix would overwrite it.
 
+A decode model sharded over a (1, tp) mesh (``cmd/serve_lm.py --tp``)
+runs the same functions: its forward takes and returns plain tensors,
+whole on every rank, and its cache holds this rank's KV heads
+(:func:`init_cache`), so the loop, the cursor and sampling are the same
+on every rank.  Every rank must make the same calls, in the same order:
+each forward is a collective.
+
 ``prompt_len`` and ``start`` may be Python ints or 0-d integer tensors.
 Sampling draws from an explicit ``torch.Generator``: it cannot reproduce
 ``jax.random.categorical``'s stream, so only greedy output is held
@@ -31,15 +38,22 @@ from typing import Optional
 import torch
 
 from container_engine_accelerators_tpu_torch.models.transformer import lm_head
+from container_engine_accelerators_tpu_torch.parallel.mesh import (
+    full,
+    local_heads,
+    replicate,
+)
 
 
 def init_cache(model, batch: int, max_len: int, device=None) -> dict:
     """Zero-filled cache for ``max_len`` tokens on the model's device:
     ``cached_key``/``cached_value`` [layers, B, L, KVH, hd] in the
-    compute dtype and a per-sample ``cache_index`` [layers, B] int32."""
+    compute dtype and a per-sample ``cache_index`` [layers, B] int32.
+    On a mesh KVH is this rank's share of the KV heads when the model
+    axis divides them (``parallel/mesh.py::local_heads``)."""
     device = model.embed.device if device is None else device
-    shape = (model.num_layers, batch, max_len, model.num_kv_heads,
-             model.head_dim)
+    shape = (model.num_layers, batch, max_len,
+             local_heads(model.mesh, model.num_kv_heads), model.head_dim)
     return {
         "cached_key": torch.zeros(shape, dtype=model.dtype, device=device),
         "cached_value": torch.zeros(shape, dtype=model.dtype, device=device),
@@ -97,8 +111,12 @@ def _forward_chunk(model, cache, tokens, start):
 
 
 def _project_last(model, h_row):
-    """LM-head projection of one hidden row [B, D] -> f32 logits [B, V]."""
-    return lm_head(h_row, model.embed)
+    """LM-head projection of one hidden row [B, D] -> f32 logits [B, V]
+    (whole on every rank of a mesh)."""
+    mesh = model.mesh
+    if mesh is None:
+        return lm_head(h_row, model.embed)
+    return full(lm_head(replicate(h_row, mesh), model.embed))
 
 
 def prefill_continue(model, cache, tokens, start, true_end):

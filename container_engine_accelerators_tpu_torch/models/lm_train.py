@@ -3,23 +3,41 @@ counterpart of ``container_engine_accelerators_tpu/models/lm_train.py``,
 dense or MoE (the Switch load-balance loss joins the objective).
 
 Next-token labels are built for the whole sequence before the step, as
-the JAX module does, so the step takes (tokens, labels, mask).  The
-sequence-parallel step (ring, ring-zigzag, Ulysses) and FSDP parameter
-sharding come with the multi-GPU slice of the port and raise here.
+the JAX module does, so the step takes (tokens, labels, mask).
+
+Dense mode runs on one device or over a (data, model) mesh
+(``parallel/mesh.py``): the weights become DTensors laid out by the JAX
+rule ("megatron" or "fsdp"), the batch is split by rows over the data
+axis, and the loss is the global one — the masked sum over the whole
+batch over the global mask count, a single replicated value, not a mean
+of per-rank means.  The sequence-parallel step (ring, ring-zigzag,
+Ulysses) and the MoE-LM on a mesh (expert sharding) come with the next
+multi-GPU slice of the port and raise here.
 """
 
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from container_engine_accelerators_tpu_torch.models.train import TrainState
+from container_engine_accelerators_tpu_torch.models.train import (
+    TrainState,
+    rebuild_optimizer,
+)
 from container_engine_accelerators_tpu_torch.models.transformer import (
     init_params,
 )
+from container_engine_accelerators_tpu_torch.parallel.mesh import (
+    full,
+    shard_batch,
+    shard_params,
+    shard_params_fsdp,
+    sync_grads,
+)
 
 MOE_AUX_WEIGHT = 0.01  # Switch load-balance coefficient
-_MULTI_GPU = "comes with the multi-GPU slice of the PyTorch port"
+_NEXT_SLICE = "comes with the next multi-GPU slice of the PyTorch port"
 
 
 def next_token_targets(tokens: torch.Tensor
@@ -65,36 +83,61 @@ def _loss(model, tokens, labels, mask, positions, with_aux=False):
     return (num, denom, aux) if with_aux else (num, denom)
 
 
-def make_lm_train_step(seq_parallel: Optional[str] = None,
+def make_lm_train_step(mesh=None, state: Optional[TrainState] = None,
+                       seq_parallel: Optional[str] = None,
                        param_sharding: str = "megatron"):
-    """``step_fn(state, tokens, labels, mask) -> (state, metrics)``: one
-    optimizer step on the mean masked next-token cross entropy (plus the
-    MoE aux term), updating ``state`` in place.  ``metrics`` holds
-    ``loss`` and, for an MoE model, ``moe_aux`` (the summed load-balance
-    loss) and ``moe_dropped`` (the share of token routings dropped),
-    device tensors all (reading one waits for the device).  Unlike the
-    JAX function, there is no mesh to place the state on, so it takes no
-    state and returns only the step."""
+    """``(step_fn, placed_state)``; ``step_fn(state, tokens, labels, mask)
+    -> (state, metrics)`` takes one optimizer step on the mean masked
+    next-token cross entropy (plus the MoE aux term), updating ``state``
+    in place.  ``metrics`` holds ``loss`` and, for an MoE model,
+    ``moe_aux`` (the summed load-balance loss) and ``moe_dropped`` (the
+    share of token routings dropped), device tensors all (reading one
+    waits for the device).
+
+    Without a ``mesh`` the state stays where it is (one device).  With
+    one, ``param_sharding`` "megatron" shards every weight over the model
+    axis and replicates it along the data axis; "fsdp" also shards it
+    (and its AdamW moments) over the data axis (``parallel/mesh.py``).
+    The step then takes the batch as DTensors split by rows
+    (``parallel/mesh.py::from_local_batch``), or whole on every rank,
+    and each rank keeps its rows; its ``loss`` is the global loss, whole
+    on every rank."""
     if param_sharding not in ("megatron", "fsdp"):
         raise ValueError(f"unknown param_sharding {param_sharding!r}")
     if seq_parallel is not None:
         raise NotImplementedError(f"sequence parallelism ({seq_parallel}) "
-                                  f"{_MULTI_GPU}")
-    if param_sharding == "fsdp":
-        raise NotImplementedError(f"param_sharding='fsdp' {_MULTI_GPU}")
+                                  f"{_NEXT_SLICE}")
+    if mesh is None and param_sharding == "fsdp":
+        raise ValueError("param_sharding='fsdp' shards over a mesh: pass "
+                         "one (parallel/mesh.py::create_mesh)")
+    if mesh is not None:
+        if state.model.num_experts:
+            raise NotImplementedError(f"the MoE-LM on a mesh (expert "
+                                      f"sharding) {_NEXT_SLICE}")
+        shard = (shard_params_fsdp if param_sharding == "fsdp"
+                 else shard_params)
+        shard(state.model, mesh)
+        state.optimizer = rebuild_optimizer(state.optimizer,
+                                            state.model.parameters())
 
     def step(s: TrainState, tokens, labels, mask):
+        if mesh is not None:
+            tokens, labels, mask = (
+                x if isinstance(x, DTensor) else shard_batch(x, mesh)
+                for x in (tokens, labels, mask))
         s.optimizer.zero_grad(set_to_none=True)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         num, den, aux = _loss(s.model, tokens, labels, mask, positions,
                               with_aux=True)
         loss = num / den
         loss.backward()
+        if mesh is not None:
+            sync_grads(s.model)
         s.optimizer.step()
         s.step += 1
-        metrics = {"loss": loss.detach()}
+        metrics = {"loss": full(loss.detach())}
         if s.model.num_experts:
             metrics.update(moe_aux=aux.loss.detach(), moe_dropped=aux.dropped)
         return s, metrics
 
-    return step
+    return step, state

@@ -21,14 +21,33 @@ Three details of flax that PyTorch's own layers do otherwise:
   momentum 0.9 on the old value (:class:`BatchNorm`); torch's take the
   unbiased one, with ``momentum`` on the new value.
 - The last BatchNorm of every block starts with its scale at zero.
+
+On a mesh (``models/train.py::make_sharded_train_step``) the weights are
+DTensors laid out by the JAX rule (``FLAX_AXES`` maps each port axis to
+its flax axis) and the activations are DTensors split by batch rows.
+DTensor has no convolution strategy for a sharded weight (its rule
+follows the input's batch split alone), so a convolution gathers its
+weight whole and runs on this rank's rows; the pools run on the rows
+too.  BatchNorm takes its statistics over the GLOBAL batch, as GSPMD
+does: DTensor means over the batch-split rows, flax's one-pass variance
+``mean(x^2) - mean(x)^2``.
 """
 
+import functools
 import math
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from container_engine_accelerators_tpu_torch.parallel.mesh import (
+    batch_local,
+    full,
+    gather_weight,
+    replicate,
+)
 
 STAGE_SIZES = {
     18: [2, 2, 2, 2],
@@ -64,6 +83,9 @@ def pad_same(x: torch.Tensor, kernel: Tuple[int, int],
 
 def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     """``nn.max_pool(padding="SAME")``: padded cells are -inf."""
+    if isinstance(x, DTensor):
+        return batch_local(functools.partial(max_pool_same, window=window,
+                                             stride=stride), x)
     k, s = (window, window), (stride, stride)
     x, pad = pad_same(x, k, s, value=-math.inf)
     return F.max_pool2d(x, k, s, padding=pad)
@@ -71,6 +93,9 @@ def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
 
 def avg_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     """``nn.avg_pool(padding="SAME")``: padded zeros count in the mean."""
+    if isinstance(x, DTensor):
+        return batch_local(functools.partial(avg_pool_same, window=window,
+                                             stride=stride), x)
     k, s = (window, window), (stride, stride)
     x, pad = pad_same(x, k, s)
     return F.avg_pool2d(x, k, s, padding=pad, count_include_pad=True)
@@ -78,7 +103,16 @@ def avg_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
 
 class Conv(nn.Module):
     """``nn.Conv(use_bias=False, padding="SAME")``: an f32 OIHW kernel in
-    ``channels_last`` memory, cast to the input's dtype at use."""
+    ``channels_last`` memory, cast to the input's dtype at use.
+
+    On a mesh the weight is gathered whole and convolved with this rank's
+    batch rows (DTensor's convolution rule follows only the input's batch
+    split).  So every rank of the model axis repeats the same
+    convolution: ``--model-par M`` adds the weight's all-gather and its
+    grad's reduce-scatter but splits none of the convolution's compute,
+    unlike GSPMD's output-channel split in the JAX step."""
+
+    FLAX_AXES = {"weight": (3, 2, 0, 1)}  # OIHW holds flax's HWIO
 
     def __init__(self, in_channels: int, features: int,
                  kernel: Tuple[int, int], strides: Tuple[int, int] = (1, 1),
@@ -90,7 +124,13 @@ class Conv(nn.Module):
             memory_format=torch.channels_last))
 
     def forward(self, x):
-        w, strides = self.weight.to(x.dtype), self.strides
+        if isinstance(self.weight, DTensor):
+            return batch_local(
+                lambda rows: self._conv(rows, gather_weight(self.weight)), x)
+        return self._conv(x, self.weight)
+
+    def _conv(self, x, w):
+        w, strides = w.to(x.dtype), self.strides
         if x.device.type == "cpu" and self.kernel == (1, 1) \
                 and strides != (1, 1):
             # PyTorch's CPU build (oneDNN, torch 2.13) corrupts the heap in
@@ -135,6 +175,8 @@ class BatchNorm(nn.Module):
                              persistent=False)
 
     def forward(self, x):
+        if isinstance(x, DTensor):
+            return self._global_batch_norm(x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
@@ -149,10 +191,35 @@ class BatchNorm(nn.Module):
                 self._batch_var, alpha=keep * (n - 1) / n)
         return y
 
+    def _global_batch_norm(self, x: DTensor) -> DTensor:
+        """BatchNorm of a batch split over ranks, with flax's arithmetic:
+        statistics over the global batch (DTensor's means over the split
+        rows sum across ranks), the one-pass biased variance, then
+        ``(x - mean) * (scale * rsqrt(var + eps)) + bias``."""
+        # Statistics in f32 at least (f64 stays f64), as flax's.
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            keep = 1.0 - self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(
+                    full(mean.detach()), alpha=keep)
+                self.running_var.mul_(self.momentum).add_(
+                    full(var.detach()), alpha=keep)
+        else:
+            mean, var = (replicate(t, x.device_mesh)
+                         for t in (self.running_mean, self.running_var))
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
+
 
 class Dense(nn.Module):
     """flax ``nn.Dense(dtype=float32)``: f32 ``[out, in]`` weight and bias,
     the input cast to the weight's dtype (f32), f32 output."""
+
+    FLAX_AXES = {"weight": (1, 0)}  # [out, in] holds flax's [in, out]
 
     def __init__(self, in_features: int, features: int, device=None):
         super().__init__()

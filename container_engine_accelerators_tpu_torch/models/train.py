@@ -16,19 +16,27 @@ and biases and the head's bias included, as optax's chain does) and then
 takes the same Nesterov step.  :func:`train_step` sets the learning rate
 from ``state.step`` before each update, the count optax's schedule reads
 before it increments — so step 0 trains at lr 0, and a resumed run needs
-no scheduler state.  ``make_sharded_train_step`` comes with the
-multi-GPU slice of the port.
+no scheduler state.  :func:`make_sharded_train_step` runs the same step
+over a (data, model) mesh.
 """
 
 import dataclasses
+import inspect
 import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from container_engine_accelerators_tpu_torch.models.resnet import init_params
+from container_engine_accelerators_tpu_torch.parallel.mesh import (
+    full,
+    shard_batch,
+    shard_params,
+    sync_grads,
+)
 
 
 @dataclasses.dataclass
@@ -121,7 +129,44 @@ def train_step(state: TrainState, images: torch.Tensor,
     logits = model(images)
     loss = F.cross_entropy(logits, labels.long())
     loss.backward()
+    if isinstance(loss, DTensor):
+        sync_grads(model)
     opt.step()
     state.step += 1
     accuracy = (logits.detach().argmax(-1) == labels).float().mean()
-    return state, {"loss": loss.detach(), "accuracy": accuracy}
+    return state, {"loss": full(loss.detach()), "accuracy": full(accuracy)}
+
+
+def rebuild_optimizer(optimizer: torch.optim.Optimizer,
+                      params) -> torch.optim.Optimizer:
+    """The same optimizer, with its hyperparameters, over ``params`` (the
+    model's parameters after they were replaced by DTensors).  It must
+    hold no state yet: restore a checkpoint after placing the state."""
+    if optimizer.state:
+        raise ValueError("place the train state before it takes a step or "
+                         "a checkpoint: the optimizer already holds state")
+    accepted = inspect.signature(type(optimizer)).parameters
+    return type(optimizer)(params, **{k: v for k, v in
+                                      optimizer.defaults.items()
+                                      if k in accepted})
+
+
+def make_sharded_train_step(mesh, state: TrainState):
+    """:func:`train_step` over ``mesh`` -> ``(step_fn, placed_state)``:
+    the parameters (and the momentum made from them) laid out tensor
+    parallel by the JAX rule (``parallel/mesh.py::shard_params``), the
+    BatchNorm statistics replicated, the batch split by rows over the
+    data axis.  ``step_fn(state, images, labels)`` takes the batch as
+    DTensors split by rows (``parallel/mesh.py::from_local_batch``), or
+    whole on every rank, of which each rank keeps its rows.  BatchNorm
+    normalises with the global batch's statistics, and the loss and
+    accuracy are the global batch's, whole on every rank."""
+    model = shard_params(state.model, mesh)
+    state.optimizer = rebuild_optimizer(state.optimizer, model.parameters())
+
+    def step(s: TrainState, images, labels):
+        images, labels = (x if isinstance(x, DTensor)
+                          else shard_batch(x, mesh) for x in (images, labels))
+        return train_step(s, images, labels)
+
+    return step, state

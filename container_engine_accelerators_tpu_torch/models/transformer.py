@@ -31,6 +31,18 @@ per-layer tensors, ``cached_key``/``cached_value`` ``[layers, B, L, KVH,
 hd]`` and ``cache_index`` ``[layers, B]`` int32 — the flax cache tree's
 leaves.  A forward updates it IN PLACE (flax returns a new tree), which
 avoids copying the cache every token.
+
+On a mesh (``parallel/mesh.py::shard_params``), the weights are DTensors
+laid out by the JAX rule and every projection, norm and the tied head run
+through DTensor's sharding propagation, as GSPMD runs the flax model.
+Attention is the one place that leaves it: q, k and v are redistributed
+to this rank's batch rows and, when the model axis divides the KV heads,
+its heads (``parallel/mesh.py::head_sharding``); rotary, the attention
+(dense, or the flash kernel when the world is one rank, the JAX model's
+auto rule) and the cache write run on those local tensors, and the
+output joins the DTensor graph again.  The decode cache then holds this
+rank's KV heads.  In decode mode the logits (or hidden rows) come back
+whole on every rank, as plain tensors.
 """
 
 import math
@@ -39,6 +51,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from container_engine_accelerators_tpu_torch.models.quant import QDense
@@ -51,6 +64,11 @@ from container_engine_accelerators_tpu_torch.ops.flash_decode import (
     flash_decode,
 )
 from container_engine_accelerators_tpu_torch.ops.moe import MoEFFN
+from container_engine_accelerators_tpu_torch.parallel.mesh import (
+    full,
+    head_sharding,
+    replicate,
+)
 from container_engine_accelerators_tpu_torch.parallel.seq import (
     dense_attention,
 )
@@ -152,30 +170,43 @@ class Attention(nn.Module):
                                                   self.head_dim)
         v = (x @ _w(self.v, dt).flatten(1)).view(b, t, self.kv_heads,
                                                   self.head_dim)
+        mesh = q.device_mesh if isinstance(q, DTensor) else None
+        if mesh is not None:
+            # Leave the DTensor graph: this rank's rows and heads.
+            heads = head_sharding(mesh, self.kv_heads)
+            q, k, v = (a.redistribute(mesh, heads).to_local()
+                       for a in (q, k, v))
         q = rotary_embedding(q, positions)
         k = rotary_embedding(k, positions)
         if cache is not None:
             o = self._decode_attend(q, k, v, positions, cache,
                                     use_flash_decode)
         else:
-            o = self._train_attend(q, k, v, use_flash)
+            o = self._train_attend(q, k, v, use_flash,
+                                   one_rank=mesh is None or mesh.size() == 1)
+        if mesh is not None:
+            o = DTensor.from_local(o, mesh, heads, run_check=False)
         return o.reshape(b, t, -1) @ _w(self.out, dt).flatten(0, 1)
 
-    def _train_attend(self, q, k, v, use_flash):
+    def _train_attend(self, q, k, v, use_flash, one_rank=True):
         """Causal attention over the whole sequence.  The kernels take
         equal Q and KV heads, so under GQA K/V are repeated up to the
         query heads (``jnp.repeat`` on the head axis).  ``use_flash``
         None (auto) takes the flash kernel on a CUDA tensor whose shape
-        it supports and dense attention otherwise (on the CPU too, as the
-        JAX model does off the TPU); True takes ``flash_attention``
-        whatever the device (its plain version on the CPU)."""
+        it supports, when the world is ``one_rank`` (the JAX model's
+        rule: its kernel has no GSPMD partitioning rule, so a sharded
+        run keeps XLA's attention), and dense attention otherwise (on
+        the CPU too, as the JAX model does off the TPU); True takes
+        ``flash_attention`` whatever the device (its plain version on
+        the CPU)."""
         rep = self.num_heads // self.kv_heads
         if rep > 1:
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
         flash = use_flash
         if flash is None:
-            flash = q.is_cuda and supports_flash(q.shape[1], self.head_dim)
+            flash = (q.is_cuda and one_rank
+                     and supports_flash(q.shape[1], self.head_dim))
         if flash:
             return flash_attention(q, k, v, causal=True)
         return dense_attention(q, k, v, causal=True)
@@ -327,6 +358,12 @@ class TransformerLM(nn.Module):
             for _ in range(num_layers))
         self.ln_f = RMSNorm(num_heads * head_dim, dtype, device, train)
 
+    @property
+    def mesh(self):
+        """The mesh the weights are sharded over, or None."""
+        e = self.embed
+        return e.device_mesh if isinstance(e, DTensor) else None
+
     def forward(self, tokens, positions=None, cache=None, project=True,
                 return_aux=False):
         if self.decode and cache is None:
@@ -337,6 +374,9 @@ class TransformerLM(nn.Module):
                              "with decode=True to decode")
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
+        mesh = self.mesh
+        if mesh is not None:
+            tokens = replicate(tokens, mesh)
         x = F.embedding(tokens, self.embed.to(self.dtype))
         moe = []
         for i, blk in enumerate(self.blocks):
@@ -352,6 +392,8 @@ class TransformerLM(nn.Module):
                 moe.append(stats)
         x = self.ln_f(x)
         out = lm_head(x, self.embed) if project else x
+        if mesh is not None and self.decode:
+            out = full(out)
         if not return_aux:
             return out
         if not moe:

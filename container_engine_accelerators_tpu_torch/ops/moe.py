@@ -30,7 +30,7 @@ backward on an H100 at a third dropped).  Shapes stay static (no
 sync.
 
 Drop-free routing (``no_drop``, the decode path) is the same code with
-C = N.  Expert parallelism (``expert_sharding``) belongs to the
+C = N.  Expert parallelism (``expert_sharding``) belongs to the next
 multi-GPU slice of the port.
 """
 

@@ -1,2 +1,29 @@
-"""Attention across the sequence for the PyTorch port: so far only the
-single-device dense attention of train mode (``seq.py``)."""
+"""Multi-GPU layer of the PyTorch port: the process group from the K8s
+or torchrun env (``dcn.py``), the (data, model) ``DeviceMesh`` and the
+JAX package's layout rules as DTensor placements (``mesh.py``), what the
+trainers share to run on it (``launch.py``), and the single-device dense
+attention of train mode (``seq.py``).  The sequence-parallel attentions
+(ring, ring-zigzag, Ulysses) come with the next multi-GPU slice."""
+from container_engine_accelerators_tpu_torch.parallel import dcn
+from container_engine_accelerators_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    batch_sharding,
+    create_hybrid_mesh,
+    create_mesh,
+    replicated,
+    shard_params,
+    shard_params_fsdp,
+)
+
+__all__ = [
+    "DATA_AXIS",
+    "MODEL_AXIS",
+    "batch_sharding",
+    "create_hybrid_mesh",
+    "create_mesh",
+    "dcn",
+    "replicated",
+    "shard_params",
+    "shard_params_fsdp",
+]

@@ -3,7 +3,8 @@
 
 Only the single-device function is ported here.  Ring, ring-zigzag and
 Ulysses attention, which shard the sequence across devices, come with the
-multi-GPU slice of the port.
+next multi-GPU slice of the port (the first one ported the batch and
+weight layouts: ``parallel/mesh.py``).
 """
 
 import torch

@@ -39,7 +39,7 @@ def _state(seed=0):
 
 
 def _train(state, steps, seed=1):
-    step_fn = make_lm_train_step()
+    step_fn, state = make_lm_train_step(None, state)
     toks = torch.randint(0, 61, (2, 16), generator=torch.Generator()
                          .manual_seed(seed))
     labels, mask = next_token_targets(toks)

@@ -47,7 +47,9 @@ def test_port_imports_without_jax():
               "metrics.metrics", "cmd.gpu_device_plugin", "sharing.gate",
               "partition", "partition.mig", "scheduler", "scheduler.k8s",
               "scheduler.labeler", "health.maintenance",
-              "cmd.partition_gpu", "cmd.maintenance_watcher"}
+              "cmd.partition_gpu", "cmd.maintenance_watcher",
+              "parallel", "parallel.dcn", "parallel.mesh",
+              "parallel.launch"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys

@@ -136,7 +136,7 @@ def test_one_adamw_step_matches_optax(name):
     params, _, _, grads, stepped = _jax_run(name)
     model = _port_model(name, params)
     state = lt.create_lm_train_state(model)
-    step = lt.make_lm_train_step()
+    step, state = lt.make_lm_train_step(None, state)
     toks = torch.from_numpy(_tokens()).long()
     state, metrics = step(state, toks, *lt.next_token_targets(toks))
     assert state.step == 1 and metrics["loss"].dtype == torch.float32
@@ -276,11 +276,16 @@ def test_optimizer_decays_every_parameter():
 
 @pytest.mark.parametrize("kw", [dict(seq_parallel="ring"),
                                 dict(seq_parallel="ulysses"),
-                                dict(param_sharding="fsdp")],
-                         ids=["ring", "ulysses", "fsdp"])
+                                dict(seq_parallel="ring-zigzag")],
+                         ids=["ring", "ulysses", "ring-zigzag"])
 def test_multi_gpu_step_options_raise(kw):
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
         lt.make_lm_train_step(**kw)
+
+
+def test_fsdp_without_a_mesh_raises():
+    with pytest.raises(ValueError, match="shards over a mesh"):
+        lt.make_lm_train_step(param_sharding="fsdp")
 
 
 def test_modes_reject_the_wrong_cache():

@@ -366,8 +366,8 @@ def test_one_adamw_step_matches_optax(name):
     model = _port_lm(name, params)
     state = lt.create_lm_train_state(model)
     toks = torch.from_numpy(_tokens()).long()
-    state, metrics = lt.make_lm_train_step()(state, toks,
-                                             *lt.next_token_targets(toks))
+    state, metrics = lt.make_lm_train_step()[0](
+        state, toks, *lt.next_token_targets(toks))
     assert set(metrics) == {"loss", "moe_aux", "moe_dropped"}
     got = to_flax_params(model.state_dict())
     for path, p in jax.tree_util.tree_leaves_with_path(got):
@@ -392,7 +392,7 @@ def test_dense_model_adds_a_zero_aux_term():
         logits, aux = model(toks, return_aux=True)
         assert torch.equal(logits, model(toks))
     assert aux.loss.item() == 0.0 and aux.dropped.item() == 0.0
-    state, metrics = lt.make_lm_train_step()(
+    state, metrics = lt.make_lm_train_step()[0](
         lt.create_lm_train_state(model), toks, *lt.next_token_targets(toks))
     assert set(metrics) == {"loss"}
 

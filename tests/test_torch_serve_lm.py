@@ -136,9 +136,10 @@ def test_defaults_match_the_jax_server():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tp", "2"], ["--slots", "2", "--tp", "2"]])
+    ["--tp", "2", "--prefix-cache", "2"],
+    ["--slots", "2", "--tp", "2", "--weights", "int8"]])
 def test_unported_flags_exit(flags):
-    with pytest.raises(SystemExit, match="later serving slice"):
+    with pytest.raises(SystemExit, match="next multi-GPU slice"):
         serve_lm.validate_args(serve_lm.parse_args(TINY + flags))
 
 
@@ -156,7 +157,7 @@ def test_ported_flags_are_taken(flags):
 
 
 @pytest.mark.parametrize("flags,combo", [
-    (["--tp", "2"], "--slots with --tp > 1")])
+    (["--tp", "2", "--prefix-cache", "2"], "--prefix-cache with --tp > 1")])
 def test_slots_with_later_features_name_the_combination(flags, combo):
     with pytest.raises(SystemExit, match=re.escape(combo)):
         serve_lm.validate_args(serve_lm.parse_args(TINY + ["--slots", "2"]

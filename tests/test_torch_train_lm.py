@@ -70,8 +70,9 @@ def test_defaults_match_the_jax_trainer():
 @pytest.mark.parametrize("flags,slice_", [
     (["--seq-parallel", "ring"], "multi-GPU slice"),
     (["--seq-parallel", "ulysses"], "multi-GPU slice"),
-    (["--model-par", "2"], "multi-GPU slice"),
-    (["--param-sharding", "fsdp"], "multi-GPU slice"),
+    (["--num-experts", "2", "--model-par", "2"], "next multi-GPU slice"),
+    (["--num-experts", "2", "--param-sharding", "fsdp"],
+     "next multi-GPU slice"),
 ])
 def test_later_slice_flags_exit(flags, slice_):
     with pytest.raises(SystemExit, match=slice_):

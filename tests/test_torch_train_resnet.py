@@ -104,7 +104,8 @@ def test_synthetic_batches_are_the_jax_trainers_arrays():
 
 
 def test_model_par_exits_naming_the_multi_gpu_slice():
-    with pytest.raises(SystemExit, match="multi-GPU slice"):
+    with pytest.raises(SystemExit, match="--model-par 2 needs a multiple "
+                                         "of 2 ranks"):
         train_resnet.main(TINY + ["--model-par", "2"])
 
 
