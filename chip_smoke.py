@@ -13,7 +13,9 @@ and the image paths, ``cmd/train_resnet.py`` and ``cmd/serve_resnet.py``
 at their defaults (ResNet-50, 224x224, batch 128, bf16 with cuDNN) and
 Inception-v3, the multi-GPU layer at a world of one card (an NCCL group,
 the trainers and the LM server on the (1, 1) mesh of DTensor weights,
-the sharded ResNet step), and the node layer (NVML, the ``nvidia.com/gpu`` device
+the sharded ResNet step), sequence parallelism (ring, ring-zigzag
+and Ulysses through ``cmd/train_lm.py --seq-parallel``, the ring's blocks
+on the flash kernels), and the node layer (NVML, the ``nvidia.com/gpu`` device
 plugin daemon, its Xid health checker and metrics server, its fault
 sites, MIG, the maintenance watcher and MPS) on the card;
 and holds every hand-written CUDA kernel against its plain PyTorch
@@ -218,7 +220,27 @@ version.  Phases, one JSON line each:
     once), identical greedy tokens and flash decode launches; then the
     f32 greedy tokens (8, after a 300-token prompt) of a TP-sharded
     decode model equal to the plain model's;
-30. ``nvml``: ``gpulib/nvml.py``'s ``NvmlLib`` against the card: the
+30. ``seq_ring_blocks``: ring attention's blocks on the flash kernels
+    (``parallel/seq.py::ring_forward_step`` / ``ring_backward_step``),
+    every virtual rank composed in one process at B=2, T=2048, H=8,
+    D=64, causal, bf16 and f32: contiguous at n = 2 and 4, zigzag at
+    n = 2, 4 and 8 (a zigzag half of 128 rows); o, dq, dk and dv against
+    ``flash_attention`` over the whole sequence on the card (phase 6's
+    tolerances), the gap to the plain per-block ring in f32 (held at f32
+    tolerance in f32), every kernel launched once a non-skipped block
+    (``count_ring_blocks``), and in bf16 the busiest virtual rank's and
+    the critical path's ms, contiguous over zigzag beside
+    ``ring_skip_stats``' predicted ratio;
+31. ``seq_train``: the trainer's ``main`` at its defaults with
+    ``--seq-parallel ring``, ``ring-zigzag`` and ``ulysses`` for 6 steps
+    each on phase 25's one-rank NCCL group, launch counts reset around
+    each (ring: phase 8's counts times a rank's blocks, 1 contiguous, 3
+    zigzag; Ulysses none): losses within 2e-2 relative of phase 8's,
+    step ms, tokens/s and peak memory beside phase 8's;
+32. ``seq_resume``: ``--seq-parallel ring-zigzag`` with
+    ``--checkpoint-dir``, 4 steps at an interval of 2 and a restart to
+    step 6: losses bit-equal to phase 31's unbroken run;
+33. ``nvml``: ``gpulib/nvml.py``'s ``NvmlLib`` against the card: the
     device count equals torch's and nvidia-smi's; each device's name,
     UUID, PCI bus id and total memory equal nvidia-smi's (and torch's,
     where the machine does not redact them), its ``/dev/nvidia<minor>``
@@ -226,11 +248,11 @@ version.  Phases, one JSON line each:
     C program's built with g++ on the toolkit's ``nvml.h``; MIG mode; Xid
     registration on every device; the microseconds of a memory and a duty
     cycle read;
-31. ``nvml_load``: a child holds 8 GiB and runs bf16 matmuls: duty cycle
+34. ``nvml_load``: a child holds 8 GiB and runs bf16 matmuls: duty cycle
     at least 80 and memory up by at least 8 GiB while it runs, duty cycle
     at most 10 and memory back a few seconds after, each reading beside
     nvidia-smi's at the same moment;
-32. ``device_plugin``: ``cmd/gpu_device_plugin.py`` as a subprocess on the
+35. ``device_plugin``: ``cmd/gpu_device_plugin.py`` as a subprocess on the
     real ``/dev`` and NVML with a kubelet stub and a PodResources stub
     that gives the first GPU to one container: it registers
     ``nvidia.com/gpu``, ListAndWatch lists exactly NVML's GPUs as
@@ -239,40 +261,40 @@ version.  Phases, one JSON line each:
     ``/metrics`` serves the node and container gauges; the seconds to
     register and the milliseconds to the first ListAndWatch and per
     Allocate;
-33. ``xid``: Xid registration, then the daemon's health state machine
+36. ``xid``: Xid registration, then the daemon's health state machine
     through its fault file (this machine delivers no Xid: see
     ``XID_INJECTION``): the GPU goes Unhealthy on ListAndWatch, Allocate
     refuses it, and it is Healthy again after the 10 s recovery window;
-34. ``node_faults``: the daemon armed with ``NODE_FAULT_SPEC`` registers
-    on its second attempt (seconds beside phase 32's unarmed start), its
+37. ``node_faults``: the daemon armed with ``NODE_FAULT_SPEC`` registers
+    on its second attempt (seconds beside phase 35's unarmed start), its
     checker rides the dropped event wait and the fault file still turns
     the GPU Unhealthy, ``/metrics`` counts each ``fault.fired.<site>``;
     ``MetricServer.rebind`` moves the listener and the gauges read the
     same; the Xid watch list (a hot-added GPU needs a second card);
-35. ``mig``: MIG mode from NVML and nvidia-smi, ``nvidia-smi mig -lgip``
+38. ``mig``: MIG mode from NVML and nvidia-smi, ``nvidia-smi mig -lgip``
     and ``/proc/driver/nvidia``; the daemon with ``GPUPartitionSize`` on
     this MIG-off card refuses, naming the GPU and the path, and
     advertises nothing; ``cmd/partition_gpu.py`` behind ``MIG_SHIM``
     (read-only queries pass, every other command is recorded and
     refused) reads the card's state and issues exactly ``-i 0 -mig 1``,
     exits 1 and writes no state; the card's MIG mode is never changed;
-36. ``maintenance``: ``cmd/maintenance_watcher.py --once`` against local
+39. ``maintenance``: ``cmd/maintenance_watcher.py --once`` against local
     metadata and API server stubs, armed with one ``k8s.patch`` conflict:
     the node tainted beside its foreign taint, every GPU Unhealthy on the
     daemon's ListAndWatch (``XID_CONFIG`` names the maintenance code),
     the milliseconds from the fault-file line to Unhealthy; ``NONE``
     removes the taint;
-37. ``mps``: the daemon under ``mps`` advertises nothing while no MPS
+40. ``mps``: the daemon under ``mps`` advertises nothing while no MPS
     daemon answers; with NVIDIA's MPS control daemon on a private pipe
     directory it advertises ``nvidia<minor>/vgpu0..1`` and Allocate
     gives the node, the pipe mount, 50% of the threads and half of
     NVML's memory; a child run with those envs (``MPS_CLIENTS``); once
     the MPS daemon quits, Allocate is refused; no MPS process is left;
-    phases 30-37 launch none of the port's kernels;
-38. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
+    phases 33-40 launch none of the port's kernels;
+41. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
     ``serve`` and ``serve_slots`` phases' and phases 14-17', 20's and
-    29's; flash attention's: the ``train``, ``train_moe`` and
-    ``mesh_train`` phases').
+    29's; flash attention's: the ``train``, ``train_moe``,
+    ``mesh_train``, ``seq_train`` and ``seq_resume`` phases').
 
 Each phase's seconds follow it on a ``timing`` line.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -952,8 +974,8 @@ def _fa_case(fa, q, k, v, do, causal):
     dtype = q.dtype
     scale = q.shape[-1] ** -0.5
     fwd_tol, bwd_tol = FA_TOL[_name(dtype)]
-    o, lse = fa._forward(q, k, v, causal, scale)
-    grads = fa._backward(q, k, v, o, lse, do, causal, scale)
+    o, lse = fa.flash_forward(q, k, v, causal, scale)
+    grads = fa.flash_backward(q, k, v, o, lse, do, causal, scale)
     torch.cuda.synchronize()
     want_o, want_lse = fa.flash_attention_reference(q, k, v, causal)
     want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
@@ -1010,7 +1032,7 @@ def check_fa_kernels(fa, dev):
     # the decode query (non-causal, T = 2048).
     q, k, v = p_cast_inputs(dev, cache_len=2048)
     q = q[:, None].expand(1, 2048, *q.shape[1:]).contiguous()
-    got = fa._forward(q, k, v, False, 0.125)[0].float()
+    got = fa.flash_forward(q, k, v, False, 0.125)[0].float()
     torch.cuda.synchronize()
     want = fa.flash_attention_reference(q, k, v)[0].float()
     p_in_f32 = fa.flash_attention_reference(
@@ -1208,7 +1230,7 @@ def time_fa_kernels(fa, dev):
     for _ in range(n_inputs):
         q, k, v, do = (torch.randn(b, t, h, d, device=dev, generator=gen)
                        .to(dtype) for _ in range(4))
-        o, lse = fa._forward(q, k, v, True, scale)
+        o, lse = fa.flash_forward(q, k, v, True, scale)
         inputs.append((q, k, v, o, lse, do))
     errs, _ = _fa_case(fa, *(inputs[0][i] for i in (0, 1, 2, 5)), True)
     pairs = b * h * t * (t + 1) // 2  # causal (query, key) pairs
@@ -1241,7 +1263,7 @@ def time_fa_kernels(fa, dev):
             seed, offset, scale=scale)
 
     kernel = {"flash_attention_fwd": lambda q, k, v, o, lse, do:
-              fa._forward(q, k, v, True, scale),
+              fa.flash_forward(q, k, v, True, scale),
               "flash_attention_bwd_dq": lambda q, k, v, o, lse, do:
               fa.load_ops().flash_attention_bwd_dq(q, k, v, o, do, lse, True,
                                                    scale),
@@ -1288,11 +1310,11 @@ def time_fa_kernels(fa, dev):
     # graphs over the same inputs.  7 products; q, k, v, o, dO and lse read
     # once, dq, dk and dv written once.
     bwd_ms = _graph_ms(lambda q, k, v, o, lse, do:
-                       fa._backward(q, k, v, o, lse, do, True, scale), inputs)
+                       fa.flash_backward(q, k, v, o, lse, do, True, scale), inputs)
     bytes_ms = (8 * tensor_bytes + lse_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * 7 * d * pairs / PEAK_FLOPS["bfloat16"] * 1e3
     _phase("fa_backward_time", what="flash_attention_bwd: the port's whole "
-           "bf16 backward (_backward: the dQ op with the delta pre-pass, "
+           "bf16 backward (flash_backward: the dQ op with the delta pre-pass, "
            "then the dK/dV op with its delta) and SDPA's backward kernel, "
            "both in CUDA graphs", shape=f"B={b} T={t} H={h} D={d} causal bf16",
            distinct_inputs=n_inputs, ms=bwd_ms, library_bwd_ms=library_bwd,
@@ -4868,6 +4890,262 @@ def mesh_serve(fd, dev, card):
     return launches
 
 
+# ---- phases 30-32: sequence parallelism on the flash kernels ----------------
+
+SEQ_SHAPE = (2, 2048, 8, 64)  # B, T, H, D of the composed ring blocks
+# (layout, virtual ranks): a zigzag half at n = 8 is 128 rows, the
+# kernels' tile.
+SEQ_CASES = [("contiguous", 2), ("contiguous", 4), ("zigzag", 2),
+             ("zigzag", 4), ("zigzag", 8)]
+SEQ_KINDS = ("ring", "ring-zigzag", "ulysses")
+SEQ_REPS = 3  # timed compositions a case, the median kept
+
+
+def _compose_ring(q, k, v, do, n, layout, kernel, times=None):
+    """Every virtual rank's forward, then backward ring steps
+    (``parallel/seq.py::ring_forward_step`` / ``ring_backward_step``,
+    causal), composed in one process on stored-order ``q, k, v, do``
+    ``[B, T, H, D]``: rank r holds rows r*T/n.. of each, and the step
+    (r, s) attends rank r's queries to rank (r - s) % n's keys, as the
+    ring would.  -> (o, dq, dk, dv) in the stored order and q's dtype.
+    ``times``, an [n][n] list, gets each (rank, step)'s forward plus
+    backward ms (CUDA events)."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.parallel import seq
+
+    b, t, h, d = q.shape
+    tq, scale = t // n, d ** -0.5
+    qs = [(x * scale).contiguous() for x in q.split(tq, 1)]
+    ks, vs, dos = ([x.contiguous() for x in y.split(tq, 1)]
+                   for y in (k, v, do))
+    events = []
+
+    def timed(r, s, fn):
+        if times is None:
+            return fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((r, s, start, end))
+
+    outs, lses = [], []
+    for r in range(n):
+        o = torch.zeros(b, tq, h, d, device=q.device)
+        lse = torch.full((b * h, tq), float("-inf"), device=q.device)
+        for s in range(n):
+            src = (r - s) % n
+            timed(r, s, lambda: seq.ring_forward_step(
+                qs[r], ks[src], vs[src], o, lse, r, src, n, layout, True,
+                kernel))
+        outs.append(o.to(q.dtype))
+        lses.append(lse)
+    dq, dk, dv = ([torch.zeros(b, tq, h, d, device=q.device)
+                   for _ in range(n)] for _ in range(3))
+    for r in range(n):
+        for s in range(n):
+            src = (r - s) % n
+            timed(r, s, lambda: seq.ring_backward_step(
+                qs[r], dos[r], outs[r], lses[r], ks[src], vs[src], dq[r],
+                dk[src], dv[src], r, src, n, layout, True, kernel))
+    torch.cuda.synchronize()
+    for r, s, start, end in events:
+        times[r][s] += start.elapsed_time(end)
+    return (torch.cat(outs, 1), (torch.cat(dq, 1) * scale).to(q.dtype),
+            torch.cat(dk, 1).to(q.dtype), torch.cat(dv, 1).to(q.dtype))
+
+
+def seq_ring_blocks(fa, dev, card):
+    """Phase 30: the ring's blocks on the flash kernels, every virtual
+    rank composed in one process (B=2, T=2048, H=8, D=64, causal; bf16
+    and f32; contiguous at n = 2, 4, zigzag at n = 2, 4, 8): o, dq, dk,
+    dv against ``flash_attention`` over the whole sequence on the card,
+    and against the plain per-block ring in f32; the kernel launches
+    against the port's block count; the busiest virtual rank's ms and
+    the critical path's, beside ``ring_skip_stats``' predicted ratio."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.parallel import seq
+
+    b, t, h, d = SEQ_SHAPE
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(13)
+    base = [torch.randn(b, t, h, d, device=dev, generator=gen)
+            for _ in range(4)]
+    rows, timing = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (x.to(dtype) for x in base)
+        o_w, lse_w = fa.flash_forward(q, k, v, True, scale)
+        whole = (o_w,) + fa.flash_backward(q, k, v, o_w, lse_w, do, True,
+                                           scale)
+        fwd_tol, bwd_tol = FA_TOL[_name(dtype)]
+        for layout, n in SEQ_CASES:
+
+            def stored(x):
+                return seq.to_zigzag(x, n) if layout == "zigzag" else x
+
+            def natural(xs):
+                return [seq.from_zigzag(x, n) if layout == "zigzag" else x
+                        for x in xs]
+
+            ins = [stored(x) for x in (q, k, v, do)]
+            for name in fa.LAUNCHES:
+                fa.LAUNCHES[name] = 0
+            got = natural(_compose_ring(*ins, n, layout, True))
+            torch.cuda.synchronize()
+            blocks = seq.count_ring_blocks(n, layout)
+            launches = dict(fa.LAUNCHES)
+            if set(launches.values()) != {blocks}:
+                raise AssertionError(f"seq_ring_blocks {layout} n={n} "
+                                     f"{_name(dtype)}: launches {launches}, "
+                                     f"expected {blocks} each")
+            plain = natural(_compose_ring(*(x.float() for x in ins), n,
+                                          layout, False))
+            row = {"layout": layout, "n": n, "dtype": _name(dtype),
+                   "blocks": blocks, "launches": launches}
+            for i, name in enumerate(("o", "dq", "dk", "dv")):
+                tol = fwd_tol if name == "o" else bwd_tol
+                try:
+                    err, to_max = _agrees(got[i], whole[i], dtype, tol)
+                except AssertionError as e:
+                    raise AssertionError(f"seq_ring_blocks {layout} n={n} "
+                                         f"{name}: ring != whole-sequence "
+                                         f"flash attention: {e}") from None
+                gap = (got[i].float() - plain[i]).abs().max().item()
+                if dtype == torch.float32 and not torch.allclose(
+                        got[i], plain[i], atol=tol, rtol=tol):
+                    raise AssertionError(f"seq_ring_blocks {layout} n={n} "
+                                         f"{name}: kernel ring != plain "
+                                         f"per-block ring (f32): {gap}")
+                row[name] = {"max_abs_err_to_whole": err,
+                             "err_to_max_of_whole": to_max,
+                             "gap_to_plain_ring_f32": gap}
+            if dtype == torch.bfloat16:
+                times = [[0.0] * n for _ in range(n)]
+                for _ in range(SEQ_REPS):
+                    _compose_ring(*ins, n, layout, True, times)
+                per = [[x / SEQ_REPS for x in r_] for r_ in times]
+                timing[(layout, n)] = {
+                    "busiest_rank_ms": max(sum(r_) for r_ in per),
+                    "critical_path_ms": sum(max(per[r][s] for r in range(n))
+                                            for s in range(n)),
+                    "all_ranks_ms": sum(map(sum, per))}
+            rows.append(row)
+    ratios = {}
+    for n in (2, 4):
+        c, z = timing[("contiguous", n)], timing[("zigzag", n)]
+        ratios[f"n={n}"] = {
+            "predicted": seq.ring_skip_stats(t, n)["critical"]
+            / seq.ring_skip_stats(t, n, "zigzag")["critical"],
+            "busiest_rank": c["busiest_rank_ms"] / z["busiest_rank_ms"],
+            "critical_path": c["critical_path_ms"] / z["critical_path_ms"]}
+    _phase("seq_ring_blocks", card=card,
+           shape=f"B={b} T={t} H={h} D={d} causal",
+           cases=rows, tolerance={k: {"fwd": f, "bwd": bw}
+                                  for k, (f, bw) in FA_TOL.items()},
+           bf16_err_to_max_bound=BF16_ERR_TO_MAX,
+           bf16_ms={f"{layout} n={n}": v for (layout, n), v in timing.items()},
+           contiguous_over_zigzag=ratios,
+           note="one process composes every virtual rank's steps; ms per "
+                "(rank, step) are the step's kernels and its lse merge, "
+                f"CUDA events, median of {SEQ_REPS}; no NCCL")
+
+
+def seq_train(fa, card, plain_losses, plain):
+    """Phase 31: cmd/train_lm.py's main() at its defaults with
+    --seq-parallel ring, ring-zigzag and ulysses on the world-1 NCCL group
+    of phase 25: launch counts reset around each (the ring's blocks a
+    step: 2 x layers forwards under remat, layers dQ and dK/dV, times the
+    blocks of one rank: contiguous 1, zigzag 3; Ulysses none), losses
+    within 2e-2 relative of phase 8's, step ms, tokens/s and peak memory
+    beside phase 8's."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+    from container_engine_accelerators_tpu_torch.parallel import seq
+
+    args = train_lm.parse_args([])
+    tokens = args.train_batch_size * args.seq_len
+    layers_steps = args.num_layers * TRAIN_STEPS
+    runs, total = {}, {k: 0 for k in fa.LAUNCHES}
+    for kind in SEQ_KINDS:
+        ends = []
+
+        def on_step(step, loss, metrics):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses = train_lm.main(["--train-steps", str(TRAIN_STEPS),
+                                "--steps-per-eval", str(TRAIN_STEPS),
+                                "--seq-parallel", kind], on_step=on_step)
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(fa.LAUNCHES)
+        blocks = (0 if kind == "ulysses" else seq.count_ring_blocks(
+            1, "zigzag" if kind == "ring-zigzag" else "contiguous"))
+        want = {"flash_attention_fwd": 2 * layers_steps * blocks,
+                "flash_attention_bwd_dq": layers_steps * blocks,
+                "flash_attention_bwd_dkv": layers_steps * blocks}
+        if launches != want:
+            raise AssertionError(f"seq_train {kind}: flash launches "
+                                 f"{launches}, expected {want}")
+        for k, v in launches.items():
+            total[k] += v
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+        if len(losses) != TRAIN_STEPS or not max(rel) <= 2e-2:
+            raise AssertionError(f"seq_train {kind} losses {losses} vs the "
+                                 f"plain trainer's {plain_losses}")
+        steady = [y - x for x, y in zip(ends[1:], ends[2:])]
+        step_ms = statistics.median(steady) * 1e3
+        runs[kind] = {"losses": losses, "max_rel_to_plain": max(rel),
+                      "launches": launches, "steady_step_ms": step_ms,
+                      "step_ms_each": [round(x * 1e3, 3) for x in steady],
+                      "tokens_per_s": tokens / (step_ms / 1e3),
+                      "peak_memory_gb": peak / 1e9}
+    _phase("seq_train", card=card,
+           entry="cmd/train_lm.py main() at its defaults with --seq-parallel "
+                 "KIND: 12L 8x64 mlp2048 vocab32000, seq 2048, batch 8, bf16, "
+                 "remat; a (1, 1) mesh on one NCCL rank",
+           steps=TRAIN_STEPS, plain={**plain, "losses": plain_losses,
+                                     "peak_memory_gb":
+                                     plain["peak_memory_bytes"] / 1e9},
+           **{kind.replace("-", "_"): runs[kind] for kind in SEQ_KINDS},
+           tolerance="losses within 2e-2 relative of the plain trainer's "
+                     "(bf16: other attention arithmetic)")
+    return total, runs["ring-zigzag"]["losses"]
+
+
+def seq_resume(fa, card, unbroken):
+    """Phase 32: --seq-parallel ring-zigzag with --checkpoint-dir, 4 steps
+    at an interval of 2, then a restart to step 6: losses equal to phase
+    31's unbroken ring-zigzag run.  -> the flash launches of both runs."""
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sckpt_") as tmp:
+        argv = ["--seq-parallel", "ring-zigzag", "--checkpoint-dir", tmp,
+                "--checkpoint-interval", "2", "--steps-per-eval",
+                str(TRAIN_STEPS)]
+        first = train_lm.main(argv + ["--train-steps", "4"])
+        resumed = train_lm.main(argv + ["--train-steps", str(TRAIN_STEPS)])
+    losses = first + resumed
+    if len(first) != 4 or losses != unbroken:
+        raise AssertionError(f"seq_resume losses {first} + {resumed} differ "
+                             f"from the unbroken {unbroken}")
+    _phase("seq_resume", card=card,
+           entry="cmd/train_lm.py --seq-parallel ring-zigzag: 4 steps with "
+                 "--checkpoint-dir (interval 2), then resumed to step "
+                 f"{TRAIN_STEPS}", losses=losses, unbroken_losses=unbroken,
+           tolerance="bit-equal losses")
+    return dict(fa.LAUNCHES)
+
+
 def _plain_server():
     """The per-request server at SERVE_FLAGS (bf16 compute on the seed-0
     weights): the feature phases' reference.  -> (run, server)."""
@@ -4983,6 +5261,11 @@ def main():
     _timed("mesh_resume", mesh_resume, smi, losses)
     _timed("mesh_resnet", mesh_resnet, dev, smi)
     fd_launches += _timed("mesh_serve", mesh_serve, fd, dev, smi)
+    _timed("seq_ring_blocks", seq_ring_blocks, fa, dev, smi)
+    seq_launches, zigzag_losses = _timed("seq_train", seq_train, fa, smi,
+                                         losses, plain_train)
+    resume_launches = _timed("seq_resume", seq_resume, fa, smi,
+                             zigzag_losses)
     dcn.shutdown()
     torch.cuda.empty_cache()
 
@@ -5011,7 +5294,8 @@ def main():
     kernels += [{"name": name, "route": "cuda", "source": src,
                  "replaces": line,
                  "launches": (fa_launches[name] + moe_launches[name]
-                              + mesh_launches[name]),
+                              + mesh_launches[name] + seq_launches[name]
+                              + resume_launches[name]),
                  **{k: fa_rows[name][k] for k in keys}}
                 for name, (line, _, src) in FA_KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,9 +31,16 @@ more than one rank, or with ``--model-par > 1`` or ``--param-sharding
 fsdp`` (on one rank, the (1, 1) mesh); one rank without them is the
 single-device trainer, launcher or not.  Every rank builds the same global
 batch and keeps its rows (``--data-dir``: reads only its rows); rank 0
-logs and writes the checkpoints.  ``--seq-parallel`` and
-``--num-experts`` on a mesh come with the next multi-GPU slice and exit
-naming it.
+logs and writes the checkpoints.  ``--num-experts`` on a mesh comes with
+the next multi-GPU slice and exits naming it.
+
+``--seq-parallel ring|ring-zigzag|ulysses`` splits the SEQUENCE over the
+ranks instead (the JAX trainer's long-context mode; a (world, 1) mesh,
+also on one rank): the weights stay replicated, every rank builds the
+same global batch, reorders it into zigzag storage order for
+``ring-zigzag`` (labels and mask from the original order), and keeps its
+``--seq-len / world`` columns; attention is the ring, its blocks on the
+flash-attention kernels, or Ulysses' all-to-all (``parallel/seq.py``).
 
 Run: ``python -m container_engine_accelerators_tpu_torch.cmd.train_lm
 [--train-steps N] [--num-experts E] ...``.  It takes the JAX trainer's
@@ -50,6 +57,7 @@ import numpy as np
 import torch
 
 from container_engine_accelerators_tpu_torch.parallel.launch import (
+    seq_mesh,
     stop_agreed,
     trainer_mesh,
     wants_mesh,
@@ -80,7 +88,9 @@ def parse_args(argv=None):
     p.add_argument("--train-batch-size", type=int, default=8)
     p.add_argument("--seq-parallel", default="none",
                    choices=("none", "ring", "ring-zigzag", "ulysses"),
-                   help="sequence parallelism (only none is ported)")
+                   help="sequence/context parallelism over the ranks "
+                        "(ring-zigzag = causal-balanced ring; inputs are "
+                        "reordered automatically)")
     p.add_argument("--param-sharding", default="megatron",
                    choices=("megatron", "fsdp"),
                    help="weight layout over the mesh: megatron (model "
@@ -116,15 +126,21 @@ def validate_args(args):
             "global token-drop semantics; drop one of the flags")
     if args.model_par < 1:
         raise SystemExit("--model-par must be >= 1")
-    unported = [
-        (f"--seq-parallel {args.seq_parallel}", args.seq_parallel != "none"),
-        ("--num-experts on a mesh (expert sharding)",
-         args.num_experts and wants_mesh(args.model_par,
-                                         args.param_sharding)),
-    ]
-    for flag, on in unported:
-        if on:
-            raise SystemExit(f"{flag} {_NEXT_SLICE}")
+    if args.seq_parallel != "none":
+        if args.model_par > 1:
+            raise SystemExit(
+                "--model-par does not compose with --seq-parallel yet: "
+                "the sequence shards occupy the whole data axis and "
+                "params are replicated; drop one of the flags")
+        if args.param_sharding != "megatron":
+            raise SystemExit(
+                "--param-sharding fsdp applies to dense mode only: the "
+                "sequence-parallel path runs with replicated params; drop "
+                "one of the flags")
+    elif args.num_experts and wants_mesh(args.model_par,
+                                         args.param_sharding):
+        raise SystemExit(f"--num-experts on a mesh (expert sharding) "
+                         f"{_NEXT_SLICE}")
 
 
 def synthetic_batches(args, n_batches=4):
@@ -160,7 +176,8 @@ def main(argv=None, on_step=None):
     from container_engine_accelerators_tpu_torch.parallel import dcn
 
     # A process group this run creates, it destroys.
-    owns_group = (wants_mesh(args.model_par, args.param_sharding)
+    owns_group = ((args.seq_parallel != "none"
+                   or wants_mesh(args.model_par, args.param_sharding))
                   and not dist.is_initialized())
     try:
         return _train(args, on_step)
@@ -177,6 +194,9 @@ def _train(args, on_step):
     from container_engine_accelerators_tpu_torch.models.transformer import (
         TransformerLM,
     )
+    from container_engine_accelerators_tpu_torch.parallel.seq import (
+        zigzag_permutation,
+    )
     from container_engine_accelerators_tpu_torch.utils.device import (
         resolve_device,
     )
@@ -185,28 +205,34 @@ def _train(args, on_step):
         checkpoint_and_exit,
     )
 
+    seq_parallel = None if args.seq_parallel == "none" else args.seq_parallel
     mesh, rank = None, 0
     device = resolve_device(args.device)
-    if wants_mesh(args.model_par, args.param_sharding):
+    if seq_parallel:
+        mesh, rank, device = seq_mesh(args.device, args.seq_len)
+    elif wants_mesh(args.model_par, args.param_sharding):
         mesh, rank, device = trainer_mesh(args.device, args.model_par,
                                           args.train_batch_size)
-        if rank:
-            log.setLevel(logging.WARNING)  # rank 0 logs
+    if rank:
+        log.setLevel(logging.WARNING)  # rank 0 logs
     model = TransformerLM(
         vocab_size=args.vocab_size, num_layers=args.num_layers,
         num_heads=args.num_heads, head_dim=args.head_dim,
         mlp_dim=args.mlp_dim, num_kv_heads=args.kv_heads or None,
-        num_experts=args.num_experts, device=device)
+        num_experts=args.num_experts, seq_parallel=seq_parallel,
+        device=device)
     state = create_lm_train_state(
         model, torch.Generator().manual_seed(0),
         torch.optim.AdamW(model.parameters(), lr=args.learning_rate,
                           weight_decay=0.1))
-    step_fn, state = make_lm_train_step(mesh, state, None,
+    step_fn, state = make_lm_train_step(mesh, state, seq_parallel,
                                         args.param_sharding)
-    log.info("device %s, %d params, seq_len %d, batch %d%s", device,
+    log.info("device %s, %d params, seq_len %d, batch %d%s%s", device,
              sum(p.numel() for p in model.parameters()), args.seq_len,
              args.train_batch_size,
-             f", {args.num_experts} experts" if args.num_experts else "")
+             f", {args.num_experts} experts" if args.num_experts else "",
+             f", seq_parallel={seq_parallel} over {mesh.size()} ranks"
+             if seq_parallel else "")
 
     checkpointer = None
     start_step = 0
@@ -221,9 +247,18 @@ def _train(args, on_step):
             start_step = restored_step
             log.info("resuming from checkpoint at step %d", start_step)
 
-    rows = slice(None)
+    rows, cols, perm = slice(None), slice(None), None
     shard = (0, 1)
-    if mesh is not None:
+    if seq_parallel:
+        # Every rank reads the whole batch and keeps its columns, after
+        # the zigzag reorder for ring-zigzag (labels and mask come from
+        # the original order: the batch sources build them first).
+        n = mesh.size()
+        width = args.seq_len // n
+        cols = slice(rank * width, (rank + 1) * width)
+        if seq_parallel == "ring-zigzag":
+            perm = zigzag_permutation(args.seq_len, n).numpy()
+    elif mesh is not None:
         from container_engine_accelerators_tpu_torch.parallel.mesh import (
             batch_rows,
             data_shard,
@@ -236,11 +271,16 @@ def _train(args, on_step):
 
     def on_device(toks, labels, mask, rows=rows):
         """A batch on the device: this rank's rows of the global batch,
-        as the batch DTensor on a mesh."""
-        out = (torch.from_numpy(toks[rows]).to(device, torch.long),
-               torch.from_numpy(labels[rows]).to(device, torch.long),
-               torch.from_numpy(mask[rows]).to(device))
-        if mesh is None:
+        as the batch DTensor on a mesh; under --seq-parallel, its columns
+        (of the zigzag order for ring-zigzag), as plain tensors."""
+        if perm is not None:
+            toks, labels, mask = (x[:, perm] for x in (toks, labels, mask))
+        toks, labels, mask = (np.ascontiguousarray(x[rows, cols])
+                              for x in (toks, labels, mask))
+        out = (torch.from_numpy(toks).to(device, torch.long),
+               torch.from_numpy(labels).to(device, torch.long),
+               torch.from_numpy(mask).to(device))
+        if mesh is None or seq_parallel:
             return out
         return tuple(from_local_batch(x, mesh) for x in out)
 

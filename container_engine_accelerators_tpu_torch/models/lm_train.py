@@ -10,9 +10,18 @@ Dense mode runs on one device or over a (data, model) mesh
 rule ("megatron" or "fsdp"), the batch is split by rows over the data
 axis, and the loss is the global one — the masked sum over the whole
 batch over the global mask count, a single replicated value, not a mean
-of per-rank means.  The sequence-parallel step (ring, ring-zigzag,
-Ulysses) and the MoE-LM on a mesh (expert sharding) come with the next
-multi-GPU slice of the port and raise here.
+of per-rank means.
+
+Sequence-parallel mode (``seq_parallel`` "ring", "ring-zigzag" or
+"ulysses") splits the sequence over the mesh's data axis instead: the
+parameters stay plain tensors, replicated (DTensor would cost host time
+on every op), each rank feeds its T/n columns of the whole batch at
+their global positions (:func:`prepare_seq_parallel_batch` builds the
+batch), the loss is the masked sum over every rank's columns over the
+global mask count, and each gradient is summed over the ranks with one
+all-reduce — the sum JAX's shard_map autodiff inserts implicitly.  The
+MoE-LM on a mesh (expert sharding) comes with the next multi-GPU slice
+of the port and raises here.
 """
 
 from typing import Optional, Tuple
@@ -29,11 +38,18 @@ from container_engine_accelerators_tpu_torch.models.transformer import (
     init_params,
 )
 from container_engine_accelerators_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    axis_size,
     full,
     shard_batch,
     shard_params,
     shard_params_fsdp,
     sync_grads,
+)
+from container_engine_accelerators_tpu_torch.parallel.seq import (
+    ring_positions,
+    to_zigzag,
 )
 
 MOE_AUX_WEIGHT = 0.01  # Switch load-balance coefficient
@@ -47,6 +63,26 @@ def next_token_targets(tokens: torch.Tensor
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
     return labels, mask
+
+
+def prepare_seq_parallel_batch(tokens: torch.Tensor,
+                               seq_parallel: Optional[str] = None,
+                               n_shards: Optional[int] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """(tokens', labels', mask') of a whole batch for the
+    sequence-parallel step: labels and mask from the ORIGINAL order (a
+    shard's last label lives in the next shard), then, for
+    ``ring-zigzag``, all three reordered into zigzag storage order over
+    ``n_shards`` ranks, so rank i's contiguous columns hold chunks i and
+    2n-1-i."""
+    labels, mask = next_token_targets(tokens)
+    if seq_parallel == "ring-zigzag":
+        if n_shards is None:
+            raise ValueError("ring-zigzag batch prep needs n_shards")
+        tokens, labels, mask = (to_zigzag(x, n_shards)
+                                for x in (tokens, labels, mask))
+    return tokens, labels, mask
 
 
 def create_lm_train_state(model: torch.nn.Module,
@@ -101,12 +137,16 @@ def make_lm_train_step(mesh=None, state: Optional[TrainState] = None,
     The step then takes the batch as DTensors split by rows
     (``parallel/mesh.py::from_local_batch``), or whole on every rank,
     and each rank keeps its rows; its ``loss`` is the global loss, whole
-    on every rank."""
+    on every rank.
+
+    With ``seq_parallel`` the model must have been built with the same
+    scheme; the mesh's data axis carries the sequence shards (its model
+    axis must be 1), and the step takes this rank's columns ``[B, T/n]``
+    of the whole batch (in zigzag storage order for "ring-zigzag")."""
     if param_sharding not in ("megatron", "fsdp"):
         raise ValueError(f"unknown param_sharding {param_sharding!r}")
     if seq_parallel is not None:
-        raise NotImplementedError(f"sequence parallelism ({seq_parallel}) "
-                                  f"{_NEXT_SLICE}")
+        return _seq_parallel_step(mesh, state, seq_parallel, param_sharding)
     if mesh is None and param_sharding == "fsdp":
         raise ValueError("param_sharding='fsdp' shards over a mesh: pass "
                          "one (parallel/mesh.py::create_mesh)")
@@ -139,5 +179,54 @@ def make_lm_train_step(mesh=None, state: Optional[TrainState] = None,
         if s.model.num_experts:
             metrics.update(moe_aux=aux.loss.detach(), moe_dropped=aux.dropped)
         return s, metrics
+
+    return step, state
+
+
+def _seq_parallel_step(mesh, state: TrainState, seq_parallel: str,
+                       param_sharding: str):
+    """The sequence-parallel step over ``mesh``'s data group (the JAX
+    ``shard_map`` step, ``models/lm_train.py:198-245``)."""
+    import torch.distributed as dist
+
+    if param_sharding != "megatron":
+        raise ValueError(
+            f"param_sharding={param_sharding!r} applies to dense mode "
+            f"only — the sequence-parallel path runs with replicated "
+            f"params")
+    if mesh is None:
+        raise ValueError("sequence parallelism shards over a mesh's data "
+                         "axis: pass one (parallel/mesh.py::create_mesh)")
+    if axis_size(mesh, MODEL_AXIS) != 1:
+        raise ValueError("sequence parallelism takes a mesh with model=1: "
+                         "the sequence shards occupy the whole data axis "
+                         "and the params are replicated")
+    model = state.model
+    if model.seq_parallel != seq_parallel:
+        raise ValueError(f"the model was built with seq_parallel="
+                         f"{model.seq_parallel!r}, the step asks for "
+                         f"{seq_parallel!r}")
+    group = mesh.get_group(DATA_AXIS)
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    model.bind_seq_group(group)
+    layout = "zigzag" if seq_parallel == "ring-zigzag" else "contiguous"
+
+    def step(s: TrainState, tokens, labels, mask):
+        s.optimizer.zero_grad(set_to_none=True)
+        # Rotary and the ring's mask both read these global positions.
+        positions = ring_positions(layout, rank, tokens.shape[1], n).to(
+            tokens.device)
+        num, den = _loss(s.model, tokens, labels, mask, positions)
+        sums = torch.stack([num.detach(), den]).float()
+        dist.all_reduce(sums, group=group)
+        (num / sums[1]).backward()
+        grads = [p.grad for p in s.model.parameters() if p.grad is not None]
+        flat = torch.cat([g.flatten() for g in grads])
+        dist.all_reduce(flat, group=group)  # the one sum over the ranks
+        for g, x in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(x.view_as(g))
+        s.optimizer.step()
+        s.step += 1
+        return s, {"loss": sums[0] / sums[1]}
 
     return step, state

@@ -6,7 +6,10 @@ modes:
   the whole sequence, through the flash-attention kernels
   (``ops/flash_attention.py``) or dense attention
   (``parallel/seq.py::dense_attention``), each block under activation
-  checkpointing when ``remat`` (the JAX model's ``nn.remat``);
+  checkpointing when ``remat`` (the JAX model's ``nn.remat``); with
+  ``seq_parallel``, over this rank's sequence shard through ring (its
+  blocks on the flash kernels) or Ulysses attention
+  (``parallel/seq.py``);
 - **decode mode** (``decode=True``): the serving forward over a KV cache,
   optionally through the flash-decode kernel, and with ``quant=True`` on
   int8 projection kernels (``models/quant.py::QDense``, the JAX model's
@@ -71,7 +74,11 @@ from container_engine_accelerators_tpu_torch.parallel.mesh import (
 )
 from container_engine_accelerators_tpu_torch.parallel.seq import (
     dense_attention,
+    ring_attention,
+    ulysses_attention,
 )
+
+SEQ_PARALLEL = (None, "ring", "ring-zigzag", "ulysses")
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -145,8 +152,13 @@ class Attention(nn.Module):
     the K/V heads repeated up to the query heads."""
 
     def __init__(self, dim, num_heads, head_dim, dtype=torch.bfloat16,
-                 num_kv_heads=None, device=None, train=False, quant=False):
+                 num_kv_heads=None, device=None, train=False, quant=False,
+                 seq_parallel=None):
         super().__init__()
+        # Sequence parallelism (train mode): the scheme, and the process
+        # group whose ranks hold the sequence shards (None: the default
+        # group; ``TransformerLM.bind_seq_group`` sets it).
+        self.seq_parallel, self.seq_group = seq_parallel, None
         kv_heads = num_kv_heads or num_heads
         if num_heads % kv_heads:
             raise ValueError(f"num_heads={num_heads} not divisible by "
@@ -198,11 +210,21 @@ class Attention(nn.Module):
         run keeps XLA's attention), and dense attention otherwise (on
         the CPU too, as the JAX model does off the TPU); True takes
         ``flash_attention`` whatever the device (its plain version on
-        the CPU)."""
+        the CPU).  Under ``seq_parallel``, q, k and v are this rank's
+        sequence shard and the attention is the ring (its blocks through
+        the flash op) or Ulysses over ``seq_group`` (``parallel/seq.py``),
+        as the JAX model's train mode."""
         rep = self.num_heads // self.kv_heads
         if rep > 1:
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
+        if self.seq_parallel in ("ring", "ring-zigzag"):
+            layout = ("zigzag" if self.seq_parallel == "ring-zigzag"
+                      else "contiguous")
+            return ring_attention(q, k, v, self.seq_group, causal=True,
+                                  layout=layout)
+        if self.seq_parallel == "ulysses":
+            return ulysses_attention(q, k, v, self.seq_group, causal=True)
         flash = use_flash
         if flash is None:
             flash = (q.is_cuda and one_rank
@@ -261,13 +283,13 @@ class Block(nn.Module):
 
     def __init__(self, num_heads, head_dim, mlp_dim, dtype=torch.bfloat16,
                  num_kv_heads=None, device=None, train=False, quant=False,
-                 num_experts=0, moe_capacity_factor=1.25):
+                 num_experts=0, moe_capacity_factor=1.25, seq_parallel=None):
         super().__init__()
         dim = num_heads * head_dim
         self.dtype = dtype
         self.ln_attn = RMSNorm(dim, dtype, device, train)
         self.attn = Attention(dim, num_heads, head_dim, dtype, num_kv_heads,
-                              device, train, quant)
+                              device, train, quant, seq_parallel)
         self.ln_mlp = RMSNorm(dim, dtype, device, train)
         self.moe = None
         if num_experts > 0:
@@ -327,17 +349,28 @@ class TransformerLM(nn.Module):
     train mode and drop-free routing in decode mode.  ``quant`` (decode
     mode only, as in JAX) holds every attention and dense-MLP projection
     as int8 + f32 scales (``models/quant.py``; MoE experts stay float);
-    load ``serving_params(params, "int8")`` into it."""
+    load ``serving_params(params, "int8")`` into it.
+
+    ``seq_parallel`` ("ring", "ring-zigzag" or "ulysses"; train mode
+    only, as in JAX) makes the attention sequence-parallel: the model then
+    takes this rank's columns of the batch with their global positions,
+    and ``make_lm_train_step`` binds the group (:meth:`bind_seq_group`)."""
 
     def __init__(self, vocab_size=32_000, num_layers=12, num_heads=8,
                  head_dim=64, mlp_dim=2048, dtype=torch.bfloat16,
                  num_kv_heads=None, decode=False, use_flash_decode=False,
                  use_flash=None, remat=True, num_experts=0, quant=False,
-                 moe_capacity_factor=1.25, device=None):
+                 moe_capacity_factor=1.25, seq_parallel=None, device=None):
         super().__init__()
         if quant and not decode:
             raise ValueError("int8 weights (quant=True) serve only: build "
                              "the model with decode=True")
+        if seq_parallel not in SEQ_PARALLEL:
+            raise ValueError(f"unknown seq_parallel {seq_parallel!r}")
+        if decode and seq_parallel:
+            raise ValueError("decode mode is single-sequence; it does not "
+                             "compose with sequence parallelism")
+        self.seq_parallel = seq_parallel
         self.vocab_size, self.num_layers = vocab_size, num_layers
         self.num_heads, self.head_dim = num_heads, head_dim
         self.num_kv_heads = num_kv_heads or num_heads
@@ -354,9 +387,16 @@ class TransformerLM(nn.Module):
         self.quant = quant
         self.blocks = nn.ModuleList(
             Block(num_heads, head_dim, mlp_dim, dtype, num_kv_heads, device,
-                  train, quant, num_experts, moe_capacity_factor)
+                  train, quant, num_experts, moe_capacity_factor,
+                  seq_parallel)
             for _ in range(num_layers))
         self.ln_f = RMSNorm(num_heads * head_dim, dtype, device, train)
+
+    def bind_seq_group(self, group) -> None:
+        """Set the process group whose ranks hold the sequence shards in
+        every attention layer."""
+        for blk in self.blocks:
+            blk.attn.seq_group = group
 
     @property
     def mesh(self):

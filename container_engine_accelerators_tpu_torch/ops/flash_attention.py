@@ -106,7 +106,11 @@ def _on_cuda(x):
     return x.device.type == "cuda"
 
 
-def _forward(q, k, v, causal, scale):
+def flash_forward(q, k, v, causal, scale):
+    """One forward op call: ``(o, lse [B*H, T] f32)``, the kernel for CUDA
+    tensors (``causal`` masks keys past each query's own position, q, k
+    and v of one shape), the plain version for CPU ones.  The ring's
+    blocks call it too (``parallel/seq.py``)."""
     if not _on_cuda(q):
         return flash_attention_reference(q, k, v, causal, scale)
     o, lse = load_ops().flash_attention_fwd(q, k, v, causal, scale)
@@ -114,7 +118,10 @@ def _forward(q, k, v, causal, scale):
     return o, lse
 
 
-def _backward(q, k, v, o, lse, do, causal, scale):
+def flash_backward(q, k, v, o, lse, do, causal, scale):
+    """One backward: ``(dq, dk, dv)`` from the forward's ``o`` and ``lse``,
+    the dQ then the dK/dV kernel for CUDA tensors, the plain version for
+    CPU ones."""
     if not _on_cuda(q):
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
                                              scale)
@@ -134,7 +141,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = _forward(q, k, v, causal, scale)
+        o, lse = flash_forward(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
@@ -142,7 +149,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, ctx.causal,
+                                    ctx.scale)
         return dq, dk, dv, None, None
 
 

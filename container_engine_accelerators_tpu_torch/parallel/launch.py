@@ -7,6 +7,8 @@ than one rank, or when a flag shards the weights (``--model-par > 1``,
 ``--param-sharding fsdp``, also on one rank: the (1, 1) mesh).  One rank
 with neither is the single-device trainer, launcher or not: it computes
 what the (1, 1) mesh computes, without DTensor's dispatch.
+``cmd/train_lm.py --seq-parallel`` always takes a (world, 1) mesh
+(:func:`seq_mesh`), one rank included.
 """
 
 import logging
@@ -51,6 +53,25 @@ def trainer_mesh(device, model_par: int, batch: int):
     log.info("rank %d/%d, mesh data=%d model=%d", rank, world, dp,
              model_par)
     return mesh, rank, dcn.local_device(device)
+
+
+def seq_mesh(device, seq_len: int):
+    """(mesh, rank, this rank's device) for ``--seq-parallel``: the
+    process group joined (a world-size-1 one without a launcher) and a
+    (world, 1) mesh whose data axis carries the sequence shards, which
+    must divide ``seq_len``."""
+    from container_engine_accelerators_tpu_torch.parallel import dcn
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        create_mesh,
+    )
+
+    world, rank = dcn.initialize(device=device, force=True)
+    if seq_len % world:
+        raise SystemExit(f"--seq-len {seq_len} not divisible by {world} "
+                         f"devices")
+    log.info("rank %d/%d, mesh data=%d model=1 (sequence shards)", rank,
+             world, world)
+    return create_mesh(model=1), rank, dcn.local_device(device)
 
 
 def stop_agreed(stop: bool, mesh) -> bool:

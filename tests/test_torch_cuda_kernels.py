@@ -294,8 +294,8 @@ def test_flash_attention_kernels_match_plain_version(cuda, dtype, d, causal,
     q, k, v, do = (torch.randn(b, t, h, d, device=cuda, generator=gen)
                    .to(dtype) for _ in range(4))
     before = dict(fa.LAUNCHES)
-    o, lse = fa._forward(q, k, v, causal, d ** -0.5)
-    dq, dk, dv = fa._backward(q, k, v, o, lse, do, causal, d ** -0.5)
+    o, lse = fa.flash_forward(q, k, v, causal, d ** -0.5)
+    dq, dk, dv = fa.flash_backward(q, k, v, o, lse, do, causal, d ** -0.5)
     torch.cuda.synchronize()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
         "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
@@ -319,7 +319,7 @@ def test_flash_attention_casts_p_like_the_plain_version(cuda):
     q, k, v = p_cast_inputs(1, 2048, 8, 8, 64)
     q = q[:, None].repeat(2048, axis=1)
     q, k, v = (torch.from_numpy(x).to(cuda) for x in (q, k, v))
-    got, _ = fa._forward(*(x.bfloat16() for x in (q, k, v)), False, 0.125)
+    got, _ = fa.flash_forward(*(x.bfloat16() for x in (q, k, v)), False, 0.125)
     want, _ = fa.flash_attention_reference(*(x.bfloat16() for x in (q, k, v)))
     torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                atol=0)
@@ -384,7 +384,7 @@ def test_bf16_backward_runs_the_delta_pre_pass_once(cuda):
     gen = torch.Generator(device=cuda).manual_seed(5)
     q, k, v, do = (torch.randn(2, 256, 3, 64, device=cuda, generator=gen)
                    .bfloat16() for _ in range(4))
-    o, lse = fa._forward(q, k, v, True, 0.125)
+    o, lse = fa.flash_forward(q, k, v, True, 0.125)
     _, delta = fa.load_ops().flash_attention_bwd_dq(q, k, v, o, do, lse,
                                                     True, 0.125)
     want = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(6, 256)
@@ -394,7 +394,7 @@ def test_bf16_backward_runs_the_delta_pre_pass_once(cuda):
     assert none is None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fa._backward(q, k, v, o, lse, do, True, 0.125)
+        fa.flash_backward(q, k, v, o, lse, do, True, 0.125)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]

@@ -141,8 +141,8 @@ def test_p_and_ds_are_cast_like_the_jax_kernels():
     want = {"dk": _f32(jdk)[..., 0], "dv": _f32(jdv)}
     f32 = [torch.from_numpy(x) for x in (q, k, v, o, lse, do)]
     bf16 = [x if i == 4 else x.bfloat16() for i, x in enumerate(f32)]
-    _, dk, dv = fa._backward(*bf16, False, 0.125)
-    _, ctrl_dk, ctrl_dv = fa._backward(*f32, False, 0.125)
+    _, dk, dv = fa.flash_backward(*bf16, False, 0.125)
+    _, ctrl_dk, ctrl_dv = fa.flash_backward(*f32, False, 0.125)
     got = {"dk": dk.float().numpy()[..., 0], "dv": dv.float().numpy()}
     ctrl = {"dk": ctrl_dk.bfloat16().float().numpy()[..., 0],
             "dv": ctrl_dv.bfloat16().float().numpy()}
@@ -170,8 +170,8 @@ def test_ds_is_cast_to_k_dtype_before_dq_like_the_jax_kernel():
     want = _f32(jdq)
     f32 = [torch.from_numpy(x) for x in (q, k, v, o, lse, do)]
     bf16 = [x if i == 4 else x.bfloat16() for i, x in enumerate(f32)]
-    dq = fa._backward(*bf16, False, 0.125)[0].float().numpy()
-    ctrl = fa._backward(*f32, False, 0.125)[0].bfloat16().float().numpy()
+    dq = fa.flash_backward(*bf16, False, 0.125)[0].float().numpy()
+    ctrl = fa.flash_backward(*f32, False, 0.125)[0].bfloat16().float().numpy()
     np.testing.assert_allclose(dq[..., 1], want[..., 1], rtol=2 ** -7, atol=0)
     assert not np.allclose(ctrl[..., 1], want[..., 1], rtol=2 ** -7, atol=0)
     assert np.all(want[..., 1] == 128 * 3 / 2048)  # (T/2)(1/8 - 0.123535)

@@ -214,7 +214,7 @@ def test_flash_forward_runs_per_layer_once_or_twice(monkeypatch, remat,
     step runs the flash forward once per layer, twice under remat (the
     backward recomputes each block), and the backward once per layer."""
     calls = {"fwd": 0, "bwd": 0}
-    fwd, bwd = fa._forward, fa._backward
+    fwd, bwd = fa.flash_forward, fa.flash_backward
 
     def count(name, fn):
         def wrapped(*a):
@@ -222,8 +222,8 @@ def test_flash_forward_runs_per_layer_once_or_twice(monkeypatch, remat,
             return fn(*a)
         return wrapped
 
-    monkeypatch.setattr(fa, "_forward", count("fwd", fwd))
-    monkeypatch.setattr(fa, "_backward", count("bwd", bwd))
+    monkeypatch.setattr(fa, "flash_forward", count("fwd", fwd))
+    monkeypatch.setattr(fa, "flash_backward", count("bwd", bwd))
     model = _port_model("mha", _jax_run("mha")[0], use_flash=True,
                         remat=remat)
     _port_loss(model).backward()
@@ -234,7 +234,7 @@ def test_flash_forward_runs_per_layer_once_or_twice(monkeypatch, remat,
 def test_auto_attention_on_the_cpu_is_dense(monkeypatch):
     """use_flash=None picks the kernel only for a CUDA tensor; on the CPU
     it is dense attention, as the JAX model off the TPU."""
-    monkeypatch.setattr(fa, "_forward", None)  # would raise if reached
+    monkeypatch.setattr(fa, "flash_forward", None)  # would raise if reached
     model = _port_model("mha", _jax_run("mha")[0])
     assert model.use_flash is None
     assert torch.isfinite(_port_loss(model)).item()
@@ -279,7 +279,9 @@ def test_optimizer_decays_every_parameter():
                                 dict(seq_parallel="ring-zigzag")],
                          ids=["ring", "ulysses", "ring-zigzag"])
 def test_multi_gpu_step_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    """Sequence parallelism splits the sequence over a mesh's data axis:
+    without a mesh the step refuses it."""
+    with pytest.raises(ValueError, match="shards over a mesh's data axis"):
         lt.make_lm_train_step(**kw)
 
 

@@ -68,8 +68,15 @@ def test_defaults_match_the_jax_trainer():
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    (["--seq-parallel", "ring"], "multi-GPU slice"),
-    (["--seq-parallel", "ulysses"], "multi-GPU slice"),
+    # --seq-parallel trains since the sequence-parallel slice; what of it
+    # still exits is its combination with the weight layouts, with the
+    # JAX trainer's messages (ids kept from when the flag itself exited).
+    pytest.param(["--seq-parallel", "ring", "--model-par", "2"],
+                 "--model-par does not compose with --seq-parallel",
+                 id="flags0-multi-GPU slice"),
+    pytest.param(["--seq-parallel", "ulysses", "--param-sharding", "fsdp"],
+                 "--param-sharding fsdp applies to dense mode only",
+                 id="flags1-multi-GPU slice"),
     (["--num-experts", "2", "--model-par", "2"], "next multi-GPU slice"),
     (["--num-experts", "2", "--param-sharding", "fsdp"],
      "next multi-GPU slice"),

@@ -4,20 +4,24 @@ module, so the JAX references are computed in the parent and handed in
 as numpy.
 
 :func:`spawn` starts ``world`` processes with ``torch.multiprocessing``
-(rendezvous through a ``FileStore`` in the test's own directory, so no
-port is shared between test workers), runs ``fn(rank, world, *args)`` in
-each, joins them all and returns each rank's return value.  Every
-worker destroys its process group before it returns.
+(rendezvous through a ``FileStore`` in a new directory of its own under
+the test's, so no port and no store file is shared between spawns),
+runs ``fn(rank, world, *args)`` in each, joins them all within a time
+limit and returns each rank's return value.  Every worker destroys its
+process group before it returns.
 """
 
 import os
 import pickle
+import tempfile
+import time
 
 import numpy as np
 import torch
 import torch.multiprocessing as mp
 
 TORCH_THREADS = 1
+SPAWN_TIMEOUT_S = 600  # a hung collective fails the test, not the run
 
 
 def _entry(rank, world, tmp, fn, args):
@@ -37,13 +41,25 @@ def _entry(rank, world, tmp, fn, args):
         dcn.shutdown()
 
 
-def spawn(fn, world, tmp, *args):
+def spawn(fn, world, tmp, *args, timeout=SPAWN_TIMEOUT_S):
     """Run ``fn(rank, world, *args)`` on ``world`` gloo ranks; return the
-    list of their results (picklable values)."""
-    tmp = str(tmp)
-    os.makedirs(tmp, exist_ok=True)
-    mp.start_processes(_entry, args=(world, tmp, fn, args), nprocs=world,
-                       join=True, start_method="spawn")
+    list of their results (picklable values).  Ranks still running after
+    ``timeout`` seconds are killed and the call raises ``TimeoutError``."""
+    os.makedirs(str(tmp), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="spawn_", dir=str(tmp))
+    ctx = mp.start_processes(_entry, args=(world, tmp, fn, args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{fn.__name__} on {world} ranks did not "
+                                   f"finish in {timeout} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
     out = []
     for r in range(world):
         with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
@@ -328,3 +344,113 @@ def trainers(rank, world, lm_argv, resnet_argv):
     os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
                       LOCAL_RANK=str(rank))
     return train_lm.main(lm_argv), train_resnet.main(resnet_argv)
+
+
+# ---- sequence parallelism ----------------------------------------------------
+
+
+def _columns(x, rank, world):
+    """This rank's sequence shard (axis 1) of a global numpy array."""
+    width = x.shape[1] // world
+    return torch.from_numpy(np.ascontiguousarray(
+        x[:, rank * width:(rank + 1) * width]))
+
+
+def seq_attention(rank, world, cases):
+    """Each case ``(kind, layout, causal, q, k, v, do)`` — global numpy
+    arrays, the sequence in storage order (zigzag for layout "zigzag") —
+    through the port's ``make_sequence_parallel_attention`` over a
+    (world, 1) mesh on this rank's shards, ``do`` the output gradient ->
+    per case the shards' (o, dq, dk, dv), or the message of the
+    ``ValueError`` it raised."""
+    from container_engine_accelerators_tpu_torch.parallel import mesh as pm
+    from container_engine_accelerators_tpu_torch.parallel import seq
+
+    mesh = pm.create_mesh(world, 1)
+    out = []
+    for kind, layout, causal, q, k, v, do in cases:
+        fn = seq.make_sequence_parallel_attention(mesh, kind, causal,
+                                                  layout=layout)
+        q, k, v = (_columns(x, rank, world).requires_grad_()
+                   for x in (q, k, v))
+        try:
+            o = fn(q, k, v)
+        except ValueError as e:
+            out.append(str(e))
+            continue
+        o.backward(_columns(do, rank, world))
+        out.append(tuple(_np(t) for t in (o, q.grad, k.grad, v.grad)))
+    return out
+
+
+def lm_seq_step(rank, world, configs, lr=3e-4):
+    """For each ``(name, cfg, seq_parallel, params, batches)`` of
+    ``configs``: the port's f32 LM built with ``seq_parallel`` from
+    ``params`` (a port state dict of numpy arrays), trained by
+    ``make_lm_train_step`` on a (world, 1) mesh over ``batches`` — whole
+    (tokens, labels, mask) in the scheme's storage order, of which each
+    rank feeds its columns -> {name: {"losses", "params" (numpy)}, and
+    "refused": the messages of the step's refusals that need a mesh}."""
+    from container_engine_accelerators_tpu_torch.models import lm_train as lt
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.create_mesh(world, 1)
+    out = {}
+    for name, cfg, kind, params, batches in configs:
+        model = TransformerLM(**cfg, dtype=torch.float32, seq_parallel=kind,
+                              device="cpu")
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               params.items()})
+        state = lt.create_lm_train_state(model, optimizer=torch.optim.AdamW(
+            model.parameters(), lr=lr, weight_decay=0.1))
+        step, state = lt.make_lm_train_step(mesh, state, kind)
+        losses = []
+        for toks, labels, mask in batches:
+            state, m = step(state, _columns(toks, rank, world).long(),
+                            _columns(labels, rank, world).long(),
+                            _columns(mask, rank, world))
+            losses.append(float(m["loss"]))
+        out[name] = {"losses": losses,
+                     "params": {n: _np(p) for n, p in
+                                state.model.named_parameters()}}
+    # The step's refusals that need a mesh: a model axis, and a model
+    # built for another scheme.
+    refused = []
+    for shape, built in (((world // 2, 2), "ring"), ((world, 1), "ulysses")):
+        model = TransformerLM(**configs[0][1], dtype=torch.float32,
+                              seq_parallel=built, device="cpu")
+        try:
+            lt.make_lm_train_step(pm.create_mesh(*shape),
+                                  lt.create_lm_train_state(model), "ring")
+        except ValueError as e:
+            refused.append(str(e))
+    out["refused"] = refused
+    return out
+
+
+def lm_trainer_runs(rank, world, argvs):
+    """``cmd/train_lm.py``'s ``main`` on every rank for each of ``argvs``
+    in turn, under the launcher env torchrun would set -> each run's
+    losses."""
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    return [train_lm.main(argv) for argv in argvs]
+
+
+def bench_ring_line(rank, world, argv):
+    """``cmd/bench_ring.py``'s ``main(argv)`` on every rank -> what it
+    printed on stdout."""
+    import contextlib
+    import io
+
+    from container_engine_accelerators_tpu_torch.cmd import bench_ring
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert bench_ring.main(argv) == 0
+    return out.getvalue()
