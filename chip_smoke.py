@@ -15,7 +15,9 @@ Inception-v3, the multi-GPU layer at a world of one card (an NCCL group,
 the trainers and the LM server on the (1, 1) mesh of DTensor weights,
 the sharded ResNet step), sequence parallelism (ring, ring-zigzag
 and Ulysses through ``cmd/train_lm.py --seq-parallel``, the ring's blocks
-on the flash kernels), and the node layer (NVML, the ``nvidia.com/gpu`` device
+on the flash kernels), pipeline and expert parallelism, the MoE-LM and
+the int8 / prefix-cache / MoE server on the mesh, the JAX dry run's nine
+regimes, and the node layer (NVML, the ``nvidia.com/gpu`` device
 plugin daemon, its Xid health checker and metrics server, its fault
 sites, MIG, the maintenance watcher and MPS) on the card;
 and holds every hand-written CUDA kernel against its plain PyTorch
@@ -215,7 +217,7 @@ version.  Phases, one JSON line each:
 29. ``mesh_serve``: ``cmd/serve_lm.py``'s ``build_generate(args,
     create_mesh(1, 1))`` and ``start_engine`` at phase 5's
     flags on the (1, 1) mesh against the plain server: one 64-token
-    prompt's 32-token greedy request (latency, twice) and
+    prompt's 16-token greedy request (latency, twice) and
     ``serve_slots``' 8 prompts through ``--slots 8`` (batch wall time,
     once), identical greedy tokens and flash decode launches; then the
     f32 greedy tokens (8, after a 300-token prompt) of a TP-sharded
@@ -240,6 +242,25 @@ version.  Phases, one JSON line each:
 32. ``seq_resume``: ``--seq-parallel ring-zigzag`` with
     ``--checkpoint-dir``, 4 steps at an interval of 2 and a restart to
     step 6: losses bit-equal to phase 31's unbroken run;
+32a. ``pipeline``: the trainer's default blocks (12 layers, 8 x 64
+    heads, mlp 2048, flash attention) as the layer of
+    ``parallel/pipeline.py``'s GPipe schedule at one stage and 4
+    microbatches of a [8, 2048, 512] bf16 batch: output and every
+    gradient bit-equal to the blocks applied in order, flash launches
+    12 x 4 each kernel;
+32b. ``expert_parallel``: ``MoEFFN`` at full width (E 8, D 512, F 2048)
+    expert-sharded on the (1, 1) mesh against the unsharded layer on
+    16,384 tokens: output, aux, drop share and gradients bit-equal;
+32c. ``mesh_train_moe``: the trainer at its defaults plus
+    ``--num-experts 8`` on the (1, 1) mesh under megatron and fsdp:
+    losses and drop shares bit-equal to phase 19's, flash launches
+    exact, step ms;
+32d. ``mesh_serve_features``: the server with the MoE-LM, int8 weights
+    and the prefix cache on the (1, 1) mesh against the plain server,
+    per request and with ``--slots 8``: identical greedy tokens, one
+    prefix miss and the rest hits on every server;
+32e. ``dryrun``: ``entry.dryrun_multichip(1)``: the nine regimes of the
+    JAX dry run on the card;
 33. ``nvml``: ``gpulib/nvml.py``'s ``NvmlLib`` against the card: the
     device count equals torch's and nvidia-smi's; each device's name,
     UUID, PCI bus id and total memory equal nvidia-smi's (and torch's,
@@ -294,7 +315,8 @@ version.  Phases, one JSON line each:
 41. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
     ``serve`` and ``serve_slots`` phases' and phases 14-17', 20's and
     29's; flash attention's: the ``train``, ``train_moe``,
-    ``mesh_train``, ``seq_train`` and ``seq_resume`` phases').
+    ``mesh_train``, ``seq_train``, ``seq_resume``, ``pipeline``,
+    ``mesh_train_moe`` and ``dryrun`` phases').
 
 Each phase's seconds follow it on a ``timing`` line.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -2547,7 +2569,8 @@ def _traced_kinds(fn, vocab, router_shape):
 def train_moe(fa, dev, card, ckpt):
     """Phase 19: the trainer's main() at its defaults plus --num-experts 8
     (launch counts reset around it), one step traced by kind, and a
-    checkpointed run resumed to the same step."""
+    checkpointed run resumed to the same step.  -> (flash launches, the
+    losses)."""
     import shutil
 
     import torch
@@ -2662,7 +2685,7 @@ def train_moe(fa, dev, card, ckpt):
                    "checkpoint_bytes": ckpt_bytes,
                    "run_seconds": {"first": first_s,
                                    "resumed": resumed_s}})
-    return launches
+    return launches, losses, dropped
 
 
 def serve_moe(fd, dev, card, plain, ckpt):
@@ -4431,7 +4454,7 @@ MESH_PARITY_BATCH = 32  # ResNet-50 f32 parity step (TF32 off)
 # Its steps and schedule: step 0 trains at lr 0 (warmup), so four steps
 # at lr 0.01 compare the losses after two real updates.
 MESH_PARITY_STEPS, MESH_PARITY_LR = 4, 0.01
-MESH_SERVE_NEW = 32
+MESH_SERVE_NEW = 16  # cut from 32 to make room for phases 32a-32e
 # A request through DTensor decode costs ~11.5 s of host dispatch on the
 # card (torch 2.11, PERF.md §6): few repeats, and the f32 check decodes few
 # tokens.
@@ -4776,7 +4799,7 @@ def mesh_serve(fd, dev, card):
     (build_generate with ``create_mesh(1, 1)`` — ``serving_mesh`` takes a
     mesh only for ``--tp > 1`` —, the engine with the broadcast hook)
     beside the plain server:
-    one 32-token greedy request's latency (2 repeats) and an 8-request
+    one 16-token greedy request's latency (2 repeats) and an 8-request
     --slots 8 batch's wall time; identical greedy tokens; flash decode
     launched alike; then f32 greedy tokens of a TP-sharded model equal
     to the plain model's."""
@@ -5146,6 +5169,371 @@ def seq_resume(fa, card, unbroken):
     return dict(fa.LAUNCHES)
 
 
+# ---- phases 32a-32e: pipeline and expert parallelism, the MoE-LM and the
+# serving features on the mesh, the JAX dry run's regimes ----------------------
+
+PIPE_SHAPE = (8, 2048)  # rows, tokens: the trainer's batch
+PIPE_MICROBATCHES = 4
+# bf16, of the largest |x|: the output and every weight's gradient
+# At one stage / one rank these paths do the single-device arithmetic: the
+# pipeline, the expert-sharded layer and the MoE mesh step are held
+# bit-equal to their plain versions.
+FEATURE_MESH_FLAGS = ["--num-experts", "8", "--weights", "int8",
+                      "--prefix-cache", "4", "--max-prompt-len", "256",
+                      "--max-new-tokens", "8"]
+FEATURE_MESH_PREFIX = 64  # tokens of the shared prefix
+FEATURE_MESH_ROWS = (5, 40, 17, 90)  # suffix lengths
+
+
+def _leaf_errs(got, want):
+    """Each leaf's max |got - want| over its largest |want|."""
+    return {k: _to_max(got[k].float(), want[k].float()) for k in want}
+
+
+def pipeline_phase(fa, dev, card):
+    """Phase 32a: the trainer's default blocks (12 x 8 heads x 64, mlp
+    2048; f32 weights, bf16 compute, flash attention) as the layer of
+    ``parallel/pipeline.py``'s GPipe schedule at S = 1 (the (1, 1) pipe x
+    data mesh on phase 25's NCCL group), M = 4 microbatches of a [8,
+    2048, 512] batch: output and every weight's gradient bit-equal to
+    the same blocks applied in order to the same microbatches; the flash launches of the pipelined run (12 layers x
+    M steps each kernel, no remat); both runs' ms.  -> those launches."""
+    import torch
+    from torch.func import functional_call
+
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+        init_params,
+    )
+    from container_engine_accelerators_tpu_torch.parallel.pipeline import (
+        create_pipeline_mesh,
+        make_pipeline_apply,
+        place_staged,
+        stage_params,
+        unstage_params,
+    )
+
+    args = train_lm.parse_args([])
+    model = TransformerLM(vocab_size=args.vocab_size,
+                          num_layers=args.num_layers,
+                          num_heads=args.num_heads, head_dim=args.head_dim,
+                          mlp_dim=args.mlp_dim, device=dev)
+    model.load_state_dict(init_params(model, torch.Generator().manual_seed(0)))
+    template = model.blocks[0]
+    names = [n for n, _ in template.named_parameters()]
+    stacked = {n: torch.stack([dict(b.named_parameters())[n].detach()
+                               for b in model.blocks]) for n in names}
+    del model
+    b, t = PIPE_SHAPE
+    d = args.num_heads * args.head_dim
+    positions = torch.arange(t, device=dev)
+
+    def layer_fn(p, h):
+        return functional_call(template, p, (h, positions))[0]
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(b, t, d, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(b, t, d, generator=g, device=dev)
+    mesh = create_pipeline_mesh(1, 1)
+    staged = place_staged(mesh, stage_params(stacked, 1))
+    apply = make_pipeline_apply(layer_fn, mesh, PIPE_MICROBATCHES)
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = apply(staged, x)
+    (y.float() * w).sum().backward()
+    torch.cuda.synchronize()
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fa.LAUNCHES)
+    steps = PIPE_MICROBATCHES  # M + S - 1 at S = 1
+    want = {k: args.num_layers * steps for k in launches}
+    grads = unstage_params({n: p.grad.full_tensor()
+                            for n, p in staged.items()})
+
+    # The same blocks in order, microbatch by microbatch.
+    leaves = {n: v.clone().requires_grad_() for n, v in stacked.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for h in x.chunk(PIPE_MICROBATCHES):
+        for i in range(args.num_layers):
+            h = layer_fn({n: v[i] for n, v in leaves.items()}, h)
+        outs.append(h)
+    ref = torch.cat(outs)
+    (ref.float() * w).sum().backward()
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    out_err = _to_max(y.float(), ref.float())
+    grad_errs = _leaf_errs(grads, {n: v.grad for n, v in leaves.items()})
+    if not (out_err == 0 and max(grad_errs.values()) == 0):
+        raise AssertionError(f"pipeline vs sequential blocks: output "
+                             f"{out_err}, gradients {grad_errs}")
+    if launches != want:
+        raise AssertionError(f"pipeline: flash launches {launches}, "
+                             f"expected {want}")
+    _phase("pipeline", card=card,
+           entry="parallel/pipeline.py make_pipeline_apply over "
+                 "create_pipeline_mesh(1, 1), staged by stage_params / "
+                 "place_staged",
+           layer="the trainer's default Block (8 x 64 heads, mlp 2048, f32 "
+                 "weights, bf16 compute, flash attention), 12 layers",
+           batch=[b, t, d], microbatches=PIPE_MICROBATCHES, stages=1,
+           launches=launches, expected_launches=f"{args.num_layers} layers "
+           f"x {steps} schedule steps, each kernel (no remat)",
+           out_err_to_max=out_err, grad_err_to_leaf_max=grad_errs,
+           tolerance="bit-equal", pipeline_ms=pipe_ms, sequential_ms=seq_ms)
+    return launches
+
+
+def expert_parallel_phase(dev, card):
+    """Phase 32b: ``MoEFFN`` at full width (E 8, D 512, F 2048; f32
+    weights, bf16 compute, capacity factor 1.25) on the trainer's [8,
+    2048, 512] tokens, expert-sharded (``ops/moe.py::expert_sharding`` on
+    the model axis of the (1, 1) mesh: the all-to-all path, one rank)
+    against the unsharded layer, on tokens that lean toward one expert:
+    output, aux, drop share and every gradient bit-equal, and both
+    forward + backward ms."""
+    import copy
+
+    import torch
+    from torch import nn
+
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        init_params,
+    )
+    from container_engine_accelerators_tpu_torch.ops.moe import (
+        MoEFFN,
+        expert_sharding,
+    )
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        create_mesh,
+    )
+
+    d, e, f = 512, 8, 2048
+    layer = MoEFFN(d, e, f, torch.bfloat16, lambda *s, dtype: nn.Parameter(
+        torch.empty(*s, dtype=torch.float32, device=dev)))
+    layer.load_state_dict(init_params(layer, torch.Generator().manual_seed(3)))
+    sharded = expert_sharding(create_mesh(1, 1), copy.deepcopy(layer))
+    g = torch.Generator(device=dev).manual_seed(22)
+    # Tokens that lean toward expert 0 (a unit step along its router
+    # column), so its queue overflows and the drop path runs (~a quarter
+    # of the tokens dropped; random normal tokens spread evenly and drop
+    # none).
+    col = layer.router[:, 0].detach()
+    x0 = (torch.randn(*PIPE_SHAPE, d, generator=g, device=dev)
+          + col / col.norm()).to(torch.bfloat16)
+    w = torch.randn(*PIPE_SHAPE, d, generator=g, device=dev)
+    res = {}
+    for name, m in (("plain", layer), ("expert_sharded", sharded)):
+        x = x0.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux, dropped = m(x)
+        ((out.float() * w).sum() + 0.01 * aux).backward()
+        torch.cuda.synchronize()
+        grads = {k: (p.grad.full_tensor() if hasattr(p.grad, "full_tensor")
+                     else p.grad) for k, p in m.named_parameters()}
+        res[name] = dict(out=out.detach(), aux=aux.item(),
+                         dropped=dropped.item(), grads=dict(grads, x=x.grad),
+                         ms=(time.perf_counter() - t0) * 1e3)
+    p, s = res["plain"], res["expert_sharded"]
+    out_err = _to_max(s["out"].float(), p["out"].float())
+    grad_errs = _leaf_errs(s["grads"], p["grads"])
+    aux_rel = abs(s["aux"] - p["aux"]) / abs(p["aux"])
+    if not (out_err == 0 and aux_rel == 0 and max(grad_errs.values()) == 0
+            and s["dropped"] == p["dropped"]):
+        raise AssertionError(f"expert-sharded MoE vs plain: out {out_err}, "
+                             f"aux {aux_rel}, grads {grad_errs}, dropped "
+                             f"{s['dropped']} vs {p['dropped']}")
+    _phase("expert_parallel", card=card,
+           entry="ops/moe.py MoEFFN + expert_sharding(create_mesh(1, 1), "
+                 "layer) (the all-to-all path at one rank)",
+           shape={"tokens": PIPE_SHAPE[0] * PIPE_SHAPE[1], "d": d,
+                  "experts": e, "mlp": f, "capacity_factor": 1.25},
+           dropped_share=s["dropped"], aux=s["aux"],
+           out_err_to_max=out_err, aux_rel=aux_rel,
+           grad_err_to_leaf_max=grad_errs,
+           tolerance="bit-equal", plain_ms=p["ms"], expert_sharded_ms=s["ms"])
+
+
+def mesh_train_moe(fa, card, moe_losses, moe_dropped):
+    """Phase 32c: cmd/train_lm.py at its defaults plus --num-experts 8 on
+    the (1, 1) mesh, megatron (its loop through ``make_lm_train_step(
+    create_mesh(1, 1), ...)``) and ``main()`` with ``--param-sharding
+    fsdp``: losses and drop shares equal to phase 19's, flash launch
+    counts exact, step ms.  -> the launches of both runs."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+
+    argv = MOE_FLAGS + ["--train-steps", str(TRAIN_STEPS)]
+    args = train_lm.parse_args(argv)
+    layers_steps = args.num_layers * TRAIN_STEPS
+    want = {"flash_attention_fwd": 2 * layers_steps,
+            "flash_attention_bwd_dq": layers_steps,
+            "flash_attention_bwd_dkv": layers_steps}
+    runs, total = {}, {k: 0 for k in fa.LAUNCHES}
+    for sharding in ("megatron", "fsdp"):
+        ends, dropped = [], []
+
+        def on_step(step, loss, metrics):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            dropped.append(metrics["moe_dropped"])
+
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if sharding == "megatron":
+            losses = _megatron_lm(args, on_step)
+        else:
+            losses = train_lm.main(argv + ["--steps-per-eval",
+                                           str(TRAIN_STEPS),
+                                           "--param-sharding", sharding],
+                                   on_step=on_step)
+        launches = dict(fa.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        dropped = [float(x) for x in dropped]
+        if losses != moe_losses or dropped != moe_dropped:
+            raise AssertionError(f"mesh_train_moe {sharding}: losses "
+                                 f"{losses}, dropped {dropped} vs "
+                                 f"train_moe's {moe_losses}, {moe_dropped}")
+        steady = [b - a for a, b in zip(ends[1:], ends[2:])]
+        runs[sharding] = {"losses": losses, "dropped_share": dropped,
+                          "launches": launches,
+                          "steady_step_ms": statistics.median(steady) * 1e3,
+                          "step_ms_each": [round(x * 1e3, 3)
+                                           for x in steady],
+                          "peak_memory_bytes":
+                              torch.cuda.max_memory_allocated()}
+    for sharding, run in runs.items():
+        if run["launches"] != want:
+            raise AssertionError(f"mesh_train_moe {sharding}: flash "
+                                 f"launches {run['launches']}, expected "
+                                 f"{want}")
+    _phase("mesh_train_moe", card=card,
+           entry={"megatron": "cmd/train_lm.py's loop at its defaults "
+                              "+ --num-experts 8 through make_lm_train_step("
+                              "create_mesh(1, 1), state, None, 'megatron')",
+                  "fsdp": "cmd/train_lm.py main() --num-experts 8 "
+                          "--param-sharding fsdp: the (1, 1) mesh"},
+           steps=TRAIN_STEPS, train_moe_losses=moe_losses,
+           train_moe_dropped_share=moe_dropped,
+           megatron=runs["megatron"], fsdp=runs["fsdp"],
+           expected_launches=f"fwd 2 x {args.num_layers} layers x "
+                             f"{TRAIN_STEPS} steps (remat), bwd "
+                             f"{args.num_layers} x {TRAIN_STEPS}, each run",
+           tolerance="losses and drop shares bit-equal to train_moe's")
+    return total
+
+
+def mesh_serve_features(fd, card):
+    """Phase 32d: cmd/serve_lm.py with ``FEATURE_MESH_FLAGS`` (the MoE-LM,
+    int8 weights, the prefix cache: what ``--tp`` now composes with) on
+    the (1, 1) mesh against the plain server, per request and with
+    ``--slots 8``: requests carrying a 64-token ``prefix_ids`` with
+    suffixes of ``FEATURE_MESH_ROWS`` tokens; identical greedy tokens,
+    one prefix-cache miss and the rest hits on every server (the prefix
+    is looked up inside the step, so requests that arrive together build
+    it once), each request's latency and the batch's wall."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch.cmd import serve_lm
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        create_mesh,
+    )
+
+    rng = np.random.default_rng(FEATURE_SEED)
+    vocab = serve_lm.parse_args([]).vocab_size
+    prefix = rng.integers(0, vocab, FEATURE_MESH_PREFIX).tolist()
+    bodies = _greedy_bodies([rng.integers(0, vocab, n).tolist()
+                             for n in FEATURE_MESH_ROWS], prefix_ids=prefix)
+    out = {}
+    _reset(fd)
+    for name, on_mesh in (("plain", False), ("mesh", True)):
+        res = {}
+        for slots in (0, SLOTS):
+            argv = FEATURE_MESH_FLAGS + ["--port", "0"] + (
+                ["--slots", str(SLOTS)] if slots else [])
+            args = serve_lm.parse_args(argv)
+            serve_lm.validate_args(args)
+            run = serve_lm.build_generate(
+                args, create_mesh(1, 1) if on_mesh else None)
+            engine_loop = serve_lm.start_engine(run, args)
+            srv = _http_server(serve_lm.make_handler(run, args, engine_loop))
+            try:
+                if slots:
+                    rows, lat, wall = _ask_all(srv, bodies)
+                    res["slots"] = {"rows": rows, "latency_ms": lat,
+                                    "batch_wall_ms": wall}
+                else:
+                    rows, lat = _ask_each(srv, bodies)
+                    res["per_request"] = {"rows": rows, "latency_ms": lat}
+                res["per_request" if not slots else "slots"][
+                    "prefix_cache"] = run.prefix_cache.stats()
+            finally:
+                _shutdown(*srv)
+                serve_lm.stop_followers(run, engine_loop)
+        out[name] = res
+    for mode in ("per_request", "slots"):
+        if out["mesh"][mode]["rows"] != out["plain"][mode]["rows"]:
+            raise AssertionError(f"mesh_serve_features {mode}: the mesh "
+                                 f"server's greedy tokens differ from the "
+                                 f"plain server's")
+        for name in out:
+            stats = out[name][mode]["prefix_cache"]
+            if (stats["misses"], stats["hits"]) != (
+                    1, len(FEATURE_MESH_ROWS) - 1):
+                raise AssertionError(f"mesh_serve_features {name} {mode}: "
+                                     f"prefix cache {stats}")
+    if any(fd.LAUNCHES.values()):
+        raise AssertionError(f"mesh_serve_features launched flash decode "
+                             f"without --flash-decode: {fd.LAUNCHES}")
+    for res in out.values():
+        for mode in res.values():
+            mode.pop("rows")
+    _phase("mesh_serve_features", card=card,
+           entry="cmd/serve_lm.py build_generate(args, create_mesh(1, 1)) + "
+                 "start_engine behind a real HTTP server, "
+                 + " ".join(FEATURE_MESH_FLAGS),
+           prefix_tokens=FEATURE_MESH_PREFIX, suffix_tokens=FEATURE_MESH_ROWS,
+           plain=out["plain"], mesh=out["mesh"],
+           greedy_rows_identical="per request and --slots 8",
+           no_flash_decode="--flash-decode is refused with --tp > 1 (as in "
+                           "JAX), so these servers run the einsum decode")
+
+
+def dryrun_phase(fa, fd, card):
+    """Phase 32e: ``entry.dryrun_multichip(1)`` on phase 25's one-rank NCCL
+    group: all nine regimes of the JAX dry run, each held by its own
+    check; their values, seconds and the flash launches.  -> those
+    launches."""
+    from container_engine_accelerators_tpu_torch import entry
+
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    _reset(fd)
+    t0 = time.perf_counter()
+    out = entry.dryrun_multichip(1)
+    seconds = time.perf_counter() - t0
+    if list(out) != list(entry.REGIMES):
+        raise AssertionError(f"dryrun ran {list(out)}")
+    if any(fd.LAUNCHES.values()):
+        raise AssertionError(f"dryrun launched flash decode: {fd.LAUNCHES}")
+    launches = dict(fa.LAUNCHES)
+    _phase("dryrun", card=card, entry="entry.dryrun_multichip(1)",
+           regimes=out, seconds=seconds, launches=launches,
+           note="at one rank each regime's sharded run is held to its "
+                "unsharded one (tokens) or to finiteness (losses); the "
+                "regimes' sequences (T = 8) take the ring's plain "
+                "per-block version and Ulysses' dense attention")
+    return launches
+
+
 def _plain_server():
     """The per-request server at SERVE_FLAGS (bf16 compute on the seed-0
     weights): the feature phases' reference.  -> (run, server)."""
@@ -5240,7 +5628,8 @@ def main():
         fd_launches += _timed(name, phase, fd, dev, smi, plain)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as moe_ckpt:
         _timed("moe_parity", moe_parity, dev, smi)
-        moe_launches = _timed("train_moe", train_moe, fa, dev, smi, moe_ckpt)
+        moe_launches, moe_losses, moe_dropped = _timed(
+            "train_moe", train_moe, fa, dev, smi, moe_ckpt)
         fd_launches += _timed("serve_moe", serve_moe, fd, dev, smi, plain,
                               moe_ckpt)
     _shutdown(*plain[1])
@@ -5266,6 +5655,12 @@ def main():
                                          losses, plain_train)
     resume_launches = _timed("seq_resume", seq_resume, fa, smi,
                              zigzag_losses)
+    pipe_launches = _timed("pipeline", pipeline_phase, fa, dev, smi)
+    _timed("expert_parallel", expert_parallel_phase, dev, smi)
+    moe_mesh_launches = _timed("mesh_train_moe", mesh_train_moe, fa, smi,
+                               moe_losses, moe_dropped)
+    _timed("mesh_serve_features", mesh_serve_features, fd, smi)
+    dry_launches = _timed("dryrun", dryrun_phase, fa, fd, smi)
     dcn.shutdown()
     torch.cuda.empty_cache()
 
@@ -5295,7 +5690,9 @@ def main():
                  "replaces": line,
                  "launches": (fa_launches[name] + moe_launches[name]
                               + mesh_launches[name] + seq_launches[name]
-                              + resume_launches[name]),
+                              + resume_launches[name] + pipe_launches[name]
+                              + moe_mesh_launches[name]
+                              + dry_launches[name]),
                  **{k: fa_rows[name][k] for k in keys}}
                 for name, (line, _, src) in FA_KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -44,9 +44,13 @@ request is parsed and checked on rank 0 before anything is broadcast,
 and the engine refuses an over-long one on every rank alike before any
 collective, so a failed request fails alone and no rank waits on a
 collective the others skip; a fault inside a collective (a lost rank, a
-device error) ends the server.  ``--flash-decode``, ``--speculative``,
-``--weights int8``, ``--prefix-cache`` and ``--num-experts`` with
-``--tp > 1`` come with the next multi-GPU slice and exit naming it.
+device error) ends the server.  ``--num-experts``, ``--weights int8`` and
+``--prefix-cache`` compose with ``--tp``, as in the JAX server: the
+experts' F and the int8 kernels and scales are laid out by the JAX rule
+(``ops/moe.py``, ``models/quant.py``), and a request's prefix travels as
+its token ids, each rank looking its block (its KV heads) up in its own
+prefix cache in step with the others.  ``--flash-decode`` and
+``--speculative`` with ``--tp > 1`` exit, as the JAX server does.
 """
 
 import argparse
@@ -62,9 +66,6 @@ import torch
 from container_engine_accelerators_tpu_torch.models.batching import bucket_len
 
 log = logging.getLogger("serve-lm")
-
-_NEXT_SLICE = ("is not ported yet: it comes with the next multi-GPU slice "
-               "of the PyTorch port")
 
 
 def parse_args(argv=None):
@@ -140,18 +141,15 @@ def parse_args(argv=None):
 
 
 def validate_args(args):
-    """Flag gates: the JAX server's composition rules, plus the
-    combinations with ``--tp > 1`` the next multi-GPU slice brings."""
+    """Flag gates: the JAX server's composition rules."""
     if args.tp < 1:
         raise SystemExit("--tp must be >= 1")
     if args.speculative and args.tp > 1:
         raise SystemExit("--speculative and --tp > 1 are mutually "
-                         "exclusive (the draft runs single-device); a "
-                         f"sharded draft {_NEXT_SLICE}")
+                         "exclusive (the draft runs single-device)")
     if args.flash_decode and args.tp > 1:
         raise SystemExit("--flash-decode and --tp > 1 are mutually "
-                         "exclusive (the kernel is single-device); a "
-                         f"head-sharded kernel call {_NEXT_SLICE}")
+                         "exclusive (the kernel is single-device)")
     if args.prefill_chunk < 0:
         raise SystemExit("--prefill-chunk must be >= 0")
     if args.prefill_chunk and (args.speculative or args.prefix_cache):
@@ -161,16 +159,6 @@ def validate_args(args):
                          "drop the promised memory bound — drop one flag")
     if args.slots < 0:
         raise SystemExit("--slots must be >= 0")
-    unported = [
-        ("--num-experts with --tp > 1 (expert sharding)",
-         args.num_experts and args.tp > 1),
-        ("--weights int8 with --tp > 1", args.weights == "int8"
-         and args.tp > 1),
-        ("--prefix-cache with --tp > 1", args.prefix_cache and args.tp > 1),
-    ]
-    for flag, on in unported:
-        if on:
-            raise SystemExit(f"{flag} {_NEXT_SLICE}")
 
 
 def serving_mesh(args):
@@ -178,8 +166,9 @@ def serving_mesh(args):
     when a launcher (torchrun) started more than one rank, the process
     group is joined (``parallel/dcn.py::initialize``) and its world must
     be ``--tp`` ranks.  One rank at ``--tp 1`` serves the plain path,
-    launcher or not, so every combination ``validate_args`` refuses with
-    ``--tp > 1`` is refused wherever a mesh is taken."""
+    launcher or not; a launcher of several ranks at ``--tp 1`` exits, so
+    every combination ``validate_args`` refuses with ``--tp > 1`` is
+    refused wherever a mesh is taken."""
     from container_engine_accelerators_tpu_torch.parallel import dcn
     from container_engine_accelerators_tpu_torch.parallel.mesh import (
         create_mesh,
@@ -292,9 +281,10 @@ def build_generate(args, mesh=None):
     ``--speculative`` its draft, and return ``run(prompt, prompt_len,
     temperature, seed, sample, prefix=None) -> [1, bucket + max_new]
     tokens`` (on the CPU) for a bucket-padded [1, bucket] prompt — with
-    ``prefix=(block, draft block or None, prefix_len)`` the prompt is the
-    suffix after a prefix-cache entry.  Calls are serialized under one
-    lock: the handler threads share the device.
+    ``prefix``, a prefix's token ids (a tuple of ints, its block looked
+    up in the prefix cache inside the call, on every rank of a mesh),
+    the prompt is the suffix after that prefix.  Calls are serialized
+    under one lock: the handler threads share the device.
 
     ``run.model`` is the model, ``run.params`` its f32 weights (before
     ``--weights``), ``run.draft`` the draft model or None;
@@ -371,15 +361,17 @@ def build_generate(args, mesh=None):
         with lock:
             if mesh is not None:
                 # Every rank enters here with rank 0's arguments.
-                prompt, prompt_len, temperature, seed, sample = \
+                prompt, prompt_len, temperature, seed, sample, prefix = \
                     broadcast_control(("run", (prompt, prompt_len,
-                                               temperature, seed,
-                                               sample)))[1]
+                                               temperature, seed, sample,
+                                               prefix)))[1]
             return run_local(prompt, prompt_len, temperature, seed, sample,
                              prefix)
 
     def run_local(prompt, prompt_len, temperature, seed, sample,
                   prefix=None):
+        if prefix is not None:
+            prefix = resolve_prefix(prefix)
         with torch.inference_mode():
             prompt = prompt.to(device)
             sample = sample and temperature > 0
@@ -412,6 +404,22 @@ def build_generate(args, mesh=None):
                                prefill_chunk=args.prefill_chunk or None)
             return out.cpu()
 
+    def resolve_prefix(ids):
+        """A prefix's token ids -> (block, draft block or None,
+        prefix_len) from this rank's prefix caches (a miss prefills:
+        every rank of a mesh looks up the same ids at the same point)."""
+        block, pfx_len = run.prefix_cache.get_or_build(tuple(ids))
+        d_block = (None if run.draft_prefix_cache is None
+                   else run.draft_prefix_cache.get_or_build(tuple(ids))[0])
+        return block, d_block, pfx_len
+
+    def engine_prefix(ids):
+        """A prefix's ids -> the engine's ``submit(prefix=)`` form."""
+        block, d_block, pfx_len = resolve_prefix(ids)
+        return ((block, pfx_len) if d_block is None
+                else (block, d_block, pfx_len))
+
+    run.engine_prefix = engine_prefix
     run.model = model
     run.mesh = mesh
     run.lock = lock
@@ -490,7 +498,8 @@ def start_engine(run, args):
     if run.mesh is not None:
         def hook(jobs):
             broadcast_control(("advance", job_args(jobs)))
-    engine_loop = EngineLoop(engine, on_advance=hook)
+    engine_loop = EngineLoop(engine, on_advance=hook,
+                             resolve_prefix=run.engine_prefix)
     engine_loop.generate([0], 2)
     log.info("continuous batching: %d decode slots%s", args.slots,
              f" (speculative, k={args.speculative})" if args.speculative
@@ -560,19 +569,17 @@ def make_handler(run, args, engine_loop=None):
                 if use_prefix:
                     room = args.max_prompt_len - len(prefix_ids)
                     key = tuple(prefix_ids)
-                    block, pfx_len = run.prefix_cache.get_or_build(key)
-                    d_block = (None if run.draft_prefix_cache is None
-                               else run.draft_prefix_cache.get_or_build(
-                                   key)[0])
                     rows = [ids[:room] for ids in clean]
+                    # The prefix travels as its ids, and its block is
+                    # looked up inside the step (on every rank of a
+                    # mesh), so requests that miss it together build it
+                    # once.
                     if engine_loop is not None:
                         # The lanes start from copies of the block (the
                         # speculative engine's draft lanes from the
                         # draft's); sampled rows on seed + i, as below.
-                        pfx = ((block, pfx_len) if d_block is None
-                               else (block, d_block, pfx_len))
                         outs = engine_loop.generate_many(
-                            rows, max_new, prefix=pfx,
+                            rows, max_new, prefix_ids=key,
                             temperature=temperature,
                             seeds=[seed + i for i in range(len(rows))])
                         toks = [prefix_ids + ids + gen[:max_new]
@@ -582,8 +589,7 @@ def make_handler(run, args, engine_loop=None):
                         for i, ids in enumerate(rows):
                             padded, plen = pad_row(ids)
                             out = run(padded, plen, temperature, seed + i,
-                                      temperature > 0,
-                                      (block, d_block, pfx_len))
+                                      temperature > 0, key)
                             toks.append(prefix_ids
                                         + out[0][: plen + max_new].tolist())
                 elif engine_loop is not None:
@@ -632,7 +638,7 @@ def follow(run, engine=None):
             return
         kind, payload = msg
         if kind == "advance":
-            follow_advance(engine, payload)
+            follow_advance(engine, payload, run.engine_prefix)
             continue
         try:
             run.local(*payload)

@@ -31,8 +31,9 @@ more than one rank, or with ``--model-par > 1`` or ``--param-sharding
 fsdp`` (on one rank, the (1, 1) mesh); one rank without them is the
 single-device trainer, launcher or not.  Every rank builds the same global
 batch and keeps its rows (``--data-dir``: reads only its rows); rank 0
-logs and writes the checkpoints.  ``--num-experts`` on a mesh comes with
-the next multi-GPU slice and exits naming it.
+logs and writes the checkpoints.  ``--num-experts`` runs on the mesh
+too, under either layout: the experts' F split over the model axis, the
+routing over the global batch (``ops/moe.py``).
 
 ``--seq-parallel ring|ring-zigzag|ulysses`` splits the SEQUENCE over the
 ranks instead (the JAX trainer's long-context mode; a (world, 1) mesh,
@@ -65,9 +66,6 @@ from container_engine_accelerators_tpu_torch.parallel.launch import (
 from container_engine_accelerators_tpu_torch.utils.profile import ProfileWindow
 
 log = logging.getLogger("train-lm")
-
-_NEXT_SLICE = ("is not ported yet: it comes with the next multi-GPU slice "
-               "of the PyTorch port")
 
 
 def parse_args(argv=None):
@@ -115,8 +113,7 @@ def parse_args(argv=None):
 
 
 def validate_args(args):
-    """The JAX trainer's own checks, plus every flag the port does not
-    train with yet."""
+    """The JAX trainer's own checks."""
     if args.checkpoint_interval < 1:
         raise SystemExit("--checkpoint-interval must be >= 1")
     if args.num_experts and args.seq_parallel != "none":
@@ -137,10 +134,6 @@ def validate_args(args):
                 "--param-sharding fsdp applies to dense mode only: the "
                 "sequence-parallel path runs with replicated params; drop "
                 "one of the flags")
-    elif args.num_experts and wants_mesh(args.model_par,
-                                         args.param_sharding):
-        raise SystemExit(f"--num-experts on a mesh (expert sharding) "
-                         f"{_NEXT_SLICE}")
 
 
 def synthetic_batches(args, n_batches=4):

@@ -47,6 +47,14 @@ broadcasts them), and each other rank repeats the same
 :func:`follow_advance` on its own engine.  A submit the engine refuses
 (too long for a slot) is refused on every rank alike, before any
 collective, so no rank waits on a step another will not take.
+
+An ``EngineLoop`` job that starts from a cached prefix names it by its
+token ids (``prefix_ids``), and the stepper looks the block up
+(``resolve_prefix``) as it submits the job, so jobs that miss the same
+prefix together build it once.  On a mesh each rank looks it up in its
+own prefix cache, whose entries hold its KV heads, at the same point of
+the same sequence of calls, so a miss's prefill — a collective — runs
+on every rank together.
 """
 
 import collections
@@ -441,11 +449,14 @@ class EngineLoop:
     waiter).
     """
 
-    def __init__(self, engine: DecodeEngine, on_advance=None):
+    def __init__(self, engine: DecodeEngine, on_advance=None,
+                 resolve_prefix=None):
         self.engine = engine
         # Called with each batch of jobs before it is advanced (the mesh
         # branch's broadcast to the follower ranks).
         self.on_advance = on_advance
+        # A job's prefix ids -> the engine's submit ``prefix``.
+        self.resolve_prefix = resolve_prefix
         self.cond = threading.Condition()
         self._queue: collections.deque = collections.deque()
         self._running: Dict[int, dict] = {}  # request id -> job
@@ -490,10 +501,7 @@ class EngineLoop:
         done = []
         for job in jobs:
             try:
-                rid = self.engine.submit(job["prompt"], job["max_new"],
-                                         prefix=job["prefix"],
-                                         temperature=job["temperature"],
-                                         seed=job["seed"])
+                rid = _submit(self.engine, job, self.resolve_prefix)
             except ValueError as e:
                 done.append((job, "error", e))
                 continue
@@ -507,29 +515,31 @@ class EngineLoop:
         return done
 
     def generate(self, prompt_ids: List[int], max_new: int,
-                 timeout: float = 300.0, prefix=None,
+                 timeout: float = 300.0, prefix_ids=None,
                  temperature: float = 0.0, seed: int = 0) -> List[int]:
         """Submit and block until done; returns the generated tokens."""
         return self.generate_many([prompt_ids], max_new, timeout,
-                                  prefix=prefix, temperature=temperature,
-                                  seeds=[seed])[0]
+                                  prefix_ids=prefix_ids,
+                                  temperature=temperature, seeds=[seed])[0]
 
     def generate_many(self, prompts: List[List[int]], max_new: int,
-                      timeout: float = 300.0, prefix=None,
+                      timeout: float = 300.0, prefix_ids=None,
                       temperature: float = 0.0,
                       seeds=None) -> List[List[int]]:
         """Run several prompts CONCURRENTLY across the fleet and return
         their generated tokens in input order.  Each prompt joins as soon
         as a slot frees (earlier prompts keep decoding meanwhile), so k
         prompts on a k-slot engine cost about one request's wall clock,
-        not k.  ``prefix`` (the engine's ``submit`` form) starts every
-        prompt from a cached prefix block, the prompts being suffixes.
+        not k.  ``prefix_ids`` starts every prompt from the cached
+        prefix block of those ids, looked up through ``resolve_prefix``
+        when the job is submitted, the prompts being suffixes.
         ``temperature > 0`` makes every prompt a sampled lane on its own
         ``seeds[i]`` generator."""
         if seeds is None:
             seeds = list(range(len(prompts)))
-        jobs = [{"prompt": list(p), "max_new": max_new, "prefix": prefix,
-                 "temperature": temperature, "seed": s, "tokens": None}
+        ids = None if prefix_ids is None else tuple(prefix_ids)
+        jobs = [{"prompt": list(p), "max_new": max_new, "prefix_ids": ids, "temperature": temperature, "seed": s,
+                 "tokens": None}
                 for p, s in zip(prompts, seeds)]
         deadline = time.monotonic() + timeout
         with self.cond:
@@ -561,23 +571,34 @@ class EngineLoop:
         self._thread.join(timeout)
 
 
+def _submit(engine, job, resolve_prefix):
+    """Submit one job, its prefix looked up by its ids when it names
+    one."""
+    prefix = (None if job["prefix_ids"] is None
+              else resolve_prefix(job["prefix_ids"]))
+    return engine.submit(job["prompt"], job["max_new"], prefix=prefix,
+                         temperature=job["temperature"], seed=job["seed"])
+
+
 def job_args(jobs) -> List[dict]:
     """What a follower rank needs of a batch of :class:`EngineLoop` jobs
-    to repeat it: each job's prompt, ``max_new``, temperature and
-    seed."""
-    return [{k: j[k] for k in ("prompt", "max_new", "temperature", "seed")}
+    to repeat it: each job's prompt, ``max_new``, prefix ids, temperature
+    and seed."""
+    return [{k: j[k] for k in ("prompt", "max_new", "prefix_ids",
+                                   "temperature", "seed")}
             for j in jobs]
 
 
 @torch.inference_mode()
-def follow_advance(engine: DecodeEngine, jobs: List[dict]) -> None:
+def follow_advance(engine: DecodeEngine, jobs: List[dict],
+                   resolve_prefix=None) -> None:
     """A follower rank's copy of ``EngineLoop._advance`` on rank 0's
-    ``job_args``: the same submits (a refused one refused alike), the same
-    fleet step, the results dropped."""
+    ``job_args``: the same submits (a refused one refused alike; a prefix
+    looked up by its ids in this rank's cache through
+    ``resolve_prefix``), the same fleet step, the results dropped."""
     for job in jobs:
         try:
-            engine.submit(job["prompt"], job["max_new"],
-                          temperature=job["temperature"], seed=job["seed"])
+            _submit(engine, job, resolve_prefix)
         except ValueError:
             pass
     if engine.live:

@@ -5,12 +5,16 @@ dense or MoE (the Switch load-balance loss joins the objective).
 Next-token labels are built for the whole sequence before the step, as
 the JAX module does, so the step takes (tokens, labels, mask).
 
-Dense mode runs on one device or over a (data, model) mesh
-(``parallel/mesh.py``): the weights become DTensors laid out by the JAX
-rule ("megatron" or "fsdp"), the batch is split by rows over the data
-axis, and the loss is the global one — the masked sum over the whole
-batch over the global mask count, a single replicated value, not a mean
-of per-rank means.
+Dense mode and the MoE-LM run on one device or over a (data, model)
+mesh (``parallel/mesh.py``): the weights become DTensors laid out by the
+JAX rule ("megatron" or "fsdp"; an MoE block's ``[E, D, F]`` and ``[E, F,
+D]`` experts by the same largest-axis pick, ``mlp_dim`` at the trainer's
+widths), the batch is split by rows over the data axis, and the loss is
+the global one — the masked sum over the whole batch over the global
+mask count, a single replicated value, not a mean of per-rank means.
+An MoE block routes the global tokens, as GSPMD routes the JAX model's
+(``ops/moe.py``): capacity and queue positions over the whole batch, the
+aux loss the global one.
 
 Sequence-parallel mode (``seq_parallel`` "ring", "ring-zigzag" or
 "ulysses") splits the sequence over the mesh's data axis instead: the
@@ -19,9 +23,7 @@ on every op), each rank feeds its T/n columns of the whole batch at
 their global positions (:func:`prepare_seq_parallel_batch` builds the
 batch), the loss is the masked sum over every rank's columns over the
 global mask count, and each gradient is summed over the ranks with one
-all-reduce — the sum JAX's shard_map autodiff inserts implicitly.  The
-MoE-LM on a mesh (expert sharding) comes with the next multi-GPU slice
-of the port and raises here.
+all-reduce — the sum JAX's shard_map autodiff inserts implicitly.
 """
 
 from typing import Optional, Tuple
@@ -41,6 +43,7 @@ from container_engine_accelerators_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     axis_size,
+    drop_unit_shards,
     full,
     shard_batch,
     shard_params,
@@ -53,7 +56,6 @@ from container_engine_accelerators_tpu_torch.parallel.seq import (
 )
 
 MOE_AUX_WEIGHT = 0.01  # Switch load-balance coefficient
-_NEXT_SLICE = "comes with the next multi-GPU slice of the PyTorch port"
 
 
 def next_token_targets(tokens: torch.Tensor
@@ -151,9 +153,6 @@ def make_lm_train_step(mesh=None, state: Optional[TrainState] = None,
         raise ValueError("param_sharding='fsdp' shards over a mesh: pass "
                          "one (parallel/mesh.py::create_mesh)")
     if mesh is not None:
-        if state.model.num_experts:
-            raise NotImplementedError(f"the MoE-LM on a mesh (expert "
-                                      f"sharding) {_NEXT_SLICE}")
         shard = (shard_params_fsdp if param_sharding == "fsdp"
                  else shard_params)
         shard(state.model, mesh)
@@ -162,8 +161,8 @@ def make_lm_train_step(mesh=None, state: Optional[TrainState] = None,
 
     def step(s: TrainState, tokens, labels, mask):
         if mesh is not None:
-            tokens, labels, mask = (
-                x if isinstance(x, DTensor) else shard_batch(x, mesh)
+            tokens, labels, mask = (drop_unit_shards(
+                x if isinstance(x, DTensor) else shard_batch(x, mesh))
                 for x in (tokens, labels, mask))
         s.optimizer.zero_grad(set_to_none=True)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -177,7 +176,8 @@ def make_lm_train_step(mesh=None, state: Optional[TrainState] = None,
         s.step += 1
         metrics = {"loss": full(loss.detach())}
         if s.model.num_experts:
-            metrics.update(moe_aux=aux.loss.detach(), moe_dropped=aux.dropped)
+            metrics.update(moe_aux=full(aux.loss.detach()),
+                           moe_dropped=full(aux.dropped))
         return s, metrics
 
     return step, state

@@ -14,7 +14,13 @@ weight precision is a lever on the bytes a token moves:
   the f32 weights instead changes some int8 values.
 
 A ``QDense`` projection dequantizes in f32, casts to the compute dtype
-and multiplies — ``QDenseGeneral``'s arithmetic.  In eager PyTorch the
+and multiplies — ``QDenseGeneral``'s arithmetic.  On a mesh
+(``parallel/mesh.py::shard_params``) the int8 kernel and its scale are
+laid out as JAX's rule lays out the quantized tree (``serving_params``,
+then ``shard_params``): each by its own shape.  The dequantize then runs
+on the kernel's local shard, with the scale brought to the kernel's
+layout, and the projection goes on through DTensor as a float kernel's
+does.  In eager PyTorch the
 dequantized kernel is materialized at every call, so int8 saves memory
 but no bytes a token moves (XLA fuses the dequantization into the
 operand read); a fused int8 matmul is later work.  The exactness
@@ -24,6 +30,7 @@ float model's loaded with the *dequantized* weights.
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 # Leaf names of the port's state dict that hold a projection kernel, and
 # how many leading dims each contracts: ``attn.out`` [H, hd, D] contracts
@@ -79,9 +86,21 @@ class QDense(nn.Module):
 
     def weight(self, dtype) -> torch.Tensor:
         """The kernel the projection multiplies: dequantized in f32, then
-        cast to the compute ``dtype``."""
-        return dequantize_kernel(self.kernel_q, self.scale,
-                                 range(self.n_contract)).to(dtype)
+        cast to the compute ``dtype``.  Sharded (DTensors), it is
+        dequantized on this rank's shard and keeps the int8 kernel's
+        layout."""
+        q, n = self.kernel_q, self.n_contract
+        if not isinstance(q, DTensor):
+            return dequantize_kernel(q, self.scale, range(n)).to(dtype)
+        # The scale spans the kernel's output dims: shard it where the
+        # kernel is sharded on one of those, else take it whole.
+        target = tuple(Shard(p.dim - n) if p.is_shard() and p.dim >= n
+                       else Replicate() for p in q.placements)
+        scale = self.scale.redistribute(q.device_mesh, target).to_local()
+        w = dequantize_kernel(q.to_local(), scale, range(n)).to(dtype)
+        return DTensor.from_local(w, q.device_mesh, q.placements,
+                                  run_check=False, shape=q.shape,
+                                  stride=q.stride())
 
 
 def quantize_params(params: dict) -> dict:

@@ -54,7 +54,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from container_engine_accelerators_tpu_torch.models.quant import QDense
@@ -418,6 +418,12 @@ class TransformerLM(nn.Module):
         if mesh is not None:
             tokens = replicate(tokens, mesh)
         x = F.embedding(tokens, self.embed.to(self.dtype))
+        if mesh is not None:
+            # A vocab-sharded table looks rows up as a masked partial
+            # sum; settle it once (the rows are exact) rather than let
+            # each later op that reads x reduce it.
+            x = x.redistribute(mesh, tuple(
+                Replicate() if p.is_partial() else p for p in x.placements))
         moe = []
         for i, blk in enumerate(self.blocks):
             if self.decode:
@@ -451,7 +457,7 @@ def init_params(model: TransformerLM, generator: torch.Generator) -> dict:
     1.  Load with ``model.load_state_dict``, which casts once.  A
     ``quant=True`` model takes ``quant.serving_params`` of a float
     model's weights instead."""
-    if model.quant:
+    if getattr(model, "quant", False):
         raise ValueError("init_params draws float weights: call it on the "
                          "float model and quantize (models/quant.py)")
     out = {}

@@ -45,7 +45,7 @@ from torch.distributed.tensor import (
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 DCN_AXIS = "dcn"
-_BATCH_AXES = (DCN_AXIS, DATA_AXIS)
+BATCH_AXES = (DCN_AXIS, DATA_AXIS)
 
 
 def _device_type() -> str:
@@ -92,7 +92,7 @@ def axis_size(mesh: DeviceMesh, name: str) -> int:
 def batch_sharding(mesh: DeviceMesh) -> Tuple:
     """Placements of a batch: rows over ``data`` (and ``dcn``), the same
     rows on every model coordinate."""
-    return tuple(Shard(0) if n in _BATCH_AXES else Replicate()
+    return tuple(Shard(0) if n in BATCH_AXES else Replicate()
                  for n in mesh.mesh_dim_names)
 
 
@@ -213,7 +213,7 @@ def data_shard(mesh: DeviceMesh) -> Tuple[int, int]:
     index, count = 0, 1
     coord = mesh.get_coordinate()
     for dim, name in enumerate(mesh.mesh_dim_names):
-        if name in _BATCH_AXES:
+        if name in BATCH_AXES:
             index = index * mesh.size(dim) + coord[dim]
             count *= mesh.size(dim)
     return index, count
@@ -245,6 +245,17 @@ def from_local_batch(local: torch.Tensor, mesh: DeviceMesh) -> DTensor:
                               run_check=False)
 
 
+def drop_unit_shards(x: DTensor) -> DTensor:
+    """``x`` with each ``Shard`` on a mesh dim of one rank made
+    ``Replicate``: the same layout (that rank holds everything), which
+    DTensor's matmul and view rules take at a batch of one row, where a
+    sharded dim of size 1 is refused."""
+    mesh = x.device_mesh
+    pl = tuple(Replicate() if p.is_shard() and mesh.size(i) == 1 else p
+               for i, p in enumerate(x.placements))
+    return x if pl == tuple(x.placements) else x.redistribute(mesh, pl)
+
+
 def replicate(x, mesh: DeviceMesh):
     """A value every rank holds alike, as a replicated DTensor (a DTensor
     passes through)."""
@@ -263,7 +274,7 @@ def weight_grad_placements(mesh: DeviceMesh) -> Tuple:
     """The grad placements of a weight gathered whole (replicated) and
     used on this rank's batch rows: a partial sum over the batch axes,
     the same on every model coordinate."""
-    return tuple(Partial() if n in _BATCH_AXES else Replicate()
+    return tuple(Partial() if n in BATCH_AXES else Replicate()
                  for n in mesh.mesh_dim_names)
 
 
@@ -307,9 +318,12 @@ def head_sharding(mesh: DeviceMesh, kv_heads: int) -> Tuple:
     the KV heads they read), else every head on every model rank."""
     tp = axis_size(mesh, MODEL_AXIS)
     split = kv_heads % tp == 0
-    return tuple(Shard(0) if n in _BATCH_AXES
+    # (A batch axis of one rank holds every row: Replicate, the layout
+    # DTensor's reshape takes at a batch of one.)
+    return tuple(Shard(0) if n in BATCH_AXES and mesh.size(i) > 1
                  else Shard(2) if n == MODEL_AXIS and split
-                 else Replicate() for n in mesh.mesh_dim_names)
+                 else Replicate()
+                 for i, n in enumerate(mesh.mesh_dim_names))
 
 
 def local_heads(mesh: Optional[DeviceMesh], kv_heads: int) -> int:

@@ -513,18 +513,28 @@ def test_spec_engine_margin_and_parked_lanes(flax_pair):
 
 
 def test_engine_loop_serves_prefix_and_spec_lanes(flax_pair):
+    """Jobs name their prefix by its ids; the stepper looks each up as it
+    submits it, so the three jobs build the block once (one miss in each
+    model's cache, two hits)."""
     _, _, t_sd, d_sd = flax_pair
     model, draft = _model(t_sd), _draft(d_sd)
-    block, plen = PrefixCache(model, 8).get_or_build((9, 9))
-    d_block, _ = PrefixCache(draft, 8).get_or_build((9, 9))
-    loop = EngineLoop(SpecDecodeEngine(model, draft, 2, 32, k=2))
+    caches = PrefixCache(model, 8), PrefixCache(draft, 8)
+
+    def resolve(ids):
+        (block, plen), (d_block, _) = (c.get_or_build(ids) for c in caches)
+        return block, d_block, plen
+
+    loop = EngineLoop(SpecDecodeEngine(model, draft, 2, 32, k=2),
+                      resolve_prefix=resolve)
     try:
         outs = loop.generate_many([[1, 2], [3], [4, 5, 6]], 5,
-                                  prefix=(block, d_block, plen))
+                                  prefix_ids=(9, 9))
     finally:
         loop.close()
     for p, got in zip([[1, 2], [3], [4, 5, 6]], outs):
         assert got == _solo(model, [9, 9] + p, 5)
+    for c in caches:
+        assert (c.stats()["misses"], c.stats()["hits"]) == (1, 2)
 
 
 # ---- the MoE-LM (drop-free routing) in the fleet ----------------------------

@@ -14,7 +14,8 @@ leaf's largest |x|.  BatchNorm must take its statistics over the GLOBAL
 batch of 8, as GSPMD does: statistics over one rank's 4 images land
 orders of magnitude further away, which the first test shows.
 
-``dryrun_multichip(4)`` starts its 4 ranks itself and runs regime 1 of
+``dryrun_multichip(4, regimes=["resnet"])`` starts its 4 ranks itself,
+each at the test ranks' one torch thread, and runs regime 1 of
 ``__graft_entry__._dryrun_multichip_impl`` (ResNet-18, 16 filters, 64
 classes, batch 8 of ones, bf16) on a (2, 2) mesh: from JAX's initial
 variables its loss equals JAX's within 2e-2 relative (bf16 rounds after
@@ -167,5 +168,7 @@ def test_dryrun_multichip_4_equals_regime_1():
     _, metrics = step(placed, jax.device_put(x, batch_sharding(mesh)),
                       jax.device_put(labels, batch_sharding(mesh)))
     want = float(metrics["loss"])
-    got = dryrun_multichip(4, device="cpu", params=weights)
+    got = dryrun_multichip(4, device="cpu", regimes=["resnet"],
+                           inputs={"resnet": {"params": weights}},
+                           threads=H.TORCH_THREADS)["resnet"]
     assert abs(got - want) <= 2e-2 * abs(want), (got, want)

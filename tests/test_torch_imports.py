@@ -49,7 +49,7 @@ def test_port_imports_without_jax():
               "scheduler.labeler", "health.maintenance",
               "cmd.partition_gpu", "cmd.maintenance_watcher",
               "parallel", "parallel.dcn", "parallel.mesh",
-              "parallel.launch", "cmd.bench_ring"}
+              "parallel.launch", "cmd.bench_ring", "parallel.pipeline"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys

@@ -568,8 +568,15 @@ def test_num_experts_with_seq_parallel_exits_naming_num_experts():
 
 
 def test_tp_still_exits_with_moe():
-    with pytest.raises(SystemExit, match="multi-GPU slice"):
-        serve_lm.validate_args(serve_lm.parse_args(SERVE + ["--tp", "2"]))
+    """``--num-experts`` with ``--tp`` is taken since the expert slice (as
+    the JAX server takes it; served across ranks in
+    ``test_torch_dist_serve_features.py``); with ``--tp`` the MoE server
+    still exits on what JAX refuses there, the draft and the kernel."""
+    serve_lm.validate_args(serve_lm.parse_args(SERVE + ["--tp", "2"]))
+    for refused in (["--speculative", "2"], ["--flash-decode"]):
+        with pytest.raises(SystemExit, match="mutually exclusive"):
+            serve_lm.validate_args(serve_lm.parse_args(
+                SERVE + ["--tp", "2"] + refused))
 
 
 def test_optax_and_torch_agree_on_the_decay_of_moe_params():

@@ -139,8 +139,14 @@ def test_defaults_match_the_jax_server():
     ["--tp", "2", "--prefix-cache", "2"],
     ["--slots", "2", "--tp", "2", "--weights", "int8"]])
 def test_unported_flags_exit(flags):
-    with pytest.raises(SystemExit, match="next multi-GPU slice"):
-        serve_lm.validate_args(serve_lm.parse_args(TINY + flags))
+    """Once rejected as a later slice's, now taken, as the JAX server
+    takes them (served across ranks: test_torch_dist_serve_features.py);
+    what still exits with --tp is what JAX refuses."""
+    serve_lm.validate_args(serve_lm.parse_args(TINY + flags))
+    for refused in (["--flash-decode"], ["--speculative", "2"]):
+        with pytest.raises(SystemExit, match="mutually exclusive"):
+            serve_lm.validate_args(serve_lm.parse_args(TINY + flags
+                                                       + refused))
 
 
 @pytest.mark.parametrize("flags", [
@@ -159,9 +165,15 @@ def test_ported_flags_are_taken(flags):
 @pytest.mark.parametrize("flags,combo", [
     (["--tp", "2", "--prefix-cache", "2"], "--prefix-cache with --tp > 1")])
 def test_slots_with_later_features_name_the_combination(flags, combo):
-    with pytest.raises(SystemExit, match=re.escape(combo)):
-        serve_lm.validate_args(serve_lm.parse_args(TINY + ["--slots", "2"]
-                                                   + flags))
+    """``--slots`` with the prefix cache under ``--tp``, once refused by
+    naming the combination, is taken; the flash-decode kernel with
+    ``--tp`` still names its combination, as in the JAX server."""
+    serve_lm.validate_args(serve_lm.parse_args(TINY + ["--slots", "2"]
+                                               + flags))
+    with pytest.raises(SystemExit, match=re.escape(
+            "--flash-decode and --tp > 1")):
+        serve_lm.validate_args(serve_lm.parse_args(
+            TINY + ["--slots", "2", "--flash-decode"] + flags))
 
 
 @pytest.mark.parametrize("flags", [
