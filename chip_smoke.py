@@ -19,7 +19,8 @@ on the flash kernels), pipeline and expert parallelism, the MoE-LM and
 the int8 / prefix-cache / MoE server on the mesh, the JAX dry run's nine
 regimes, and the node layer (NVML, the ``nvidia.com/gpu`` device
 plugin daemon, its Xid health checker and metrics server, its fault
-sites, MIG, the maintenance watcher and MPS) on the card;
+sites, MIG, the maintenance watcher, MPS, the NRI device injector, the
+node labeler and the topology-aware scheduler) on the card;
 and holds every hand-written CUDA kernel against its plain PyTorch
 version.  Phases, one JSON line each:
 
@@ -311,8 +312,26 @@ version.  Phases, one JSON line each:
     gives the node, the pipe mount, 50% of the threads and half of
     NVML's memory; a child run with those envs (``MPS_CLIENTS``); once
     the MPS daemon quits, Allocate is refused; no MPS process is left;
-    phases 33-40 launch none of the port's kernels;
-41. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
+41. ``node_nri``: the NRI device injector (``nri/plugin.py``) against an
+    in-process fake runtime on a real unix socket: it registers and
+    subscribes to CreateContainer only; a container annotated with what
+    the device plugin Allocates for the first GPU (its node,
+    ``CONTROL_DEVICES`` and the ``OPTIONAL_DEVICES`` present) gets
+    exactly those paths, type ``c`` at ``os.stat``'s major and minor; a
+    path that does not exist fails the container; the runtime closes its
+    trunk once and the plugin registers again (``nri.reconnect`` 1); the
+    registration ms and the median CreateContainer round trip in µs;
+42. ``node_scheduler``: ``cmd/label_nodes.py --once`` for each node of a
+    16-node fleet (2 clusters x 2 racks x 4 hosts, 8 GPUs a node but the
+    one named for this machine, which carries NVML's count), against
+    metadata and API servers in process over HTTP: the PATCHed labels are
+    ``compute_labels``'; then ``cmd/topology_scheduler.py --once
+    --settle-seconds 0`` with two gated jobs (4 pods x 8 GPUs, then 2 x
+    1): every gate removed, every pod pinned by nodeAffinity, and the
+    first job on the set a plain ``itertools.combinations`` search over
+    the same sorted nodes finds closest (C(16, 4) = 1820 sets); the
+    pass's ms; phases 33-42 launch none of the port's kernels;
+43. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
     ``serve`` and ``serve_slots`` phases' and phases 14-17', 20's and
     29's; flash attention's: the ``train``, ``train_moe``,
     ``mesh_train``, ``seq_train``, ``seq_resume``, ``pipeline``,
@@ -4440,6 +4459,434 @@ def node_mps(card):
                              f"daemon: {rig.log_tail()}")
 
 
+# ---- phases 41-42: the NRI device injector and the topology scheduler -----
+
+NRI_CONTAINER = "worker"
+NRI_ROUND_TRIPS = 200
+# The plugin's reconnect budget in the smoke: a re-dial within seconds.
+NRI_RETRY = dict(max_attempts=6, initial_backoff_s=0.01, max_backoff_s=0.05,
+                 deadline_s=10.0)
+# The scheduler's fleet: clusters x racks x hosts, each an 8-GPU node but
+# the one named for this machine, which carries the count NVML reads.
+SCHED_FLEET = (2, 2, 4)
+SCHED_GATE = "gke.io/topology-aware-auto-smoke"
+SCHED_JOBS = (("job-a", 4, 8), ("job-b", 2, 1))  # (name, pods, GPUs a pod)
+METADATA_PREFIX = "/computeMetadata/v1"
+
+
+class _NriRuntime:
+    """containerd's side of the NRI socket, on the port's mux and ttrpc:
+    takes RegisterPlugin and calls the plugin's service."""
+
+    def __init__(self, sock):
+        from container_engine_accelerators_tpu_torch.nri import mux
+        from container_engine_accelerators_tpu_torch.nri import (
+            nri_v1alpha1_pb2 as pb,
+        )
+        from container_engine_accelerators_tpu_torch.nri import plugin
+        from container_engine_accelerators_tpu_torch.nri import ttrpc
+
+        self.pb, self.plugin = pb, plugin
+        self.mux = mux.Mux(sock)
+        self.registered = threading.Event()
+        self.register_req = None
+        self.registered_at = None
+        server = ttrpc.TtrpcServer(self.mux.open(mux.RUNTIME_SERVICE_CONN))
+        server.register(plugin.RUNTIME_SERVICE, "RegisterPlugin",
+                        self._register)
+        self.client = ttrpc.TtrpcClient(self.mux.open(mux.PLUGIN_SERVICE_CONN))
+        self.mux.start_reader()
+        threading.Thread(target=server.serve, daemon=True).start()
+
+    def _register(self, payload):
+        self.registered_at = time.monotonic()
+        self.register_req = self.pb.RegisterPluginRequest.FromString(payload)
+        self.registered.set()
+        return self.pb.Empty().SerializeToString()
+
+    def call(self, method, request, response_type):
+        raw = self.client.call(self.plugin.PLUGIN_SERVICE, method,
+                               request.SerializeToString())
+        return response_type.FromString(raw)
+
+    def create(self, annotation):
+        pb = self.pb
+        req = pb.CreateContainerRequest(
+            pod=pb.PodSandbox(name="train-0", namespace="default",
+                              annotations={
+                                  f"devices.gke.io/container.{NRI_CONTAINER}":
+                                      annotation}),
+            container=pb.Container(name=NRI_CONTAINER))
+        return self.call("CreateContainer", req, pb.CreateContainerResponse)
+
+
+def _allocated_paths():
+    """The host paths the port's device plugin Allocates to one container
+    that asks for the first GPU NVML reports: its node, CONTROL_DEVICES
+    and the OPTIONAL_DEVICES present (``deviceplugin/manager.py``)."""
+    from container_engine_accelerators_tpu_torch.deviceplugin import (
+        deviceplugin_v1beta1_pb2 as dpb,
+    )
+    from container_engine_accelerators_tpu_torch.deviceplugin.manager import (
+        DRIVER_CONTAINER_PATH,
+        DRIVER_HOST_PATH,
+        GpuManager,
+    )
+    from container_engine_accelerators_tpu_torch.deviceplugin.service import (
+        DevicePluginService,
+    )
+    from container_engine_accelerators_tpu_torch.gpulib.nvml import NvmlLib
+    from container_engine_accelerators_tpu_torch.utils.config import GPUConfig
+    from container_engine_accelerators_tpu_torch.utils.device import Mount
+
+    lib = NvmlLib()
+    try:
+        driver = Mount(host_path=DRIVER_HOST_PATH,
+                       container_path=DRIVER_CONTAINER_PATH, read_only=True)
+        manager = GpuManager("/dev", [driver], GPUConfig(), lib=lib)
+        manager.start()
+        name = [d.name for d in lib.devices()][0]
+        req = dpb.AllocateRequest()
+        req.container_requests.add().devicesIDs.append(name)
+        resp = DevicePluginService(manager).Allocate(req, None)
+    finally:
+        lib.close()
+    return name, [d.host_path for d in resp.container_responses[0].devices]
+
+
+def node_nri(card):
+    """The port's NRI plugin (``nri/plugin.py``) against an in-process
+    fake runtime on a real unix socket: it registers and subscribes to
+    CreateContainer only; a container annotated with the device plugin's
+    Allocate list gets exactly those nodes, type ``c``, the major and
+    minor of ``os.stat``; a path that does not exist fails the container;
+    the runtime closes its trunk once and the plugin registers again
+    (``nri.reconnect`` 1)."""
+    import socket
+    import stat as stat_module
+
+    from container_engine_accelerators_tpu_torch.metrics import counters
+    from container_engine_accelerators_tpu_torch.nri import (
+        nri_v1alpha1_pb2 as pb,
+    )
+    from container_engine_accelerators_tpu_torch.nri import plugin
+    from container_engine_accelerators_tpu_torch.nri.ttrpc import TtrpcError
+    from container_engine_accelerators_tpu_torch.utils.retry import RetryPolicy
+
+    before = _kernel_counts()
+    gpu, paths = _allocated_paths()
+    lstats = {}
+    for p in paths:
+        st = os.lstat(p)
+        lstats[p] = {"mode": oct(st.st_mode),
+                     "char": stat_module.S_ISCHR(st.st_mode),
+                     "rdev": [os.major(st.st_rdev), os.minor(st.st_rdev)]}
+    tmp = tempfile.mkdtemp(prefix="nri")  # short: a socket path <= 107 bytes
+    sock_path = os.path.join(tmp, "nri.sock")
+    listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    listener.bind(sock_path)
+    listener.listen(2)
+    listener.settimeout(30)
+    injector = plugin.DeviceInjectorPlugin(socket_path=sock_path)
+    reconnects = counters.get("nri.reconnect")
+    started = time.monotonic()
+    thread = threading.Thread(target=injector.run, daemon=True,
+                              kwargs={"retry": RetryPolicy(**NRI_RETRY)})
+    thread.start()
+    conns = []
+    try:
+        conn, _ = listener.accept()
+        conns.append(conn)
+        rt = _NriRuntime(conn)
+        if not rt.registered.wait(30):
+            raise AssertionError("the NRI plugin did not register")
+        register_ms = (rt.registered_at - started) * 1e3
+        events = rt.call("Configure", pb.ConfigureRequest(
+            runtime_name="containerd", runtime_version="2.0"),
+            pb.ConfigureResponse).events
+        annotation = "".join(f"- path: {p}\n" for p in paths)
+        got = rt.create(annotation).adjust.linux.devices
+        injected = [(d.path, d.type, d.major, d.minor) for d in got]
+        want = [(p, "c", os.major(os.stat(p).st_rdev),
+                 os.minor(os.stat(p).st_rdev)) for p in paths]
+        round_trips = []
+        for _ in range(NRI_ROUND_TRIPS):
+            t0 = time.perf_counter()
+            rt.create(annotation)
+            round_trips.append((time.perf_counter() - t0) * 1e6)
+        missing = "/dev/nvidia-smoke-absent"
+        try:
+            rt.create(annotation + f"- path: {missing}\n")
+            refused = None
+        except TtrpcError as e:
+            refused = str(e)
+        # The runtime restarts: its trunk closes once.
+        conn.shutdown(socket.SHUT_RDWR)
+        conn.close()
+        conn2, _ = listener.accept()
+        conns.append(conn2)
+        rt2 = _NriRuntime(conn2)
+        reregistered = rt2.registered.wait(30)
+        again = ([(d.path, d.type, d.major, d.minor)
+                  for d in rt2.create(annotation).adjust.linux.devices]
+                 if reregistered else None)
+        reconnect = counters.get("nri.reconnect") - reconnects
+        rt2.call("Shutdown", pb.Empty(), pb.Empty)
+        thread.join(timeout=10)
+    finally:
+        for c in conns:
+            c.close()
+        listener.close()
+        os.unlink(sock_path)
+        os.rmdir(tmp)
+    _launches_none("node_nri", before)
+    checks = {
+        "registered": (rt.register_req.plugin_name, rt.register_req.plugin_idx)
+        == (plugin.PLUGIN_NAME, plugin.PLUGIN_IDX),
+        "create_container_only": events == plugin.event_mask(
+            pb.CREATE_CONTAINER),
+        "allocate_list_injected": injected == want,
+        "all_char_devices": all(v["char"] for v in lstats.values()),
+        "missing_path_fails": refused is not None and missing in refused,
+        "reregistered": reregistered and again == want,
+        "reconnect_counted_once": reconnect == 1,
+        "plugin_stopped": not thread.is_alive(),
+    }
+    _phase("node_nri", card=card, gpu=gpu, allocate_paths=paths,
+           lstat=lstats, injected=injected, events=events,
+           register_ms=round(register_ms, 3),
+           create_container_us_median=round(statistics.median(round_trips),
+                                            1),
+           create_container_us_max=round(max(round_trips), 1),
+           round_trips=len(round_trips), missing_path_error=refused,
+           reconnect=reconnect, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"node_nri: {checks}")
+
+
+class _ApiStubs:
+    """A GCE metadata server and a Kubernetes API server on localhost:
+    nodes, pods and PATCH / PUT, in memory."""
+
+    def __init__(self, nodes, pods):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.nodes = {n["metadata"]["name"]: n for n in nodes}
+        self.pods = {p["metadata"]["name"]: p for p in pods}
+        self.metadata = {}
+        self.writes = []
+        stubs = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _send(self, code, body):
+                data = (body if isinstance(body, str)
+                        else json.dumps(body)).encode()
+                self.send_response(code)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def _body(self):
+                return json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+
+            def do_GET(self):
+                path = self.path
+                if path.startswith(METADATA_PREFIX):
+                    value = stubs.metadata.get(path[len(METADATA_PREFIX):])
+                    return self._send(*((200, value) if value is not None
+                                        else (404, "")))
+                if path == "/api/v1/namespaces":
+                    return self._send(200, {"items": [
+                        {"metadata": {"name": "default"}}]})
+                if path == "/api/v1/nodes":
+                    return self._send(200, {"items": list(
+                        stubs.nodes.values())})
+                if path == "/api/v1/namespaces/default/pods":
+                    return self._send(200, {"items": list(
+                        stubs.pods.values())})
+                name = path.rsplit("/", 1)[-1]
+                if path.startswith("/api/v1/namespaces/default/pods/") \
+                        and name in stubs.pods:
+                    return self._send(200, stubs.pods[name])
+                self._send(404, {})
+
+            def do_PUT(self):
+                body = self._body()
+                name = self.path.rsplit("/", 1)[-1]
+                stubs.writes.append(("PUT", self.path, body))
+                stubs.pods[name] = body
+                self._send(200, body)
+
+            def do_PATCH(self):
+                body = self._body()
+                name = self.path.rsplit("/", 1)[-1]
+                stubs.writes.append(("PATCH", self.path, body))
+                stubs.nodes[name]["metadata"].setdefault("labels", {}).update(
+                    body["metadata"]["labels"])
+                self._send(200, stubs.nodes[name])
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_port}"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def _plain_distance(a, b):
+    """The scheduler's pair distance from its definition: DCN_MIN plus
+    DCN_FAR / 100**k at the first of (placement group, cluster, rack,
+    host) where the two differ after k equal levels; DCN_MIN alone when
+    all four are equal."""
+    from container_engine_accelerators_tpu_torch.scheduler import topology
+
+    for k, label in enumerate(topology.DCN_LABELS):
+        if a[label] != b[label]:
+            return 1000.0 + 1e6 / 100.0 ** k
+    return 1000.0
+
+
+def node_scheduler(card):
+    """``cmd/label_nodes.py --once`` for every node of a 16-node fleet
+    (metadata and API servers in process, over HTTP), then
+    ``cmd/topology_scheduler.py --once --settle-seconds 0`` against the
+    same API server with two gated jobs: every gate removed, every pod
+    pinned by nodeAffinity, and the first job on the set of nodes that a
+    plain ``itertools.combinations`` search over the same sorted nodes
+    finds closest."""
+    import itertools
+    import socket
+
+    from container_engine_accelerators_tpu_torch.cmd import label_nodes
+    from container_engine_accelerators_tpu_torch.cmd import topology_scheduler
+    from container_engine_accelerators_tpu_torch.deviceplugin.api import (
+        RESOURCE_NAME,
+    )
+    from container_engine_accelerators_tpu_torch.gpulib.nvml import NvmlLib
+    from container_engine_accelerators_tpu_torch.scheduler import labeler
+    from container_engine_accelerators_tpu_torch.scheduler import topology
+
+    before = _kernel_counts()
+    lib = NvmlLib()
+    try:
+        local_gpus = len(lib.devices())
+    finally:
+        lib.close()
+    here = socket.gethostname()
+    clusters, racks, hosts = SCHED_FLEET
+    places = list(itertools.product(range(clusters), range(racks),
+                                    range(hosts)))
+    names = [here] + [f"gpu-node-{i:02d}" for i in range(1, len(places))]
+    nodes = [{"metadata": {"name": n, "labels": {
+        topology.PLACEMENT_GROUP_LABEL: "pg-smoke"}},
+        "spec": {"taints": []},
+        "status": {"allocatable": {
+            "cpu": "208", "memory": "1843Gi",
+            RESOURCE_NAME: str(local_gpus if n == here else 8)}}}
+        for n in names]
+    pods = []
+    for j, (job, n_pods, gpus) in enumerate(SCHED_JOBS):
+        for i in range(n_pods):
+            pods.append({
+                "metadata": {"name": f"{job}-{i}", "namespace": "default",
+                             "creationTimestamp": f"2026-01-01T00:00:0{j}Z",
+                             "labels": {
+                                 "job-name": job,
+                                 "batch.kubernetes.io/job-completion-index":
+                                     str(i)}},
+                "spec": {"schedulingGates": [{"name": SCHED_GATE}],
+                         "containers": [{"name": "main", "resources": {
+                             "requests": {"cpu": "8", "memory": "64Gi",
+                                          RESOURCE_NAME: str(gpus)}}}]},
+                "status": {}})
+    stubs = _ApiStubs(nodes, pods)
+    metadata_base = stubs.url + METADATA_PREFIX
+    try:
+        label_ms, patched, computed = [], {}, {}
+        for name, (c, r, h) in zip(names, places):
+            stubs.metadata = {"/instance/name": name,
+                              "/instance/attributes/physical_host":
+                                  f"/cluster-{c}/rack-{c}{r}/host-{c}{r}{h}"}
+            t0 = time.perf_counter()
+            if label_nodes.main(["--once", "--api-host", stubs.url,
+                                 "--metadata-base", metadata_base]) != 0:
+                raise AssertionError(f"label_nodes failed for {name}")
+            label_ms.append((time.perf_counter() - t0) * 1e3)
+            patched[name] = stubs.writes[-1][2]["metadata"]["labels"]
+            computed[name] = labeler.compute_labels(
+                labeler.metadata_fetcher(metadata_base))
+        labeled = {n: dict(stubs.nodes[n]["metadata"]["labels"])
+                   for n in names}
+        t0 = time.perf_counter()
+        if topology_scheduler.main(["--once", "--settle-seconds", "0",
+                                    "--api-host", stubs.url]) != 0:
+            raise AssertionError("topology_scheduler failed")
+        pass_ms = (time.perf_counter() - t0) * 1e3
+        puts = [w for w in stubs.writes if w[0] == "PUT"]
+        bound = {}
+        for _, _, pod in puts:
+            expr = pod["spec"]["affinity"]["nodeAffinity"][
+                "requiredDuringSchedulingIgnoredDuringExecution"][
+                "nodeSelectorTerms"][0]["matchExpressions"][0]
+            bound[pod["metadata"]["name"]] = (
+                expr["values"][0] if expr["key"] == "kubernetes.io/hostname"
+                else None)
+        gates_left = [p["metadata"]["name"] for p in stubs.pods.values()
+                      if p["spec"].get("schedulingGates")]
+    finally:
+        stubs.close()
+    # The plain search: the same sorted nodes, every 4-set that holds the
+    # first job, the least summed distance of neighbours in that order.
+    job, n_pods, gpus = SCHED_JOBS[0]
+    ordered = sorted(names, key=lambda n: tuple(
+        labeled[n][k] for k in topology.DCN_LABELS))
+    free = {n: int(stubs.nodes[n]["status"]["allocatable"][RESOURCE_NAME])
+            for n in names}
+    t0 = time.perf_counter()
+    best, best_d, n_sets = None, float("inf"), 0
+    for combo in itertools.combinations(ordered, n_pods):
+        n_sets += 1
+        if any(free[n] < gpus for n in combo):
+            continue
+        d = sum(_plain_distance(labeled[combo[i - 1]], labeled[combo[i]])
+                for i in range(1, n_pods))
+        if d < best_d:
+            best, best_d = combo, d
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    first_job = [bound.get(f"{job}-{i}") for i in range(n_pods)]
+    _launches_none("node_scheduler", before)
+    checks = {
+        "labels_patched": all(patched[n] == computed[n] for n in names),
+        "labels_dcn": all(set(patched[n]) == {topology.CLUSTER_LABEL,
+                                              topology.RACK_LABEL,
+                                              topology.HOST_LABEL}
+                          for n in names),
+        "every_gate_removed": not gates_left,
+        "every_pod_pinned": sorted(bound) == sorted(
+            p["metadata"]["name"] for p in pods)
+        and None not in bound.values(),
+        "first_job_is_plain_minimum": first_job == list(best),
+    }
+    _phase("node_scheduler", card=card, node=here, local_gpus=local_gpus,
+           fleet=dict(zip(("clusters", "racks", "hosts"), SCHED_FLEET)),
+           labels_here=patched[here], label_ms_median=round(
+               statistics.median(label_ms), 3),
+           pass_ms=round(pass_ms, 3), bound=bound,
+           first_job_plain=list(best), first_job_distance=best_d,
+           plain_sets=n_sets,
+           plain_search_ms=round(plain_ms, 3), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"node_scheduler: {checks}")
+
+
 # ---- phases 25-29: the multi-GPU layer on a world of one card --------------
 #
 # The card's machine has one GPU, and NCCL refuses two ranks on one GPU, so
@@ -5677,8 +6124,11 @@ def main():
     _timed("node_faults", node_faults, smi, rig.register_s)
     _timed("mig", node_mig, smi)
     _timed("maintenance", node_maintenance, smi)
-    # Last: no phase after it may run under an MPS daemon.
+    # Last of the phases that start the device plugin daemon: none after
+    # it may run under an MPS daemon.
     _timed("mps", node_mps, smi)
+    _timed("node_nri", node_nri, smi)
+    _timed("node_scheduler", node_scheduler, smi)
     _launches_none("the node phases", before)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

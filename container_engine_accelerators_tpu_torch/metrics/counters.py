@@ -7,9 +7,9 @@ silently re-registers forty times a minute does not look green.
 Names are dotted ``<component>.<event>``: ``health.unhealthy``,
 ``health.recovered``, ``health.flap_backoff``,
 ``kubelet.register.retried``, ``kubelet.register.failed``,
-``kubelet.reregister``, ``metrics.rebind``,
-and ``fault.fired.<site>`` for every injected fault
-(``utils/faults.py``).
+``kubelet.reregister``, ``metrics.rebind``, the NRI plugin's
+``nri.reconnect`` and ``nri.reconnect.failed``, and
+``fault.fired.<site>`` for every injected fault (``utils/faults.py``).
 """
 
 import threading

@@ -1,6 +1,7 @@
-"""A minimal Kubernetes API client (stdlib only): the subset of the JAX
-package's ``scheduler/k8s.py`` the maintenance watcher uses, copied so
-that the port imports nothing of the JAX package.  Resources are parsed
+"""A minimal Kubernetes API client (stdlib only): the JAX package's
+``scheduler/k8s.py`` (the calls of the scheduling daemon, the node
+labeler and the maintenance watcher), copied so that the port imports
+nothing of the JAX package.  Resources are parsed
 JSON dicts, and the transport is a seam, so tests need no cluster.
 
 The in-cluster transport finds the API server from
@@ -13,7 +14,7 @@ import os
 import ssl
 import urllib.error
 import urllib.request
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 SERVICE_ACCOUNT_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
 
@@ -65,17 +66,40 @@ def in_cluster_transport(
                                e.read().decode(errors="replace"))
         except (urllib.error.URLError, OSError, TimeoutError) as e:
             # A transient network failure is an ApiException too, so the
-            # watcher's loop survives it.
+            # daemons' loops survive it.
             raise ApiException(0, f"transport error: {e}")
 
     return transport
 
 
 class CoreV1:
-    """The CoreV1 calls the maintenance watcher makes."""
+    """The CoreV1 calls the scheduler, the labeler and the maintenance
+    watcher make."""
 
     def __init__(self, transport: Transport):
         self._t = transport
+
+    def list_namespaces(self) -> List[dict]:
+        return self._t("GET", "/api/v1/namespaces").get("items", [])
+
+    def list_namespaced_pods(self, namespace: str) -> List[dict]:
+        return self._t("GET", f"/api/v1/namespaces/{namespace}/pods").get(
+            "items", [])
+
+    def list_nodes(self) -> List[dict]:
+        return self._t("GET", "/api/v1/nodes").get("items", [])
+
+    def read_namespaced_pod(self, name: str, namespace: str) -> dict:
+        return self._t("GET", f"/api/v1/namespaces/{namespace}/pods/{name}")
+
+    def replace_namespaced_pod(self, name: str, namespace: str,
+                               pod: dict) -> dict:
+        return self._t("PUT", f"/api/v1/namespaces/{namespace}/pods/{name}",
+                       pod)
+
+    def patch_node_labels(self, name: str, labels: Dict[str, str]) -> dict:
+        return self._t("PATCH", f"/api/v1/nodes/{name}",
+                       {"metadata": {"labels": labels}})
 
     def read_node(self, name: str) -> dict:
         return self._t("GET", f"/api/v1/nodes/{name}")

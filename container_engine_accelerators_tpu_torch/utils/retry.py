@@ -1,20 +1,21 @@
 """Retry budget for calls that touch a flaky resource — the part of
-``container_engine_accelerators_tpu/utils/retry.py`` that the port's
-checkpointer uses (``RetryPolicy.attempts`` and ``backoff_s``), copied
-so that the port imports nothing of the JAX package.  The JAX module's
+``container_engine_accelerators_tpu/utils/retry.py`` that the port uses
+(``RetryPolicy.attempts`` and ``backoff_s`` for the checkpointer and the
+kubelet registration, ``call`` for the NRI plugin's dial), copied so
+that the port imports nothing of the JAX package.  The JAX module's
 counters, spans and flight-recorder hooks are left out.
 
 The correct response to a transient ``OSError`` (a checkpoint mount
-that flaps under node pressure) is exponential backoff with jitter
-under a bounded budget: never an unbounded spin, never a one-strike
-crash.
+that flaps under node pressure, a runtime socket mid-restart) is
+exponential backoff with jitter under a bounded budget: never an
+unbounded spin, never a one-strike crash.
 """
 
 import dataclasses
 import logging
 import random
 import time
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Tuple, Type
 
 log = logging.getLogger(__name__)
 
@@ -78,3 +79,25 @@ class RetryPolicy:
                           self.deadline_s, attempt + 1)
                 break
             sleep(delay)
+
+    def call(
+        self,
+        fn: Callable,
+        *args,
+        retry_on: Tuple[Type[BaseException], ...] = (OSError,),
+        sleep: Callable[[float], object] = time.sleep,
+        **kwargs,
+    ):
+        """Run ``fn`` under this policy; re-raise the last error once the
+        budget is spent."""
+        name = getattr(fn, "__name__", str(fn))
+        last: Optional[BaseException] = None
+        for attempt in self.attempts(sleep=sleep):
+            try:
+                return fn(*args, **kwargs)
+            except retry_on as e:  # the loop is the point
+                last = e
+                log.warning("attempt %d/%d of %s failed: %s", attempt + 1,
+                            self.max_attempts, name, e)
+        assert last is not None
+        raise last

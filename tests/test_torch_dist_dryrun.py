@@ -206,8 +206,8 @@ def _jax(n):
 
 @functools.lru_cache(maxsize=None)
 def _port(n):
-    return dryrun_multichip(n, device="cpu", inputs=_jax(n)[1],
-                            threads=H.TORCH_THREADS)
+    return H.rendezvous_retried(dryrun_multichip, n, device="cpu",
+                                inputs=_jax(n)[1], threads=H.TORCH_THREADS)
 
 
 @pytest.mark.parametrize("n", [2, 4])

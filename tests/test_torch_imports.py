@@ -49,7 +49,12 @@ def test_port_imports_without_jax():
               "scheduler.labeler", "health.maintenance",
               "cmd.partition_gpu", "cmd.maintenance_watcher",
               "parallel", "parallel.dcn", "parallel.mesh",
-              "parallel.launch", "cmd.bench_ring", "parallel.pipeline"}
+              "parallel.launch", "cmd.bench_ring", "parallel.pipeline",
+              "utils.netio", "nri", "nri.ttrpc_pb2", "nri.nri_v1alpha1_pb2",
+              "nri.ttrpc", "nri.mux", "nri.injector", "nri.plugin",
+              "cmd.nri_device_injector", "scheduler.quantity",
+              "scheduler.topology", "scheduler.daemon",
+              "cmd.topology_scheduler", "cmd.label_nodes"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys
@@ -90,17 +95,19 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 
 def test_node_layer_imports_without_torch():
     """The node modules (gpulib, deviceplugin, health, metrics, sharing,
-    partition, scheduler, the daemons and tools) need no torch: a node
-    agent image carries none."""
+    partition, scheduler, nri, the daemons and tools) need no torch: a
+    node agent image carries none."""
     node = [m for m in _port_modules()
             if m.split(".")[1:2] in (["gpulib"], ["deviceplugin"],
                                      ["health"], ["metrics"], ["sharing"],
-                                     ["partition"], ["scheduler"])
+                                     ["partition"], ["scheduler"], ["nri"])
             or m.endswith((".cmd.gpu_device_plugin", ".cmd.partition_gpu",
                            ".cmd.maintenance_watcher", ".utils.config",
                            ".utils.devname", ".utils.device", ".utils.faults",
-                           ".utils.retry"))]
-    assert len(node) >= 32
+                           ".utils.retry", ".utils.netio",
+                           ".cmd.nri_device_injector",
+                           ".cmd.topology_scheduler", ".cmd.label_nodes"))]
+    assert len(node) >= 46
     code = f"""
 import importlib, sys
 sys.modules["torch"] = None

@@ -9,10 +9,21 @@ the test's, so no port and no store file is shared between spawns),
 runs ``fn(rank, world, *args)`` in each, joins them all within a time
 limit and returns each rank's return value.  Every worker destroys its
 process group before it returns.
+
+Gloo's ranks meet over TCP on 127.0.0.1: each listens on an ephemeral
+port, and a connection from another process to that port during the
+full-mesh connect (another test's client dialling a port it picked, or
+one whose server is gone) breaks the group with "Gloo connectFullMesh
+failed ... Connection closed by peer".  Under the suite's parallel
+workers that happens now and then, to no fault of the code under test,
+so :func:`rendezvous_retried` runs such a spawn again, at most
+``SPAWN_ATTEMPTS`` times; any other failure, or the same one on the last
+attempt, is raised.
 """
 
 import os
 import pickle
+import sys
 import tempfile
 import time
 
@@ -22,6 +33,8 @@ import torch.multiprocessing as mp
 
 TORCH_THREADS = 1
 SPAWN_TIMEOUT_S = 600  # a hung collective fails the test, not the run
+SPAWN_ATTEMPTS = 3
+RENDEZVOUS_BROKEN = "Gloo connectFullMesh failed"
 
 
 def _entry(rank, world, tmp, fn, args):
@@ -41,10 +54,31 @@ def _entry(rank, world, tmp, fn, args):
         dcn.shutdown()
 
 
+def rendezvous_retried(start, *args, **kwargs):
+    """``start(*args, **kwargs)``, a call that spawns gloo ranks, made
+    again when a rank failed because a stray connection broke the group's
+    rendezvous (see the module docstring)."""
+    for attempt in range(1, SPAWN_ATTEMPTS + 1):
+        try:
+            return start(*args, **kwargs)
+        except mp.ProcessRaisedException as e:
+            if RENDEZVOUS_BROKEN not in str(e) or attempt == SPAWN_ATTEMPTS:
+                raise
+            print(f"{getattr(start, '__name__', start)}: gloo rendezvous "
+                  f"broken on attempt {attempt}; starting the ranks again",
+                  file=sys.stderr, flush=True)
+
+
 def spawn(fn, world, tmp, *args, timeout=SPAWN_TIMEOUT_S):
     """Run ``fn(rank, world, *args)`` on ``world`` gloo ranks; return the
     list of their results (picklable values).  Ranks still running after
-    ``timeout`` seconds are killed and the call raises ``TimeoutError``."""
+    ``timeout`` seconds are killed and the call raises ``TimeoutError``.
+    A rendezvous broken by a stray connection starts the ranks again."""
+    return rendezvous_retried(_spawn_once, fn, world, tmp, *args,
+                              timeout=timeout)
+
+
+def _spawn_once(fn, world, tmp, *args, timeout):
     os.makedirs(str(tmp), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="spawn_", dir=str(tmp))
     ctx = mp.start_processes(_entry, args=(world, tmp, fn, args),
