@@ -13,9 +13,11 @@ and the image paths, ``cmd/train_resnet.py`` and ``cmd/serve_resnet.py``
 at their defaults (ResNet-50, 224x224, batch 128, bf16 with cuDNN) and
 Inception-v3, the multi-GPU layer at a world of one card (an NCCL group,
 the trainers and the LM server on the (1, 1) mesh of DTensor weights,
-the sharded ResNet step), sequence parallelism (ring, ring-zigzag
-and Ulysses through ``cmd/train_lm.py --seq-parallel``, the ring's blocks
-on the flash kernels), pipeline and expert parallelism, the MoE-LM and
+the NCCL collectives sweep, the sharded ResNet and Inception-v3 steps and
+the model-parallel convolution's per-rank shards), sequence parallelism
+(ring, ring-zigzag and Ulysses through ``cmd/train_lm.py
+--seq-parallel``, the ring's blocks on the flash kernels), pipeline and
+expert parallelism, the MoE-LM and
 the int8 / prefix-cache / MoE server on the mesh, the JAX dry run's nine
 regimes, and the node layer (NVML, the ``nvidia.com/gpu`` device
 plugin daemon, its Xid health checker and metrics server, its fault
@@ -199,6 +201,12 @@ version.  Phases, one JSON line each:
     (``parallel/dcn.py::initialize``): NCCL's version, one
     ``all_reduce``, ``all_gather_into_tensor`` and
     ``reduce_scatter_tensor`` of 4 MiB, each checked, and their ms;
+25a. ``collectives``: ``collectives/bench.py``'s ``main`` (the NCCL
+    sweep, nccl-tests' loop) at world 1 on that group for all_reduce,
+    all_gather, reduce_scatter and the ring shift, 1M-64M: exit 0, the
+    verdict file's keys (the JAX rig's) and values, every ``size_bytes``
+    the per-rank accounting, time_us and algbw (busbw is 0 at n = 1 by
+    nccl-tests' factors);
 26. ``mesh_train``: ``cmd/train_lm.py`` at its defaults on the (1, 1)
     mesh with DTensor weights, 6 steps each: its loop through
     ``make_lm_train_step(create_mesh(1, 1), ..., "megatron")``, then
@@ -215,6 +223,25 @@ version.  Phases, one JSON line each:
     batch 128 on the default schedule (losses 1e-4, statistics 2e-3)
     with both step times; each loss bound at least 10x below how far
     the updates moved the loss;
+28a. ``mesh_conv_shards``: for every distinct convolution shape of
+    ResNet-50 at batch 128 (224x224, channels_last) and for its 2048 ->
+    1000 head, at M = 2 and 4, each model rank's local product
+    (``models/resnet.py::conv_same``, ``conv_channel_slice`` /
+    ``Dense._linear``, what ``Conv`` and ``Dense`` run on a mesh) in one
+    process, combined as the
+    collective would (output-channel shards concatenated, input-channel
+    partial sums added in the dtype) against the whole product, in bf16
+    (1e-2 of the largest |y|) and in f32 with TF32 off (1e-5; the head in
+    f32 only, as both models compute it); rank 0's shard's ms beside the
+    whole product's (CUDA events), per shape and summed over the model's
+    convolutions;
+28b. ``mesh_inception``: phase 28 for Inception-v3 at its published
+    widths (299x299, 1000 classes): f32 at batch 32, its losses held
+    before the first update (its f32 train-mode gradients are
+    ill-conditioned in both steps), four steps in f64 at batch 8 (losses
+    within 1e-9, statistics 1e-6: resnet_parity's f64 bounds), bf16 at
+    128 (losses and statistics within 2e-2, the other bf16 phases'
+    bound: its step ms);
 29. ``mesh_serve``: ``cmd/serve_lm.py``'s ``build_generate(args,
     create_mesh(1, 1))`` and ``start_engine`` at phase 5's
     flags on the (1, 1) mesh against the plain server: one 64-token
@@ -5114,19 +5141,25 @@ def mesh_resume(card, plain_losses):
            mesh_run_s=first_s, tolerance="bit-equal losses")
 
 
-def mesh_resnet(dev, card):
-    """Phase 28: the sharded ResNet-50 step (models/train.py::
-    make_sharded_train_step) on the (1, 1) mesh beside the plain step:
-    f32 with TF32 off at batch 32, four steps at lr 0.01 (loss and
-    running statistics after two updates), then bf16 at batch 128 on the
-    default schedule (loss, running statistics and step ms)."""
+def _mesh_image(phase, build, size, dev, batch32=MESH_PARITY_BATCH,
+                batch16=128, steps16=MESH_IMAGE_STEPS, f64_batch=None):
+    """The sharded image step (models/train.py::make_sharded_train_step)
+    of ``build(dtype, device)`` at ``size`` x ``size`` on the (1, 1) mesh
+    beside the plain step, from the seed-0 weights: f32 with TF32 off at
+    ``batch32``, four steps at lr 0.01 (loss and running statistics after
+    two updates), then bf16 at ``batch16`` on the default schedule (loss,
+    running statistics and step ms) -> the phase's fields.  With
+    ``f64_batch`` (a model whose f32 train-mode gradients are
+    ill-conditioned) the f32 losses are held only before the first
+    update (steps 0 and 1: step 0 trains at lr 0), the four steps are
+    held in f64 at ``f64_batch``, and the bf16 run at the other bf16
+    phases' 2e-2."""
     import numpy as np
     import torch
 
     from container_engine_accelerators_tpu_torch.models.resnet import (
         BatchNorm,
         init_params,
-        resnet,
     )
     from container_engine_accelerators_tpu_torch.models.train import (
         cosine_sgd,
@@ -5140,7 +5173,7 @@ def mesh_resnet(dev, card):
 
     before = _kernel_counts()
     mesh = create_mesh(1, 1)
-    weights = init_params(resnet(50, device="meta"),
+    weights = init_params(build(torch.float32, "meta"),
                           torch.Generator().manual_seed(0))
 
     def stats(model):
@@ -5149,7 +5182,9 @@ def mesh_resnet(dev, card):
                 if isinstance(m, BatchNorm)}
 
     def run(dtype, batch, steps, sharded, timed=False, tx=None):
-        model = resnet(50, dtype=dtype, device=dev)
+        model = build(dtype, dev)
+        if dtype == torch.float64:
+            model = model.double()
         model.load_state_dict(weights)
         state = create_train_state(model, tx=tx)
         step = train_step
@@ -5157,7 +5192,7 @@ def mesh_resnet(dev, card):
             step, state = make_sharded_train_step(mesh, state)
         rng = np.random.default_rng(3)
         xs = [torch.from_numpy(rng.standard_normal(
-            (batch, 224, 224, 3), dtype=np.float32)).to(dev).permute(
+            (batch, size, size, 3), dtype=np.float32)).to(dev).permute(
                 0, 3, 1, 2) for _ in range(2)]
         ys = [torch.from_numpy(rng.integers(0, 1000, batch)).to(dev)
               for _ in range(2)]
@@ -5191,45 +5226,83 @@ def mesh_resnet(dev, card):
     tol32, stat_tol32, tol16, stat_tol16 = 1e-5, 1e-4, 1e-4, 2e-3
     torch.backends.cudnn.allow_tf32 = False
     tx = cosine_sgd(base_lr=MESH_PARITY_LR, total_steps=100, warmup_steps=1)
-    plain32, stats32, _ = run(torch.float32, MESH_PARITY_BATCH,
-                              MESH_PARITY_STEPS, False, tx=tx)
-    mesh32, mstats32, _ = run(torch.float32, MESH_PARITY_BATCH,
-                              MESH_PARITY_STEPS, True, tx=tx)
-    rel32 = max(abs(a - b) / abs(b) for a, b in zip(mesh32, plain32))
-    stat32 = compare(mstats32, stats32)
-    if not (rel32 <= tol32 and stat32 <= stat_tol32
-            and moved(plain32) > 10 * tol32):
-        raise AssertionError(f"mesh_resnet f32: loss rel {rel32}, running "
+    plain32, stats32, _ = run(torch.float32, batch32, MESH_PARITY_STEPS,
+                              False, tx=tx)
+    mesh32, mstats32, _ = run(torch.float32, batch32, MESH_PARITY_STEPS,
+                              True, tx=tx)
+    rel_each = [abs(a - b) / abs(b) for a, b in zip(mesh32, plain32)]
+    rel32, stat32 = max(rel_each), compare(mstats32, stats32)
+    f64 = None
+    if f64_batch is None:
+        ok32 = (rel32 <= tol32 and stat32 <= stat_tol32
+                and moved(plain32) > 10 * tol32)
+    else:
+        ok32 = max(rel_each[:2]) <= tol32
+        # resnet_parity's f64 bounds: flax's one-pass variance cancels
+        # where a channel's mean dwarfs its spread, in f64 too.
+        tol64, stat_tol64 = (IMAGE_TOL["f64_loss_rel"],
+                             IMAGE_TOL["f64_to_leaf_max"])
+        plain64, stats64, _ = run(torch.float64, f64_batch,
+                                  MESH_PARITY_STEPS, False, tx=tx)
+        mesh64, mstats64, _ = run(torch.float64, f64_batch,
+                                  MESH_PARITY_STEPS, True, tx=tx)
+        rel64 = max(abs(a - b) / abs(b) for a, b in zip(mesh64, plain64))
+        stat64 = compare(mstats64, stats64)
+        if not (rel64 <= tol64 and stat64 <= stat_tol64
+                and moved(plain64) > 10 * tol64):
+            raise AssertionError(f"{phase} f64: loss rel {rel64}, running "
+                                 f"statistics {stat64}, moved "
+                                 f"{moved(plain64)}")
+        f64 = {"batch": f64_batch, "steps": MESH_PARITY_STEPS,
+               "plain_losses": plain64, "mesh_losses": mesh64,
+               "loss_max_rel_diff": rel64, "loss_moved": moved(plain64),
+               "running_stats_max_err_to_max": stat64,
+               "tolerance": f"loss {tol64}, statistics {stat_tol64}"}
+    if not ok32:
+        raise AssertionError(f"{phase} f32: loss rel {rel_each}, running "
                              f"statistics {stat32}, moved "
                              f"{moved(plain32)}")
-    plain16, stats16, plain_ms = run(torch.bfloat16, 128, MESH_IMAGE_STEPS,
+    plain16, stats16, plain_ms = run(torch.bfloat16, batch16, steps16,
                                      False, timed=True)
     torch.cuda.reset_peak_memory_stats()
-    mesh16, mstats16, mesh_ms = run(torch.bfloat16, 128, MESH_IMAGE_STEPS,
+    mesh16, mstats16, mesh_ms = run(torch.bfloat16, batch16, steps16,
                                     True, timed=True)
     peak = torch.cuda.max_memory_allocated()
-    rel16 = max(abs(a - b) / abs(b) for a, b in zip(mesh16, plain16))
-    stat16 = compare(mstats16, stats16)
-    if not (rel16 <= tol16 and stat16 <= stat_tol16
-            and moved(plain16) > 10 * tol16):
-        raise AssertionError(f"mesh_resnet bf16: loss rel {rel16}, running "
+    rel16_each = [abs(a - b) / abs(b) for a, b in zip(mesh16, plain16)]
+    rel16, stat16 = max(rel16_each), compare(mstats16, stats16)
+    if f64_batch is None:
+        ok16 = (rel16 <= tol16 and stat16 <= stat_tol16
+                and moved(plain16) > 10 * tol16)
+    else:
+        # An ill-conditioned step: a bf16 rounding that falls otherwise
+        # in one BatchNorm (flax's arithmetic on the mesh, cuDNN's in the
+        # plain step) moves the loss by far more than ResNet-50's, so its
+        # bf16 run (for the step ms) is held at the bound the other bf16
+        # phases use (train_parity, seq_train, the resumes).
+        tol16 = stat_tol16 = 2e-2
+        ok16 = rel16 <= tol16 and stat16 <= stat_tol16
+    if not ok16:
+        raise AssertionError(f"{phase} bf16: loss rel {rel16}, running "
                              f"statistics {stat16}, moved "
                              f"{moved(plain16)}")
-    _launches_none("mesh_resnet", before)
-    _phase("mesh_resnet", card=card,
-           entry="models/train.py::make_sharded_train_step on the (1, 1) "
-                 "mesh vs train_step: ResNet-50, 224x224, seed-0 weights",
-           f32={"batch": MESH_PARITY_BATCH, "steps": MESH_PARITY_STEPS,
+    _launches_none(phase, before)
+    held32 = (f"loss {tol32}, statistics {stat_tol32}" if f64_batch is None
+              else f"loss {tol32} at steps 0-1 (before any update); after "
+                   f"updates shown, and held in f64")
+    out = {
+        "f32": {"batch": batch32, "steps": MESH_PARITY_STEPS,
                 "lr": f"{MESH_PARITY_LR} after a 1-step warmup",
                 "plain_losses": plain32, "mesh_losses": mesh32,
+                "loss_rel_diff_each": rel_each,
                 "loss_max_rel_diff": rel32, "loss_moved": moved(plain32),
                 "running_stats_max_err_to_max": stat32,
-                "tolerance": f"loss {tol32}, statistics {stat_tol32} (TF32 "
-                             f"off): BatchNorm's statistics are flax's "
-                             f"one-pass mean(x^2) - mean^2 over DTensors on "
-                             f"the mesh, cuDNN's own in the plain step"},
-           bf16={"batch": 128, "steps": MESH_IMAGE_STEPS,
+                "tolerance": f"{held32} (TF32 off): BatchNorm's statistics "
+                             f"are flax's one-pass mean(x^2) - mean^2 over "
+                             f"DTensors on the mesh, cuDNN's own in the "
+                             f"plain step"},
+        "bf16": {"batch": batch16, "steps": steps16,
                  "plain_losses": plain16, "mesh_losses": mesh16,
+                 "loss_rel_diff_each": rel16_each,
                  "loss_max_rel_diff": rel16, "loss_moved": moved(plain16),
                  "running_stats_max_err_to_max": stat16,
                  "tolerance": f"loss {tol16}, statistics {stat_tol16}",
@@ -5237,8 +5310,309 @@ def mesh_resnet(dev, card):
                  "mesh_step_ms": statistics.median(mesh_ms),
                  "plain_step_ms_each": [round(v, 3) for v in plain_ms],
                  "mesh_step_ms_each": [round(v, 3) for v in mesh_ms],
-                 "mesh_peak_memory_bytes": peak},
-           launches="none of the port's kernels")
+                 "mesh_peak_memory_bytes": peak}}
+    if f64 is not None:
+        out["f64"] = f64
+    return out
+
+
+def mesh_resnet(dev, card):
+    """Phase 28: the sharded ResNet-50 step on the (1, 1) mesh beside the
+    plain step (:func:`_mesh_image` at 224x224): f32 with TF32 off at
+    batch 32, bf16 at batch 128."""
+    from container_engine_accelerators_tpu_torch.models.resnet import resnet
+
+    out = _mesh_image("mesh_resnet",
+                      lambda dtype, device: resnet(50, dtype=dtype,
+                                                   device=device),
+                      224, dev)
+    _phase("mesh_resnet", card=card,
+           entry="models/train.py::make_sharded_train_step on the (1, 1) "
+                 "mesh vs train_step: ResNet-50, 224x224, seed-0 weights",
+           **out, launches="none of the port's kernels")
+
+
+# mesh_inception's batches: bf16 at the trainer's default 128 (the
+# train_resnet phase trains Inception-v3 at 299x299 there), f32 at
+# mesh_resnet's 32 (twice the bytes an activation, and TF32 off), f64 at
+# 8; one model is in memory at a time, and the phase prints the mesh
+# step's peak.  Inception-v3's f32 train-mode gradients are
+# ill-conditioned in the plain step and the mesh step alike (a CPU probe
+# at 299x299, batch 8: each 0.14-0.16 of a leaf's largest |g| from the
+# f64 gradients; ResNet-50 at 64x64: 5e-6), so its losses after updates
+# are held in f64.
+MESH_INCEPTION_BATCH16, MESH_INCEPTION_STEPS = 128, 6
+MESH_INCEPTION_F64_BATCH = 8
+
+
+def mesh_inception(dev, card):
+    """Phase 28b: the sharded Inception-v3 step (the step ResNet takes)
+    on the (1, 1) mesh beside the plain step, at its published widths
+    (299x299, 1000 classes; :func:`_mesh_image`): f32 with TF32 off at
+    batch 32 (held before the first update), f64 at batch 8 (held after
+    two updates), bf16 at batch 128.  The block concatenations and the SAME
+    pools run on the mesh's batch rows (``models/inception.py::
+    cat_channels``)."""
+    from container_engine_accelerators_tpu_torch.models.inception import (
+        inception_v3,
+    )
+
+    out = _mesh_image("mesh_inception",
+                      lambda dtype, device: inception_v3(
+                          num_classes=1000, dtype=dtype, device=device),
+                      299, dev, batch16=MESH_INCEPTION_BATCH16,
+                      steps16=MESH_INCEPTION_STEPS,
+                      f64_batch=MESH_INCEPTION_F64_BATCH)
+    _phase("mesh_inception", card=card,
+           entry="models/train.py::make_sharded_train_step on the (1, 1) "
+                 "mesh vs train_step: Inception-v3, 299x299, 1000 classes, "
+                 "seed-0 weights",
+           batch_choice=f"bf16 {MESH_INCEPTION_BATCH16}, the trainer's "
+                        f"default; f32 {MESH_PARITY_BATCH} as mesh_resnet "
+                        f"(twice the bytes an activation); f64 "
+                        f"{MESH_INCEPTION_F64_BATCH}; one model in memory "
+                        f"at a time",
+           **out, launches="none of the port's kernels")
+
+
+# mesh_conv_shards: the model-axis sizes, and the tolerances against the
+# whole convolution, of the largest |y|: an output-channel shard is the
+# same sums (another cuDNN algorithm may order them otherwise), an
+# input-channel shard's partial sums are rounded to the dtype and summed
+# in it, as the all-reduce does (bf16: a few bf16 steps of 2**-8 on the
+# largest output).
+CONV_SHARD_M = (2, 4)
+CONV_SHARD_BATCH = 128  # train_resnet's default batch
+CONV_SHARD_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+
+
+def _event_ms(fn, reps=10):
+    """Mean device ms of ``fn()`` over ``reps`` calls after two warm-up
+    calls, between two CUDA events."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _resnet_conv_shapes(batch):
+    """{(in, out, kernel, strides, H, W): count} of ResNet-50's
+    convolutions at 224x224 and ``batch`` images, read from a forward on
+    the meta device."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models.resnet import (
+        Conv,
+        resnet,
+    )
+
+    model = resnet(50, device="meta")
+    shapes = {}
+
+    def record(module, args, output):
+        c_out, c_in, kh, kw = module.weight.shape
+        key = (c_in, c_out, (kh, kw), module.strides, *args[0].shape[2:])
+        shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(record) for m in model.modules()
+             if isinstance(m, Conv)]
+    with torch.no_grad():
+        model(torch.empty(batch, 3, 224, 224, device="meta"))
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def mesh_conv_shards(dev, card):
+    """Phase 28a: the model-parallel convolution's per-rank work on cuDNN,
+    in channels_last: for every distinct convolution shape of ResNet-50
+    at batch 128 and for its head, at M = 2 and 4, each model rank's
+    local product (``models/resnet.py::conv_same``,
+    ``conv_channel_slice`` / ``Dense._linear``, what ``Conv`` and
+    ``Dense`` run on a mesh) computed in one process
+    and combined as the collective would (concatenate output-channel
+    shards, sum input-channel shards in the dtype), against the whole
+    product, in bf16 and in f32 with TF32 off; and rank 0's shard's ms
+    beside the whole product's (CUDA events)."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models.resnet import (
+        Conv,
+        Dense,
+        conv_channel_slice,
+        conv_same,
+    )
+    from container_engine_accelerators_tpu_torch.parallel.mesh import (
+        MODEL_AXIS,
+        flax_axes,
+        flax_spec,
+    )
+
+    before = _kernel_counts()
+    batch = CONV_SHARD_BATCH
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def split_dim(module, shape, m):
+        """The port axis the JAX rule splits over a model axis of m."""
+        spec = flax_spec(module, "weight", shape, 1, m)
+        if MODEL_AXIS not in spec:
+            return None
+        return list(flax_axes(module, "weight", len(shape))).index(
+            spec.index(MODEL_AXIS))
+
+    def shards(fns, x, w, dim, m):
+        """Each rank's local product, and the combined output: a rank's
+        weight shard as ``shard_params`` stores it (DTensor's contiguous
+        chunk), its x the whole rows (O) or ``split_to_model``'s channel
+        slice, a view (I)."""
+        width, fn = w.shape[dim] // m, fns[dim]
+        outs = []
+        for r in range(m):
+            w_r = w.narrow(dim, r * width, width).contiguous()
+            x_r = x if dim == 0 else x.narrow(1, r * width, width)
+            outs.append((fn, x_r, w_r))
+        local = [f(a, b) for f, a, b in outs]
+        if dim == 0:
+            return outs[0], torch.cat(local, dim=1)
+        total = local[0]
+        for y in local[1:]:
+            total = total + y
+        return outs[0], total
+
+    rows, totals, worst = [], {}, {}
+    conv_shapes = _resnet_conv_shapes(batch)
+    cases = [("conv", key, count) for key, count in sorted(
+        conv_shapes.items(), key=lambda kv: kv[0][4:] + kv[0][:2])]
+    cases.append(("head", (2048, 1000), 1))
+    for kind, key, count in cases:
+        if kind == "conv":
+            c_in, c_out, kernel, strides, h, w_ = key
+            module = Conv(c_in, c_out, kernel, strides, device="meta")
+
+            def fn(x, w, kernel=kernel, strides=strides):
+                return conv_same(x, w, kernel, strides)
+
+            def fn_i(x, w, kernel=kernel, strides=strides):
+                return conv_channel_slice(x, w, kernel, strides)
+
+            x_shape, fns = (batch, c_in, h, w_), (fn, fn_i)
+        else:
+            c_in, c_out = key
+            module, fn = Dense(c_in, c_out, device="meta"), Dense._linear
+            x_shape, fns = (batch, c_in), (fn, fn)
+        w_shape = tuple(module.weight.shape)
+        # The head computes in f32 in both models (flax's Dense(dtype=
+        # float32)): its bf16 case would be its f32 case again.
+        dtypes = ((torch.float32,) if kind == "head"
+                  else (torch.bfloat16, torch.float32))
+        for dtype in dtypes:
+            x = torch.randn(x_shape, generator=gen, device=dev).to(dtype)
+            w = torch.randn(w_shape, generator=gen, device=dev)
+            if kind == "conv":
+                x = x.contiguous(memory_format=torch.channels_last)
+                w = w.contiguous(memory_format=torch.channels_last)
+            whole = fn(x, w)
+            whole_ms = _event_ms(lambda: fn(x, w))
+            for m in CONV_SHARD_M:
+                dim = split_dim(module, w_shape, m)
+                if dim not in (0, 1):
+                    raise AssertionError(f"{kind} {key} at M={m}: the rule "
+                                         f"splits port dim {dim}")
+                (f, a, b), combined = shards(fns, x, w, dim, m)
+                err = ((combined.float() - whole.float()).abs().max()
+                       / whole.float().abs().max()).item()
+                name = str(dtype).split(".")[1]
+                if not err <= CONV_SHARD_TOL[name]:
+                    raise AssertionError(f"{kind} {key} M={m} {name}: "
+                                         f"{err} of the largest |y|")
+                shard_ms = _event_ms(lambda: f(a, b))
+                rows.append({"kind": kind, "shape": list(key[:2]) + (
+                    [list(key[2]), list(key[3]), key[4], key[5]]
+                    if kind == "conv" else []), "count": count, "m": m,
+                    "dtype": name, "split": "O" if dim == 0 else "I",
+                    "max_err_to_max": err, "whole_ms": whole_ms,
+                    "shard_ms": shard_ms,
+                    "shard_over_whole": shard_ms / whole_ms})
+                t = totals.setdefault(f"{kind} M={m} {name}",
+                                      {"whole_ms": 0.0, "shard_ms": 0.0})
+                t["whole_ms"] += count * whole_ms
+                t["shard_ms"] += count * shard_ms
+                key_w = f"M={m} {name}"
+                worst[key_w] = max(worst.get(key_w, 0.0), err)
+            del x, w, whole
+    for t in totals.values():
+        t["shard_over_whole"] = t["shard_ms"] / t["whole_ms"]
+    _launches_none("mesh_conv_shards", before)
+    _phase("mesh_conv_shards", card=card,
+           what="each model rank's local product (conv_same, "
+                "conv_channel_slice, Dense._linear: what Conv and Dense "
+                "call on a mesh) vs the "
+                "whole product; O = output channels split (the shards "
+                "concatenated), I = input channels split (the partial sums "
+                "added in the dtype); ResNet-50 at batch 128, 224x224, "
+                "channels_last; the head 2048 -> 1000 in f32",
+           distinct_conv_shapes=len(conv_shapes), tolerance=CONV_SHARD_TOL,
+           max_err_to_max=worst,
+           totals_weighted_by_count=totals, rows=rows,
+           timing="CUDA events, mean of 10 calls after 2; rank 0's shard")
+
+
+def collectives_phase(card):
+    """Phase 25a: ``collectives/bench.py``'s ``main`` (the NCCL sweep)
+    at world 1 on phase 25's group, for each of the four ops, 1M-64M:
+    exit 0, the verdict file's keys and values, each result's size_bytes
+    the nccl-tests accounting (S a step, x2), time_us and algbw."""
+    import contextlib
+    import io
+
+    import torch
+
+    from container_engine_accelerators_tpu_torch.collectives import bench
+
+    # The JAX rig's verdict keys (collectives/bench.py::main).
+    keys = {"op", "devices", "platform", "device_kind", "dtype", "iters",
+            "warmup", "results", "peak_busbw_gbps", "line_rate_gbps",
+            "pass_threshold", "line_rate_fraction", "pass"}
+    sizes = [2**20 * 2**i for i in range(7)]  # 1M .. 64M
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_coll_") as tmp:
+        for op in bench.OPS:
+            path = os.path.join(tmp, f"{op}.json")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = bench.main(["-b", "1M", "-e", "64M", "-f", "2",
+                                 "--op", op, "--verdict-json", path])
+            with open(path) as f:
+                verdict = json.load(f)
+            got = [r["size_bytes"] for r in verdict["results"]]
+            if (rc != 0 or set(verdict) != keys or got != sizes
+                    or verdict["platform"] != "gpu" or verdict["devices"] != 1
+                    or verdict["device_kind"] != torch.cuda.get_device_name()
+                    or verdict["pass"] is not None):
+                head = {k: v for k, v in verdict.items() if k != "results"}
+                raise AssertionError(f"collectives {op}: rc {rc}, verdict "
+                                     f"{head}, sizes {got}")
+            out[op] = {"time_us": [round(r["time_us"], 3)
+                                   for r in verdict["results"]],
+                       "alg_bw_gbps": [round(r["alg_bw_gbps"], 2)
+                                       for r in verdict["results"]],
+                       "bus_bw_gbps": [round(r["bus_bw_gbps"], 2)
+                                       for r in verdict["results"]]}
+    _phase("collectives", card=card,
+           entry="collectives/bench.py main(['-b', '1M', '-e', '64M', '-f', "
+                 "'2', '--op', OP, '--verdict-json', F]): bf16, 100 chained "
+                 "rounds after 5, between two CUDA events",
+           sizes_bytes=sizes, ops=out,
+           note="one rank: every collective is a local copy through NCCL "
+                "(the shift a clone); busbw is 0 by nccl-tests' factor "
+                "2(n-1)/n or (n-1)/n at n = 1 (the shift's factor is 1); "
+                "NCCL across cards is not measured on this machine")
 
 
 def mesh_serve(fd, dev, card):
@@ -6092,10 +6466,13 @@ def main():
     from container_engine_accelerators_tpu_torch.parallel import dcn
 
     _timed("nccl", nccl_phase, smi)
+    _timed("collectives", collectives_phase, smi)
     mesh_launches = _timed("mesh_train", mesh_train, fa, smi, losses,
                            plain_train)
     _timed("mesh_resume", mesh_resume, smi, losses)
     _timed("mesh_resnet", mesh_resnet, dev, smi)
+    _timed("mesh_conv_shards", mesh_conv_shards, dev, smi)
+    _timed("mesh_inception", mesh_inception, dev, smi)
     fd_launches += _timed("mesh_serve", mesh_serve, fd, dev, smi)
     _timed("seq_ring_blocks", seq_ring_blocks, fa, dev, smi)
     seq_launches, zigzag_losses = _timed("seq_train", seq_train, fa, smi,

@@ -27,9 +27,11 @@ by rows over the data axis, and BatchNorm takes the global batch's
 statistics (``models/train.py::make_sharded_train_step``).  The mesh
 path runs when a launcher started more than one rank or with
 ``--model-par > 1``; one rank without it is the single-device trainer.
-Each model rank repeats the whole convolutions (``models/resnet.py::
-Conv``), so ``--model-par`` shards memory, not compute.  Inception-v3 on
-a mesh comes with the next multi-GPU slice and exits naming it.  Each
+ResNet and Inception-v3 take the same step.  Each model rank convolves
+with its shard of every weight (``models/resnet.py::Conv``: 1/M of the
+output or of the input channels, the JAX rule's split), so ``--model-par
+M`` splits the convolutions' compute and weight memory M ways and adds a
+gather or an all-reduce of each convolution's output.  Each
 data-parallel rank makes its own rows
 (synthetic: ``np.random.default_rng(<data index>)``, the JAX trainer's
 per-process stream; ``--data-dir``: its rows of the global batch); rank
@@ -58,8 +60,6 @@ from container_engine_accelerators_tpu_torch.utils.profile import ProfileWindow
 log = logging.getLogger("train-resnet")
 
 PARAMS_FILE = "params.pt"
-_NEXT_SLICE = ("is not ported yet: it comes with the next multi-GPU slice "
-               "of the PyTorch port")
 
 
 def parse_args(argv=None):
@@ -80,9 +80,10 @@ def parse_args(argv=None):
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--model-par", type=int, default=1,
                    help="tensor-parallel degree (ranks on the model "
-                        "axis).  The weights are sharded, but each model "
-                        "rank repeats the whole convolutions: M ranks add "
-                        "collectives and split no convolution compute")
+                        "axis).  Each model rank convolves with its 1/M "
+                        "shard of every weight (output or input channels, "
+                        "the JAX rule's split) and the ranks combine the "
+                        "outputs; needs a multiple of M ranks")
     p.add_argument("--data-dir", default=None,
                    help="array-shard dataset dir (data/arrays.py format: "
                         "images + labels).  Default: synthetic images")
@@ -100,14 +101,11 @@ def parse_args(argv=None):
 
 
 def validate_args(args):
-    """The JAX trainer's own checks, plus the model the port does not
-    train on a mesh yet."""
+    """The JAX trainer's own checks."""
     if args.checkpoint_interval < 1:
         raise SystemExit("--checkpoint-interval must be >= 1")
     if args.model_par < 1:
         raise SystemExit("--model-par must be >= 1")
-    if args.model == "inception-v3" and wants_mesh(args.model_par):
-        raise SystemExit(f"--model inception-v3 on a mesh {_NEXT_SLICE}")
 
 
 def build_model(args, device):

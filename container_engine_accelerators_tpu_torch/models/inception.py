@@ -13,6 +13,14 @@ Each block registers its ``ConvBNAct`` children in the order the flax
 block calls them, which is the order flax numbers them
 (``ConvBNAct_0``, ``ConvBNAct_1``, ...): ``BRANCHES`` names them, and
 ``models/convert.py`` maps them by it.
+
+On a mesh (``models/train.py::make_sharded_train_step``) the
+convolutions and the head split their work over the model axis as
+ResNet's do (``models/resnet.py::Conv``), and every activation between
+them is the batch-split DTensor of this rank's rows with every channel:
+the block-level concatenations (:func:`cat_channels`) and the SAME pools
+run on those rows, with no collective, and compute the single-device
+values.
 """
 
 from typing import Sequence, Tuple
@@ -20,6 +28,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from container_engine_accelerators_tpu_torch.models.resnet import (
     BatchNorm,
@@ -28,8 +37,17 @@ from container_engine_accelerators_tpu_torch.models.resnet import (
     avg_pool_same,
     max_pool_same,
 )
+from container_engine_accelerators_tpu_torch.parallel.mesh import batch_local
 
 EPS = 1e-3
+
+
+def cat_channels(xs) -> torch.Tensor:
+    """``torch.cat(xs, dim=1)``; on a mesh, of this rank's rows of each
+    batch-split DTensor (every channel on every rank, so no collective)."""
+    if isinstance(xs[0], DTensor):
+        return batch_local(lambda *rows: torch.cat(rows, dim=1), *xs)
+    return torch.cat(xs, dim=1)
 
 
 class ConvBNAct(nn.Module):
@@ -77,7 +95,7 @@ class InceptionA(_Block):
         b5 = self.b5_2(self.b5_1(x))
         b3 = self.b3_3(self.b3_2(self.b3_1(x)))
         bp = self.bp(avg_pool_same(x, 3, 1))
-        return torch.cat([b1, b5, b3, bp], dim=1)
+        return cat_channels([b1, b5, b3, bp])
 
 
 class InceptionB(_Block):
@@ -96,7 +114,7 @@ class InceptionB(_Block):
     def forward(self, x):
         b3 = self.b3(x)
         bd = self.bd_3(self.bd_2(self.bd_1(x)))
-        return torch.cat([b3, bd, max_pool_same(x, 3, 2)], dim=1)
+        return cat_channels([b3, bd, max_pool_same(x, 3, 2)])
 
 
 class InceptionC(_Block):
@@ -121,7 +139,7 @@ class InceptionC(_Block):
         b7 = self.b7_3(self.b7_2(self.b7_1(x)))
         bd = self.bd_5(self.bd_4(self.bd_3(self.bd_2(self.bd_1(x)))))
         bp = self.bp(avg_pool_same(x, 3, 1))
-        return torch.cat([b1, b7, bd, bp], dim=1)
+        return cat_channels([b1, b7, bd, bp])
 
 
 class InceptionD(_Block):
@@ -142,7 +160,7 @@ class InceptionD(_Block):
     def forward(self, x):
         b3 = self.b3_2(self.b3_1(x))
         b7 = self.b7_4(self.b7_3(self.b7_2(self.b7_1(x))))
-        return torch.cat([b3, b7, max_pool_same(x, 3, 2)], dim=1)
+        return cat_channels([b3, b7, max_pool_same(x, 3, 2)])
 
 
 class InceptionE(_Block):
@@ -164,11 +182,11 @@ class InceptionE(_Block):
     def forward(self, x):
         b1 = self.b1(x)
         b3 = self.b3(x)
-        b3 = torch.cat([self.b3_a(b3), self.b3_b(b3)], dim=1)
+        b3 = cat_channels([self.b3_a(b3), self.b3_b(b3)])
         bd = self.bd_2(self.bd_1(x))
-        bd = torch.cat([self.bd_a(bd), self.bd_b(bd)], dim=1)
+        bd = cat_channels([self.bd_a(bd), self.bd_b(bd)])
         bp = self.bp(avg_pool_same(x, 3, 1))
-        return torch.cat([b1, b3, bd, bp], dim=1)
+        return cat_channels([b1, b3, bd, bp])
 
 
 class InceptionV3(nn.Module):

@@ -24,13 +24,21 @@ Three details of flax that PyTorch's own layers do otherwise:
 
 On a mesh (``models/train.py::make_sharded_train_step``) the weights are
 DTensors laid out by the JAX rule (``FLAX_AXES`` maps each port axis to
-its flax axis) and the activations are DTensors split by batch rows.
-DTensor has no convolution strategy for a sharded weight (its rule
-follows the input's batch split alone), so a convolution gathers its
-weight whole and runs on this rank's rows; the pools run on the rows
-too.  BatchNorm takes its statistics over the GLOBAL batch, as GSPMD
-does: DTensor means over the batch-split rows, flax's one-pass variance
-``mean(x^2) - mean(x)^2``.
+its flax axis) and the activations are DTensors split by batch rows,
+every channel on every model rank.  DTensor has no convolution strategy
+for a sharded weight, so a convolution and the head run on this rank's
+rows with this rank's weight shard and combine over the model axis as
+Megatron does (``parallel/mesh.py::model_parallel``): a weight split on
+its output channels convolves 1/M of them and gathers the slices; one
+split on its input channels convolves its 1/M of x's channels and sums
+the partial outputs.  So ``--model-par M`` splits each convolution's
+compute M ways, as GSPMD does in the JAX step; the activation leaves
+whole, so BatchNorm, the pools and the residual adds are untouched.  A
+weight the rule leaves replicated (or splits on H or W, which it never
+does for ResNet or Inception) is gathered whole.  The pools run on the
+rows too.  BatchNorm takes its statistics over the GLOBAL batch, as
+GSPMD does: DTensor means over the batch-split rows, flax's one-pass
+variance ``mean(x^2) - mean(x)^2``.
 """
 
 import functools
@@ -46,6 +54,8 @@ from container_engine_accelerators_tpu_torch.parallel.mesh import (
     batch_local,
     full,
     gather_weight,
+    model_parallel,
+    model_shard_dim,
     replicate,
 )
 
@@ -101,16 +111,56 @@ def avg_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     return F.avg_pool2d(x, k, s, padding=pad, count_include_pad=True)
 
 
+def conv_same(x: torch.Tensor, w: torch.Tensor, kernel: Tuple[int, int],
+              strides: Tuple[int, int]) -> torch.Tensor:
+    """flax's ``padding="SAME"`` convolution of ``x`` with the OIHW ``w``
+    cast to x's dtype: what :class:`Conv` computes, and on a mesh what
+    each model rank computes with its weight shard (an output-channel
+    shard gives those output channels, an input-channel shard, on those
+    channels of x, a partial sum of the whole output)."""
+    w = w.to(x.dtype)
+    if x.device.type == "cpu" and tuple(kernel) == (1, 1) \
+            and tuple(strides) != (1, 1):
+        # PyTorch's CPU build (oneDNN, torch 2.13) corrupts the heap in
+        # the channels_last backward of a strided 1x1 convolution with
+        # few input channels.  Every stride-th pixel convolved at
+        # stride 1 is the same sums (SAME pads a 1x1 window nothing).
+        x, strides = x[:, :, ::strides[0], ::strides[1]], (1, 1)
+    x, pad = pad_same(x, kernel, strides)
+    return F.conv2d(x, w, stride=strides, padding=pad)
+
+
+def conv_channel_slice(x: torch.Tensor, w: torch.Tensor,
+                       kernel: Tuple[int, int],
+                       strides: Tuple[int, int]) -> torch.Tensor:
+    """A model rank's product under an input-channel split: ``x`` is its
+    slice of the channels (a strided view of the ``channels_last`` rows)
+    and ``w`` its ``[out, in / M, kh, kw]`` shard; the result is its
+    partial sum of the whole output.  A 1x1 window at stride 1 runs as
+    one GEMM over the NHWC rows, which reads the slice in place (a
+    convolution would first copy it: as much traffic as the product, in
+    bf16); any other window is :func:`conv_same`."""
+    if tuple(kernel) != (1, 1) or tuple(strides) != (1, 1):
+        return conv_same(x, w, kernel, strides)
+    n, c, h, w_ = x.shape
+    rows = x.permute(0, 2, 3, 1).reshape(n * h * w_, c)
+    y = F.linear(rows, w.to(x.dtype).reshape(w.shape[0], c))
+    return y.view(n, h, w_, -1).permute(0, 3, 1, 2)
+
+
 class Conv(nn.Module):
     """``nn.Conv(use_bias=False, padding="SAME")``: an f32 OIHW kernel in
     ``channels_last`` memory, cast to the input's dtype at use.
 
-    On a mesh the weight is gathered whole and convolved with this rank's
-    batch rows (DTensor's convolution rule follows only the input's batch
-    split).  So every rank of the model axis repeats the same
-    convolution: ``--model-par M`` adds the weight's all-gather and its
-    grad's reduce-scatter but splits none of the convolution's compute,
-    unlike GSPMD's output-channel split in the JAX step."""
+    On a mesh each rank convolves its batch rows with its shard of the
+    weight (:func:`conv_same`) and the model axis combines them
+    (``parallel/mesh.py::model_parallel``): an output-channel shard (port
+    dim 0) gathers the output channels, an input-channel shard (dim 1)
+    splits x's channels and sums the partial outputs
+    (:func:`conv_channel_slice`).  Each model rank computes 1/M of the
+    convolution, as GSPMD's split in the JAX step; in bf16 the partial
+    sums of an input-channel split are rounded and summed in bf16.  A
+    weight not split on its channels alone is gathered whole."""
 
     FLAX_AXES = {"weight": (3, 2, 0, 1)}  # OIHW holds flax's HWIO
 
@@ -124,22 +174,20 @@ class Conv(nn.Module):
             memory_format=torch.channels_last))
 
     def forward(self, x):
-        if isinstance(self.weight, DTensor):
+        w = self.weight
+        if not isinstance(w, DTensor):
+            return self._conv(x, w)
+        dim = model_shard_dim(w)
+        if dim in (0, 1):
+            local = self._conv if dim == 0 else functools.partial(
+                conv_channel_slice, kernel=self.kernel, strides=self.strides)
             return batch_local(
-                lambda rows: self._conv(rows, gather_weight(self.weight)), x)
-        return self._conv(x, self.weight)
+                lambda rows: model_parallel(local, rows, w, dim), x)
+        return batch_local(lambda rows: self._conv(rows, gather_weight(w)),
+                           x)
 
     def _conv(self, x, w):
-        w, strides = w.to(x.dtype), self.strides
-        if x.device.type == "cpu" and self.kernel == (1, 1) \
-                and strides != (1, 1):
-            # PyTorch's CPU build (oneDNN, torch 2.13) corrupts the heap in
-            # the channels_last backward of a strided 1x1 convolution with
-            # few input channels.  Every stride-th pixel convolved at
-            # stride 1 is the same sums (SAME pads a 1x1 window nothing).
-            x, strides = x[:, :, ::strides[0], ::strides[1]], (1, 1)
-        x, pad = pad_same(x, self.kernel, strides)
-        return F.conv2d(x, w, stride=strides, padding=pad)
+        return conv_same(x, w, self.kernel, self.strides)
 
 
 class BatchNorm(nn.Module):
@@ -217,7 +265,12 @@ class BatchNorm(nn.Module):
 
 class Dense(nn.Module):
     """flax ``nn.Dense(dtype=float32)``: f32 ``[out, in]`` weight and bias,
-    the input cast to the weight's dtype (f32), f32 output."""
+    the input cast to the weight's dtype (f32), f32 output.
+
+    On a mesh the weight is used as :class:`Conv`'s: each rank multiplies
+    its rows by its shard and the model axis combines the products (the
+    head's 2048 x 1000 kernel is split on its input features: *split*,
+    then *reduce*); the bias, gathered whole, is added once after."""
 
     FLAX_AXES = {"weight": (1, 0)}  # [out, in] holds flax's [in, out]
 
@@ -228,7 +281,18 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.empty(features, device=device))
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        w = self.weight
+        dim = model_shard_dim(w) if isinstance(w, DTensor) else None
+        if dim is None:
+            return F.linear(x.to(w.dtype), w, self.bias)
+        b = self.bias
+        return batch_local(lambda rows: model_parallel(
+            self._linear, rows, w, dim) + (
+                gather_weight(b) if isinstance(b, DTensor) else b), x)
+
+    @staticmethod
+    def _linear(x, w):
+        return F.linear(x.to(w.dtype), w)
 
 
 class ResNetBlock(nn.Module):

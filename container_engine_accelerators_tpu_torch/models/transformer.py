@@ -45,7 +45,13 @@ its heads (``parallel/mesh.py::head_sharding``); rotary, the attention
 auto rule) and the cache write run on those local tensors, and the
 output joins the DTensor graph again.  The decode cache then holds this
 rank's KV heads.  In decode mode the logits (or hidden rows) come back
-whole on every rank, as plain tensors.
+whole on every rank, as plain tensors.  A projection whose weight the
+layout splits over ranks on a contracted dim gives each rank a partial
+sum; in bf16 those partials would be rounded and then summed in bf16,
+where one device rounds its f32 accumulation once, which moves the
+router's near-ties of the MoE-LM.  So there the product runs in f32 (the
+products of bf16 values are exact in f32), the partials are summed in
+f32, and the result is rounded once (:func:`_project`).
 """
 
 import math
@@ -54,7 +60,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from container_engine_accelerators_tpu_torch.models.quant import QDense
@@ -71,6 +77,8 @@ from container_engine_accelerators_tpu_torch.parallel.mesh import (
     full,
     head_sharding,
     replicate,
+    settle_partial,
+    splits_contraction,
 )
 from container_engine_accelerators_tpu_torch.parallel.seq import (
     dense_attention,
@@ -129,6 +137,18 @@ def _w(kernel, dtype):
     return kernel.to(dtype)
 
 
+def _project(x, w, contract, dt):
+    """``x @ w`` in the compute dtype ``dt``, with ``w`` a compute-dtype
+    kernel whose leading ``contract`` dims x contracts (flattened here).
+    On a mesh that splits one of those dims, below f32, the product and
+    the sum of the ranks' partials run in f32 and round once, as one
+    device's GEMM rounds its f32 accumulation."""
+    w2 = w.flatten(0, len(contract) - 1).flatten(1)
+    if dt.itemsize < 4 and splits_contraction(w, contract):
+        return settle_partial(x.float() @ w2.float()).to(dt)
+    return x @ w2
+
+
 class RMSNorm(nn.Module):
     """f32 math, eps 1e-6, output in the compute dtype.  The scale stays
     f32 whatever the compute dtype (bf16 serving weights load exactly)."""
@@ -176,12 +196,12 @@ class Attention(nn.Module):
                 use_flash=None):
         b, t, _ = x.shape
         dt = self.dtype
-        q = (x @ _w(self.q, dt).flatten(1)).view(b, t, self.num_heads,
-                                                  self.head_dim)
-        k = (x @ _w(self.k, dt).flatten(1)).view(b, t, self.kv_heads,
-                                                  self.head_dim)
-        v = (x @ _w(self.v, dt).flatten(1)).view(b, t, self.kv_heads,
-                                                  self.head_dim)
+        q = _project(x, _w(self.q, dt), (0,), dt).view(
+            b, t, self.num_heads, self.head_dim)
+        k = _project(x, _w(self.k, dt), (0,), dt).view(
+            b, t, self.kv_heads, self.head_dim)
+        v = _project(x, _w(self.v, dt), (0,), dt).view(
+            b, t, self.kv_heads, self.head_dim)
         mesh = q.device_mesh if isinstance(q, DTensor) else None
         if mesh is not None:
             # Leave the DTensor graph: this rank's rows and heads.
@@ -198,7 +218,7 @@ class Attention(nn.Module):
                                    one_rank=mesh is None or mesh.size() == 1)
         if mesh is not None:
             o = DTensor.from_local(o, mesh, heads, run_check=False)
-        return o.reshape(b, t, -1) @ _w(self.out, dt).flatten(0, 1)
+        return _project(o.reshape(b, t, -1), _w(self.out, dt), (0, 1), dt)
 
     def _train_attend(self, q, k, v, use_flash, one_rank=True):
         """Causal attention over the whole sequence.  The kernels take
@@ -315,8 +335,9 @@ class Block(nn.Module):
         if self.moe is not None:
             out, aux, dropped = self.moe(y)
             return x + out, (aux, dropped)
-        return x + (F.silu(y @ _w(self.gate, dt)) * (y @ _w(self.up, dt))
-                    ) @ _w(self.down, dt), None
+        h = (F.silu(_project(y, _w(self.gate, dt), (0,), dt))
+             * _project(y, _w(self.up, dt), (0,), dt))
+        return x + _project(h, _w(self.down, dt), (0,), dt), None
 
 
 class MoEAux(NamedTuple):
@@ -422,8 +443,7 @@ class TransformerLM(nn.Module):
             # A vocab-sharded table looks rows up as a masked partial
             # sum; settle it once (the rows are exact) rather than let
             # each later op that reads x reduce it.
-            x = x.redistribute(mesh, tuple(
-                Replicate() if p.is_partial() else p for p in x.placements))
+            x = settle_partial(x)
         moe = []
         for i, blk in enumerate(self.blocks):
             if self.decode:

@@ -131,10 +131,15 @@ def switch_aux_loss(r: Routing) -> torch.Tensor:
     return e * (frac_routed * r.probs.mean(0)).sum()
 
 
-def _expert_mlp(slots, wi_gate, wi_up, wo, dtype):
-    """The gated SiLU MLP of every expert over its slots ``[E, C, D]``."""
+def _expert_mlp(slots, wi_gate, wi_up, wo, dtype, partial=False):
+    """The gated SiLU MLP of every expert over its slots ``[E, C, D]``.
+    ``partial``: ``wo`` is this rank's share of F, so the output is a
+    partial sum over ranks; below f32 it is returned in f32 (the products
+    of ``dtype`` values are exact there) for the sum to round once."""
     h = F.silu(torch.bmm(slots, wi_gate.to(dtype))) * torch.bmm(
         slots, wi_up.to(dtype))
+    if partial and dtype.itemsize < 4:
+        return torch.bmm(h.float(), wo.to(dtype).float())
     return torch.bmm(h, wo.to(dtype))
 
 
@@ -365,11 +370,11 @@ def _moe_megatron(module, x):
     r, aux, dropped = _route_on_mesh(x_route.reshape(n, d), router, cap,
                                      mesh, split, n * blocks)
     slots, slot = _dispatch(x_exp.reshape(n, d), r, cap, e, dtype)
-    out_slots = _expert_mlp(slots, wi_gate, wi_up, wo, dtype).view(
-        e * cap, d)
+    out_slots = _expert_mlp(slots, wi_gate, wi_up, wo, dtype,
+                            partial=f_split).view(e * cap, d)
     if f_split:
-        out_slots = _AllReduceForward.apply(out_slots,
-                                            mesh.get_group(m_dim))
+        out_slots = _AllReduceForward.apply(
+            out_slots, mesh.get_group(m_dim)).to(dtype)
     out = _combine(out_slots, slot, r, n, dtype)
     return (_finish(out.view(*x_route.shape[:-1], d), xd, rows,
                     not isinstance(x, DTensor), mesh), aux, dropped)

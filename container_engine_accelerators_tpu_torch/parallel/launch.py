@@ -40,11 +40,16 @@ def trainer_mesh(device, model_par: int, batch: int):
         create_mesh,
     )
 
-    world, rank = dcn.initialize(device=device, force=True)
+    import torch.distributed as dist
+
+    # Checked before any group is joined: the launcher's world size.
+    world = (dist.get_world_size() if dist.is_initialized()
+             else dcn.resolve_cluster()[1])
     if world % model_par:
         raise SystemExit(f"--model-par {model_par} needs a multiple of "
                          f"{model_par} ranks (one a GPU); the process group "
                          f"has {world}")
+    world, rank = dcn.initialize(device=device, force=True)
     mesh = create_mesh(model=model_par)
     dp = axis_size(mesh, DATA_AXIS)
     if batch % dp:

@@ -24,6 +24,11 @@ propagation inserts them:
   same placements.  Tensors too small to divide stay replicated.
 - :func:`batch_sharding` / :func:`replicated` — the placements of a
   batch (rows over ``dcn`` and ``data``) and of a replicated value.
+- Megatron's conjugate operators over the ``model`` group, for the
+  layers DTensor has no sharded strategy for (the convolution, the
+  image head): *split* / *gather* and *reduce* / *copy*, autograd
+  Functions composed by :func:`model_parallel` around a rank's product
+  with its weight shard (:func:`local_shard`).
 
 Collectives run on the default process group's ranks: NCCL on the card,
 gloo on the CPU.
@@ -256,6 +261,26 @@ def drop_unit_shards(x: DTensor) -> DTensor:
     return x if pl == tuple(x.placements) else x.redistribute(mesh, pl)
 
 
+def settle_partial(x):
+    """``x`` with each ``Partial`` placement summed (made ``Replicate``), in
+    x's own dtype; anything else passes through."""
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+
+
+def splits_contraction(w, dims) -> bool:
+    """Whether the DTensor ``w`` is split over more than one rank on one
+    of ``dims`` (the dims a product contracts): then each rank's product
+    is a partial sum."""
+    if not isinstance(w, DTensor):
+        return False
+    return any(p.is_shard() and p.dim in dims and w.device_mesh.size(i) > 1
+               for i, p in enumerate(w.placements))
+
+
 def replicate(x, mesh: DeviceMesh):
     """A value every rank holds alike, as a replicated DTensor (a DTensor
     passes through)."""
@@ -276,6 +301,136 @@ def weight_grad_placements(mesh: DeviceMesh) -> Tuple:
     the same on every model coordinate."""
     return tuple(Partial() if n in BATCH_AXES else Replicate()
                  for n in mesh.mesh_dim_names)
+
+
+def model_shard_dim(w: DTensor) -> Optional[int]:
+    """The port axis the model axis shards ``w`` on, when that is its
+    only split (every other mesh dim replicated); else None (replicated,
+    or also split over a batch axis, as under fsdp)."""
+    dim = None
+    for name, p in zip(w.device_mesh.mesh_dim_names, w.placements):
+        if name == MODEL_AXIS and p.is_shard():
+            dim = p.dim
+        elif not p.is_replicate():
+            return None
+    return dim
+
+
+def local_shard(w: DTensor) -> torch.Tensor:
+    """This rank's shard of a weight split on the model axis alone, as a
+    plain tensor used on this rank's batch rows: its grad is a partial
+    sum over the batch axes and this rank's piece on ``model``
+    (``sync_grads`` then all-reduces it over the batch axes).  No
+    communication either way."""
+    pl = tuple(Partial() if n in BATCH_AXES else p
+               for n, p in zip(w.device_mesh.mesh_dim_names, w.placements))
+    return w.to_local(grad_placements=pl)
+
+
+# ---- Megatron's conjugate operators over the model axis ---------------------
+#
+# Each takes plain tensors (this rank's batch rows) and the model axis's
+# process group.  Everything downstream of a gather or a reduce is the same
+# on every model rank, so the gradient arriving there is whole on each:
+# gather's backward takes this rank's slice (a reduce-scatter would make it
+# M times too large), reduce's passes it through.
+
+
+def _slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    m = dist.get_world_size(group)
+    width = x.shape[dim] // m
+    return x.narrow(dim, dist.get_rank(group) * width, width)
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The model ranks' slices of ``dim`` concatenated in rank order.
+    ``dim`` is moved last first, a free view of an NCHW tensor in
+    ``channels_last`` memory, so the result keeps that layout."""
+    m = dist.get_world_size(group)
+    xt = x.movedim(dim, -1).contiguous()
+    out = xt.new_empty((m * xt.shape[0],) + tuple(xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=group)
+    out = out.view(m, *xt.shape).movedim(0, -2).reshape(
+        *xt.shape[:-1], m * xt.shape[-1])
+    return out.movedim(-1, dim)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    y = x.clone()
+    dist.all_reduce(y, group=group)
+    return y
+
+
+class _Split(torch.autograd.Function):
+    """Forward: this rank's slice of ``dim``; backward: all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _slice(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather(grad, ctx.dim, ctx.group), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: all-gather the slices of ``dim``; backward: this rank's
+    slice of the (whole, replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _slice(grad, ctx.dim, ctx.group), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    """Forward: all-reduce the partial sums; backward: identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Copy(torch.autograd.Function):
+    """Forward: identity; backward: all-reduce the partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+def model_parallel(local_fn, x: torch.Tensor, w: DTensor, dim: int
+                   ) -> torch.Tensor:
+    """``local_fn(x, w_shard)`` on this rank's rows ``x`` with its shard of
+    ``w``, combined over the model axis into the whole result.
+    ``dim`` 0, the output features split (``w`` ``[out, in, ...]``): a
+    local product of the output slice, then *gather* the slices along
+    dim 1; *copy* in front, since x's gradient is a partial sum over the
+    model ranks.  ``dim`` 1, the input features split: *split* x's dim 1,
+    a local partial product, then *reduce*.  A model axis of one rank
+    takes no collective."""
+    group = w.device_mesh.get_group(MODEL_AXIS)
+    shard = local_shard(w)
+    if dist.get_world_size(group) == 1:
+        return local_fn(x, shard)
+    if dim == 0:
+        return _Gather.apply(local_fn(_Copy.apply(x, group), shard), 1,
+                             group)
+    return _Reduce.apply(local_fn(_Split.apply(x, 1, group), shard), group)
 
 
 def gather_weight(w: DTensor) -> torch.Tensor:
@@ -335,11 +490,12 @@ def local_heads(mesh: Optional[DeviceMesh], kv_heads: int) -> int:
     return kv_heads // tp if kv_heads % tp == 0 else kv_heads
 
 
-def batch_local(fn, x: DTensor) -> DTensor:
-    """Run ``fn`` on this rank's batch rows of ``x`` (every feature of
-    them) and return the result as the batch-split DTensor: for the
-    operators DTensor has no strategy for at the layout given."""
+def batch_local(fn, x: DTensor, *more: DTensor) -> DTensor:
+    """Run ``fn`` on this rank's batch rows of ``x`` (and of ``more``;
+    every feature of them) and return the result as the batch-split
+    DTensor: for the operators DTensor has no strategy for at the layout
+    given, and for those that need no collective on batch rows."""
     mesh = x.device_mesh
     rows = batch_sharding(mesh)
-    y = fn(x.redistribute(mesh, rows).to_local())
+    y = fn(*(t.redistribute(mesh, rows).to_local() for t in (x, *more)))
     return DTensor.from_local(y, mesh, rows, run_check=False)

@@ -15,6 +15,11 @@ Tolerances are the dense LM's (``test_torch_dist_lm.py``,
 f32): losses within 2e-6 relative, parameters after three steps within
 3e-6 absolute; the routing itself is exact (an argmax of the same
 logits; a flipped route would move a loss by far more).
+
+Across layouts in bf16 (the trainer's compute dtype), each package's
+first loss on a (1, 2) mesh against its own on one device, on the same
+weights and batch: the port's gap may not exceed JAX's by more than a
+bf16 rounding's worth (``test_bf16_cross_layout_gap_within_jaxs``).
 """
 
 import functools
@@ -30,6 +35,7 @@ import torch_dist_helpers as H
 from container_engine_accelerators_tpu.models import lm_train as jlt
 from container_engine_accelerators_tpu.models import transformer as jtr
 from container_engine_accelerators_tpu.parallel import create_mesh
+import torch_par_helpers as P
 from container_engine_accelerators_tpu_torch.models.convert import (
     from_flax_params,
     to_flax_params,
@@ -151,3 +157,66 @@ def test_trainer_cli_moe_on_2_ranks_matches_one_device(tmp_path, flags):
     out = H.spawn(H.lm_trainer_runs, 2, tmp_path, [LM_CLI + flags])
     assert out[0] == out[1]
     np.testing.assert_allclose(out[0][0], train_lm.main(LM_CLI), rtol=2e-2)
+
+
+# The trainer's widths (``LM_CLI``): D = 2 x 64 = 128 > mlp 64, so the rule
+# splits every q/k/v kernel and expert weight on D, a contracted dim of
+# the projections.
+BF16_CFG = dict(vocab_size=97, num_layers=2, num_heads=2, head_dim=64,
+                mlp_dim=64, num_experts=2)
+# bf16 rounding's share of the gap when no route flips: the port's gap
+# 0-5e-6 and JAX's 5e-5-4.3e-4 at four other seeds (CPU).
+GAP_MARGIN = 1e-4
+
+
+def test_bf16_cross_layout_gap_within_jaxs(tmp_path):
+    """``train_lm --num-experts 2 --model-par 2``'s first step: the
+    trainer's seed-0 weights and first synthetic batch, bf16.  A (1, 2)
+    mesh splits the projections' contracted dim, so each rank's product
+    is a partial sum.  Summed in bf16 (each partial rounded first), they
+    moved the layer-0 router input by a bf16 step and flipped a near-tie
+    route: the port's 2-rank loss sat 4.9e-3 from one device's (5.3998
+    against 5.3737) where JAX's gap is 2.4e-4.  The port sums them in
+    f32 and rounds once (``models/transformer.py::_project``)."""
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+    from container_engine_accelerators_tpu_torch.models import lm_train as lt
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+        init_params,
+    )
+
+    args = train_lm.parse_args(LM_CLI)
+    batch = train_lm.synthetic_batches(args, 1)[0]
+    model = TransformerLM(**BF16_CFG, dtype=torch.bfloat16, device="cpu")
+    model.load_state_dict(init_params(model, torch.Generator().manual_seed(0)))
+    params = {k: v.detach().numpy().copy()
+              for k, v in model.state_dict().items()}
+    step, state = lt.make_lm_train_step(None, lt.create_lm_train_state(model))
+    _, m = step(state, *(torch.from_numpy(x).long() for x in batch[:2]),
+                torch.from_numpy(batch[2]))
+    port = {"one": float(m["loss"])}
+    ranks = H.spawn(P.lm_bf16_first_loss, 2, tmp_path, BF16_CFG, params,
+                    batch, (1, 2))
+    assert ranks[0] == ranks[1]
+    port["mesh"] = ranks[0]
+
+    flax = to_flax_params({k: torch.from_numpy(v) for k, v in params.items()})
+    model = jtr.transformer_lm(**BF16_CFG, dtype=jnp.bfloat16,
+                               use_flash=False)
+    jax_ = {}
+    for name, shape in (("one", (1, 1)), ("mesh", (1, 2))):
+        tx = optax.adamw(3e-4, weight_decay=0.1)
+        state = jlt.create_lm_train_state(model, jax.random.PRNGKey(0),
+                                          jnp.asarray(batch[0]), tx=tx)
+        state = state.replace(params=flax, opt_state=tx.init(flax))
+        mesh = create_mesh(data=shape[0], model=shape[1],
+                           devices=jax.devices()[:shape[0] * shape[1]])
+        step, placed = jlt.make_lm_train_step(mesh, state,
+                                              param_sharding="megatron")
+        _, m = step(placed, *(jnp.asarray(x) for x in batch))
+        jax_[name] = float(m["loss"])
+
+    def gap(losses):
+        return abs(losses["mesh"] - losses["one"]) / losses["one"]
+
+    assert gap(port) <= gap(jax_) + GAP_MARGIN, (port, jax_)

@@ -54,7 +54,8 @@ def test_port_imports_without_jax():
               "nri.ttrpc", "nri.mux", "nri.injector", "nri.plugin",
               "cmd.nri_device_injector", "scheduler.quantity",
               "scheduler.topology", "scheduler.daemon",
-              "cmd.topology_scheduler", "cmd.label_nodes"}
+              "cmd.topology_scheduler", "cmd.label_nodes", "collectives",
+              "collectives.synth", "collectives.bench"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys

@@ -17,6 +17,8 @@ returns on its K8s env cases, plus torchrun's variables; ``initialize``
 makes a world-size-1 gloo group when a mesh is asked for.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -421,25 +423,34 @@ def test_moe_lm_under_a_one_rank_launcher_trains(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--model-par", "2"], []])
-def test_inception_on_a_mesh_exits_naming_the_next_slice(monkeypatch, argv):
-    """Inception-v3 on a mesh (``--model-par > 1``, or a launcher of two
-    ranks) exits naming the next multi-GPU slice, before any group is
-    joined; on one rank it stays the single-device trainer."""
+def test_inception_at_one_rank_is_plain_or_wants_ranks(monkeypatch, argv):
+    """Inception-v3 at one rank: without ``--model-par`` it is the
+    single-device trainer (no process group); ``--model-par 2`` exits for
+    want of ranks, with ``train_lm``'s message, before any group is
+    joined.  (On a mesh of 2 ranks: ``tests/test_torch_dist_inception.py``.)"""
     from container_engine_accelerators_tpu_torch.cmd import train_resnet
+    from container_engine_accelerators_tpu_torch.parallel import dcn
 
     for k in ("WORLD_SIZE", "TPU_WORKER_COUNT", "NUM_TPU_WORKERS"):
         monkeypatch.delenv(k, raising=False)
-    args = train_resnet.parse_args(["--device", "cpu", "--model",
-                                    "inception-v3"] + argv)
-    if not argv:
-        train_resnet.validate_args(args)  # one rank: accepted
-        monkeypatch.setenv("WORLD_SIZE", "2")
-        monkeypatch.setenv("RANK", "0")
-    with pytest.raises(SystemExit, match="inception-v3 on a mesh .*next "
-                                         "multi-GPU slice"):
-        train_resnet.main(["--device", "cpu", "--model", "inception-v3"]
-                          + argv)
-    assert not dist.is_initialized()
+    joined = []
+    initialize = dcn.initialize
+    monkeypatch.setattr(dcn, "initialize", lambda *a, **k: joined.append(
+        1) or initialize(*a, **k))
+    tiny = ["--device", "cpu", "--model", "inception-v3", "--image-size",
+            "35", "--num-classes", "10", "--train-batch-size", "2",
+            "--train-steps", "2"] + argv
+    if argv:
+        with pytest.raises(SystemExit, match="--model-par 2 needs a multiple "
+                                             "of 2 ranks .* has 1"):
+            train_resnet.main(tiny)
+    else:
+        groups = []
+        losses = train_resnet.main(tiny, on_step=lambda *a: groups.append(
+            dist.is_initialized()))
+        assert groups == [False] * 2 and len(losses) == 2
+        assert all(math.isfinite(x) for x in losses)
+    assert joined == [] and not dist.is_initialized()
 
 
 def test_serving_mesh_only_for_tp_or_several_ranks(monkeypatch):
