@@ -206,7 +206,9 @@ version.  Phases, one JSON line each:
     all_gather, reduce_scatter and the ring shift, 1M-64M: exit 0, the
     verdict file's keys (the JAX rig's) and values, every ``size_bytes``
     the per-rank accounting, time_us and algbw (busbw is 0 at n = 1 by
-    nccl-tests' factors);
+    nccl-tests' factors); then one ``--percentiles`` run (all_reduce,
+    1M-4M): p50 and p99 a size, one ``bench.iter`` span a round, and
+    the ``bench.all_reduce`` histogram's count;
 26. ``mesh_train``: ``cmd/train_lm.py`` at its defaults on the (1, 1)
     mesh with DTensor weights, 6 steps each: its loop through
     ``make_lm_train_step(create_mesh(1, 1), ..., "megatron")``, then
@@ -357,7 +359,24 @@ version.  Phases, one JSON line each:
     1): every gate removed, every pod pinned by nodeAffinity, and the
     first job on the set a plain ``itertools.combinations`` search over
     the same sorted nodes finds closest (C(16, 4) = 1820 sets); the
-    pass's ms; phases 33-42 launch none of the port's kernels;
+    pass's ms;
+42a. ``node_obs``: the daemon with ``TPU_TRACE_FILE`` and
+    ``TPU_FLIGHT_FILE`` (``obs/``): 100 Allocates give
+    ``agent_latency{op="plugin.allocate"}`` a count of at least 100 and
+    its worst bucket's ``agent_exemplar`` trace is found in ``/spans``; a
+    fault-file line and its clear take a GPU to Unhealthy and back,
+    leaving ``health.fault_file`` and ``health.recover`` spans and a
+    ``health.recovery`` observation; ``/spans`` pages twice by cursor with
+    none dropped and ``/profile`` shows samples and subsystem shares;
+    ``kill -USR1`` leaves one flight blob with spans, counters and
+    histograms; the port's ``agent_trace`` (summary, and the fault's
+    trace as a tree), ``agent_top --once --port`` and ``agent_prof
+    --port`` exit 0 on it.  Numbers: the Allocate median and p99 in µs
+    from the client and from the buckets, µs a span in this process (ring
+    only, then with the JSONL sink; median of 10,000), ms and bytes of a
+    ``/metrics`` scrape and of a full ``/spans`` page, the daemon's
+    ``prof.overhead_ratio``, the flight blob's bytes; phases 33-42a
+    launch none of the port's kernels;
 43. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
     ``serve`` and ``serve_slots`` phases' and phases 14-17', 20's and
     29's; flash attention's: the ``train``, ``train_moe``,
@@ -4914,6 +4933,244 @@ def node_scheduler(card):
         raise AssertionError(f"node_scheduler: {checks}")
 
 
+# ---- phase 42a: the observability layer in the node daemon ----------------
+
+OBS_ALLOCATES = 100
+OBS_SPAN_REPS = 10_000
+OBS_SCRAPES = 20
+OBS_PAGE = 64  # spans a /spans page when paging by cursor
+
+
+def _get(port, path):
+    """(ms, body bytes) of one GET on the daemon's metrics port."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as resp:
+        if resp.status != 200:
+            raise AssertionError(f"GET {path}: {resp.status}")
+        body = resp.read()
+    return (time.perf_counter() - t0) * 1e3, body
+
+
+def _latency_buckets(text, op):
+    """{le µs: cumulative count} and the total of one agent_latency op."""
+    buckets, total = {}, 0.0
+    for labels, v in _gauges(text, "agent_latency").items():
+        if f'op="{op}"' not in labels:
+            continue
+        le = labels.split('bucket="')[1].split('"')[0]
+        if le == "+Inf":
+            total = v
+        else:
+            buckets[int(le)] = v
+    return buckets, total
+
+
+def _bucket_quantile(buckets, total, q):
+    """The upper bound (µs) of the bucket where the cumulative count
+    reaches q of the total: what a scraper reads off the buckets."""
+    for le in sorted(buckets):
+        if buckets[le] >= q * total:
+            return le
+    return None
+
+
+def _span_us(trace, n):
+    """Median µs of one empty span opened and closed in this process."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter_ns()
+        with trace.span("chip_smoke.bench"):
+            pass
+        times.append(time.perf_counter_ns() - t0)
+    return statistics.median(times) / 1e3
+
+
+def _tool(module, *args):
+    """One ``python -m`` run of the port's agent tools: (rc, out, err)."""
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         f"container_engine_accelerators_tpu_torch.cmd.{module}", *args],
+        cwd=HERE, capture_output=True, text=True, timeout=60)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def node_obs(card):
+    """Phase 42a: ``obs/`` in the real daemon, read through /metrics,
+    /spans, /profile, the flight recorder and the agent tools."""
+    from importlib import metadata
+
+    from container_engine_accelerators_tpu_torch.obs import trace
+
+    before = _kernel_counts()
+    checks = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        spans_file = os.path.join(tmp, "spans.jsonl")
+        flight_file = os.path.join(tmp, "flight.jsonl")
+        rig = _NodeRig(tmp, env={"TPU_TRACE_FILE": spans_file,
+                                 "TPU_FLIGHT_FILE": flight_file})
+        try:
+            _, reg = rig.registered()
+            client, _first = rig.watch(reg.endpoint)
+            name = rig.names[0]
+
+            # 1. Allocates: the client's times and the daemon's buckets.
+            client_us = []
+            for _ in range(OBS_ALLOCATES):
+                t0 = time.perf_counter()
+                _allocate(client, [name])
+                client_us.append((time.perf_counter() - t0) * 1e6)
+            deadline, text = time.monotonic() + 30, ""
+            total = 0.0
+            while time.monotonic() < deadline:
+                text = rig.scrape()
+                buckets, total = _latency_buckets(text, "plugin.allocate")
+                if total >= OBS_ALLOCATES:
+                    break
+                time.sleep(0.25)
+            checks["allocate_count"] = total >= OBS_ALLOCATES
+            exemplars = {int(k.split('bucket="')[1].split('"')[0]):
+                         k.split('trace="')[1].split('"')[0]
+                         for k in _gauges(text, "agent_exemplar")
+                         if 'op="plugin.allocate"' in k}
+            worst_le = max(exemplars) if exemplars else None
+            worst_trace = exemplars.get(worst_le)
+
+            # 2. A fault and its clear: Unhealthy and back.
+            with open(rig.fault_file, "a") as f:
+                f.write(f"fault {name} {NODE_FAULT_XID}\n")
+            t_fault = time.monotonic()
+            t_bad, _ = rig.wait_health(name, "Unhealthy")
+            with open(rig.fault_file, "a") as f:
+                f.write(f"clear {name}\n")
+            t_good, _ = rig.wait_health(name, "Healthy")
+
+            # 3. /spans by cursor, the exemplar's trace in it; /profile.
+            _, body = _get(rig.port, f"/spans?since=0&limit={OBS_PAGE}")
+            page1 = json.loads(body)
+            _, body = _get(rig.port,
+                           f"/spans?since={page1['cursor']}&limit={OBS_PAGE}")
+            page2 = json.loads(body)
+            full_ms, full = [], b""
+            for _ in range(OBS_SCRAPES):
+                ms, full = _get(rig.port, "/spans?since=0")
+                full_ms.append(ms)
+            every = json.loads(full)
+            names = [s["name"] for s in every["spans"]]
+            checks["spans_paged"] = (
+                page1["dropped"] == 0 and page2["dropped"] == 0
+                and len(page1["spans"]) == OBS_PAGE and page2["spans"]
+                and [s["span"] for s in page1["spans"] + page2["spans"]]
+                == [s["span"] for s in every["spans"]][
+                    :len(page1["spans"]) + len(page2["spans"])])
+            checks["exemplar_in_spans"] = any(
+                s["trace"] == worst_trace and s["name"] == "plugin.allocate"
+                for s in every["spans"])
+            fault_spans = [s for s in every["spans"]
+                           if s["name"] == "health.fault_file"]
+            checks["fault_spans"] = (
+                [s["attrs"]["kind"] for s in fault_spans] == ["fault", "clear"]
+                and "health.recover" in names and "health.event" in names)
+            deadline, recovery = time.monotonic() + 30, 0.0
+            while time.monotonic() < deadline and recovery < 1:
+                _, recovery = _latency_buckets(rig.scrape(),
+                                               "health.recovery")
+                time.sleep(0.1)
+            checks["recovery_observed"] = recovery >= 1
+            metrics_ms, metrics_body = [], b""
+            for _ in range(OBS_SCRAPES):
+                ms, metrics_body = _get(rig.port, "/metrics")
+                metrics_ms.append(ms)
+            text = metrics_body.decode()
+            overhead = _gauges(text, "agent_gauge").get(
+                '{name="prof.overhead_ratio"}')
+            _, body = _get(rig.port, "/profile")
+            prof = json.loads(body)
+            shares = {k: round(v / sum(prof["subsystems"].values()), 4)
+                      for k, v in prof["subsystems"].items()}
+            checks["profile"] = prof["samples"] > 0 and bool(shares)
+
+            # 4. SIGUSR1: one flight blob.
+            pid = rig.procs[0].pid
+            os.kill(pid, signal.SIGUSR1)
+            deadline, blobs = time.monotonic() + 15, []
+            while time.monotonic() < deadline:
+                if os.path.exists(flight_file):
+                    with open(flight_file) as f:
+                        raw = f.read()
+                    if raw.endswith("\n"):
+                        blobs = raw.splitlines()
+                        break
+                time.sleep(0.05)
+            sigusr1 = "delivered" if blobs else "not delivered in 15 s"
+            blob = json.loads(blobs[0]) if blobs else {}
+            if blobs:
+                checks["flight_blob"] = (
+                    len(blobs) == 1 and blob.get("flight_recorder") == 1
+                    and blob["reason"] == f"signal {int(signal.SIGUSR1)}"
+                    and bool(blob["spans"]) and bool(blob["counters"])
+                    and "plugin.allocate" in blob["histograms"])
+
+            # 5. The agent tools on the daemon's file and port.
+            fault_trace = fault_spans[0]["trace"] if fault_spans else ""
+            rc_sum, out_sum, err_sum = _tool("agent_trace", spans_file)
+            rc_tree, _, err_tree = _tool("agent_trace", spans_file,
+                                         "--trace", fault_trace)
+            rc_top, out_top, _ = _tool("agent_top", "--once", "--port",
+                                       str(rig.port))
+            rc_prof, out_prof, _ = _tool("agent_prof", "--port",
+                                         str(rig.port))
+            checks["agent_trace"] = (rc_sum == 0 and "plugin.allocate"
+                                     in err_sum and rc_tree == 0
+                                     and "health.fault_file" in err_tree)
+            checks["agent_top"] = rc_top == 0 and "plugin.allocate" in out_top
+            checks["agent_prof"] = rc_prof == 0 and "samples" in out_prof
+        finally:
+            daemon_log = rig.log_tail()
+            rig.close()
+        flight_bytes = len(blobs[0].encode()) if blobs else None
+    _launches_none("node_obs", before)
+
+    # µs a span in this process: the ring alone, then with the sink.
+    trace.reset()
+    ring_us = _span_us(trace, OBS_SPAN_REPS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sink_") as tmp:
+        trace.configure(os.path.join(tmp, "bench.jsonl"))
+        sink_us = _span_us(trace, OBS_SPAN_REPS)
+        trace.configure(None)
+    trace.reset()
+
+    client_us.sort()
+    _phase("node_obs", card=card,
+           prometheus_client=metadata.version("prometheus_client"),
+           allocates=OBS_ALLOCATES,
+           allocate_client_us={
+               "median": round(statistics.median(client_us), 1),
+               "p99": round(client_us[int(0.99 * len(client_us)) - 1], 1)},
+           allocate_bucket_us={
+               "median": _bucket_quantile(buckets, total, 0.5),
+               "p99": _bucket_quantile(buckets, total, 0.99),
+               "count": total},
+           exemplar={"bucket_us": worst_le, "trace": worst_trace},
+           fault_to_unhealthy_s=round(t_bad - t_fault, 3),
+           unhealthy_to_healthy_s=round(t_good - t_bad, 3),
+           span_us={"ring": round(ring_us, 3), "jsonl_sink": round(sink_us, 3),
+                    "reps": OBS_SPAN_REPS},
+           metrics_scrape={"ms_median": round(statistics.median(metrics_ms),
+                                              3),
+                           "bytes": len(metrics_body)},
+           spans_page={"ms_median": round(statistics.median(full_ms), 3),
+                       "bytes": len(full), "spans": len(every["spans"])},
+           spans_pages=[len(page1["spans"]), len(page2["spans"])],
+           profile={"samples": prof["samples"], "hz": prof["hz"],
+                    "shares": shares},
+           prof_overhead_ratio=overhead, sigusr1=sigusr1,
+           flight_bytes=flight_bytes,
+           flight_keys=sorted(blob), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"node_obs: {checks}; daemon: {daemon_log}")
+
+
 # ---- phases 25-29: the multi-GPU layer on a world of one card --------------
 #
 # The card's machine has one GPU, and NCCL refuses two ranks on one GPU, so
@@ -5604,15 +5861,57 @@ def collectives_phase(card):
                                        for r in verdict["results"]],
                        "bus_bw_gbps": [round(r["bus_bw_gbps"], 2)
                                        for r in verdict["results"]]}
+        tails = _percentiles_run(bench, tmp)
     _phase("collectives", card=card,
            entry="collectives/bench.py main(['-b', '1M', '-e', '64M', '-f', "
                  "'2', '--op', OP, '--verdict-json', F]): bf16, 100 chained "
                  "rounds after 5, between two CUDA events",
-           sizes_bytes=sizes, ops=out,
+           sizes_bytes=sizes, ops=out, percentiles=tails,
            note="one rank: every collective is a local copy through NCCL "
                 "(the shift a clone); busbw is 0 by nccl-tests' factor "
                 "2(n-1)/n or (n-1)/n at n = 1 (the shift's factor is 1); "
                 "NCCL across cards is not measured on this machine")
+
+
+PERCENTILE_ITERS = 50
+
+
+def _percentiles_run(bench, tmp):
+    """``collectives/bench.py --percentiles`` at world 1: each round one
+    ``bench.iter`` span feeding the ``bench.all_reduce`` histogram."""
+    import contextlib
+    import io
+
+    from container_engine_accelerators_tpu_torch.obs import histo, trace
+
+    path = os.path.join(tmp, "percentiles.json")
+    trace.reset()
+    histo.reset()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = bench.main(["-b", "1M", "-e", "4M", "-f", "2", "--op",
+                         "all_reduce", "--iters", str(PERCENTILE_ITERS),
+                         "--percentiles", "--verdict-json", path])
+    with open(path) as f:
+        results = json.load(f)["results"]
+    spans = [s for s in trace.tail() if s["name"] == "bench.iter"]
+    count = histo.snapshot().get("bench.all_reduce", {}).get("count")
+    want = PERCENTILE_ITERS * len(results)
+    checks = {"rc": rc == 0, "sizes": len(results) == 3,
+              "tails": all(r["p50_us"] and r["p99_us"] >= r["p50_us"]
+                           for r in results),
+              "spans": len(spans) == want
+              and {s["attrs"]["op"] for s in spans} == {"all_reduce"},
+              "histogram": count == want}
+    if not all(checks.values()):
+        raise AssertionError(f"collectives --percentiles: {checks}")
+    trace.reset()
+    histo.reset()
+    return {"op": "all_reduce", "iters": PERCENTILE_ITERS,
+            "sizes_bytes": [r["size_bytes"] for r in results],
+            "mean_us": [round(r["time_us"], 3) for r in results],
+            "p50_us": [round(r["p50_us"], 3) for r in results],
+            "p99_us": [round(r["p99_us"], 3) for r in results],
+            "bench_iter_spans": len(spans), "histogram_count": count}
 
 
 def mesh_serve(fd, dev, card):
@@ -6506,6 +6805,7 @@ def main():
     _timed("mps", node_mps, smi)
     _timed("node_nri", node_nri, smi)
     _timed("node_scheduler", node_scheduler, smi)
+    _timed("node_obs", node_obs, smi)
     _launches_none("the node phases", before)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

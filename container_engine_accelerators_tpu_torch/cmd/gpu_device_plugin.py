@@ -17,6 +17,13 @@ strategy the MPS daemon's pipe directory is ``CUDA_MPS_PIPE_DIRECTORY``
 (default ``/tmp/nvidia-mps``), as for every MPS client.  A start that
 fails (MIG partitions not found, an MPS daemon that does not answer) is
 logged and retried every 5 s, as the reference's start loop does.
+
+Observability (``obs/``): ``kill -USR1 <pid>`` dumps the flight recorder
+(the last spans, counters, histograms, rates and the sampler's top
+stacks) to stderr and to ``TPU_FLIGHT_FILE``; ``TPU_TRACE_FILE`` writes
+every span as a JSONL line; the stack sampler runs unless ``TPU_PROF=0``.
+With metrics enabled, the metrics port also serves ``/spans`` and
+``/profile``.
 """
 
 import argparse
@@ -35,6 +42,7 @@ from container_engine_accelerators_tpu_torch.deviceplugin.manager import (
     GpuManager,
 )
 from container_engine_accelerators_tpu_torch.gpulib import open_lib
+from container_engine_accelerators_tpu_torch.obs import flight, profiler
 from container_engine_accelerators_tpu_torch.sharing.gate import (
     DEFAULT_PIPE_DIRECTORY,
     PIPE_DIRECTORY_ENV,
@@ -85,6 +93,12 @@ def main(argv=None):
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     args = parse_args(argv)
+
+    # Before any thread starts: `kill -USR1 <pid>` dumps the flight
+    # recorder without disturbing the agent, and the stack sampler feeds
+    # the dumps and /profile (TPU_PROF=0 disables it).
+    flight.install()
+    profiler.start()
 
     config = GPUConfig.from_file(args.gpu_config)
     config.add_defaults_and_validate()

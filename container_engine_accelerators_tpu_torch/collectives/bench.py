@@ -22,11 +22,13 @@ Without a launcher it runs on a group of one rank, where every
 collective is a local copy and busbw reads 0 by the factor above.  Rank
 0 alone prints and writes the verdict; every rank exits with its code.
 
+``--percentiles`` times each round alone as one ``bench.iter`` span
+(``obs/trace.py``; op, size and iteration attributes) that also feeds
+the ``bench.<op>`` latency histogram, as the JAX rig does.
+
 Not ported yet: the JAX rig's mirror of the sweep into the node transfer
 daemon's accounting (``DcnBenchAccounting``; it waits for the port of
-``parallel/dcn_client.py``) and the per-round ``bench.iter`` spans of
-``--percentiles`` (they wait for ``obs/trace.py``).  The times are the
-same without them.
+``parallel/dcn_client.py``).  The times are the same without it.
 """
 
 import argparse
@@ -42,6 +44,7 @@ import torch.distributed as dist
 from container_engine_accelerators_tpu_torch.collectives.synth import (
     bus_factor,
 )
+from container_engine_accelerators_tpu_torch.obs import trace
 
 OPS = ("all_reduce", "all_gather", "reduce_scatter", "ppermute")
 
@@ -158,7 +161,8 @@ def run_sweep(
     card (nccl-tests' own loop: no per-round host wait in the
     measurement), or on the host clock after a barrier under gloo.
     ``per_iter=True`` instead times each round alone, the host's wait
-    included, and reports p50/p99 beside the mean."""
+    included, as one ``bench.iter`` span, and reports p50/p99 beside the
+    mean."""
     if step_factor < 2:
         raise ValueError(f"step factor must be >= 2, got {step_factor}")
     n = dist.get_world_size(group)
@@ -190,11 +194,13 @@ def run_sweep(
         p50_us = p99_us = None
         if per_iter:
             samples = []
-            for _ in range(iters):
-                t0 = time.perf_counter()
-                fn(x, 1)
-                sync()
-                samples.append(time.perf_counter() - t0)
+            for i in range(iters):
+                with trace.span("bench.iter", histogram=f"bench.{op}",
+                                op=op, size_bytes=payload_bytes,
+                                iteration=i) as s:
+                    fn(x, 1)
+                    sync()
+                samples.append(s.duration_s)
             dt = sum(samples) / iters
             ordered = sorted(samples)
             p50_us = ordered[len(ordered) // 2] * 1e6

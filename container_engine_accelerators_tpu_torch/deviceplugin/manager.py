@@ -37,6 +37,7 @@ import grpc
 from container_engine_accelerators_tpu_torch.deviceplugin import api, preferred
 from container_engine_accelerators_tpu_torch.gpulib.types import GpuLib
 from container_engine_accelerators_tpu_torch.metrics import counters
+from container_engine_accelerators_tpu_torch.obs import trace
 from container_engine_accelerators_tpu_torch.partition.mig import (
     MigDeviceManager,
 )
@@ -323,8 +324,12 @@ class GpuManager:
             if self._stop.is_set():
                 return False
             try:
-                faults.check("kubelet.register")
-                api.register_with_v1beta1_kubelet(kubelet_socket, endpoint)
+                with trace.span("kubelet.register",
+                                histogram="kubelet.register",
+                                attempt=attempt, endpoint=endpoint):
+                    faults.check("kubelet.register")
+                    api.register_with_v1beta1_kubelet(kubelet_socket,
+                                                      endpoint)
                 if attempt > 0:
                     counters.inc("kubelet.register.retried")
                 return True

@@ -17,6 +17,7 @@ from container_engine_accelerators_tpu_torch.deviceplugin import (
     deviceplugin_v1beta1_pb2 as pb,
 )
 from container_engine_accelerators_tpu_torch.deviceplugin import preferred
+from container_engine_accelerators_tpu_torch.obs import trace
 from container_engine_accelerators_tpu_torch.sharing import validate_request
 
 log = logging.getLogger(__name__)
@@ -66,15 +67,24 @@ class DevicePluginService:
             except queue.Empty:
                 continue
             log.info("device-plugin: %s device marked as %s", d.id, d.health)
-            self.manager.set_device_health(d.id, d.health)
-            yield self._device_list_response()
+            # The re-announce latency the kubelet sees: applying the
+            # transition and rebuilding the device list.
+            with trace.span("plugin.health_announce",
+                            histogram="plugin.health_announce",
+                            device=d.id, health=d.health):
+                self.manager.set_device_health(d.id, d.health)
+                resp = self._device_list_response()
+            yield resp
 
     # -- Allocate ------------------------------------------------------------
 
     def Allocate(self, request, context):
         resps = pb.AllocateResponse()
         for rqt in request.container_requests:
-            resps.container_responses.append(self._allocate_one(rqt, context))
+            with trace.span("plugin.allocate", histogram="plugin.allocate",
+                            devices=len(rqt.devicesIDs)):
+                resps.container_responses.append(
+                    self._allocate_one(rqt, context))
         return resps
 
     def _allocate_one(self, rqt, context):

@@ -42,6 +42,7 @@ from typing import Dict, Iterable, List, Optional, Set
 
 from container_engine_accelerators_tpu_torch.gpulib.types import GpuLib, XidEvent
 from container_engine_accelerators_tpu_torch.metrics import counters
+from container_engine_accelerators_tpu_torch.obs import histo, trace
 from container_engine_accelerators_tpu_torch.utils import faults
 from container_engine_accelerators_tpu_torch.utils.device import (
     HEALTHY,
@@ -88,6 +89,10 @@ class GpuHealthChecker:
         self.recovery_window_s = recovery_window_s
         self.registered: List[str] = []
         self._unhealthy_since: Dict[str, float] = {}
+        # First fault of the current Unhealthy episode (a repeat fault
+        # does not move it): the recovery histogram measures the whole
+        # outage, not only the last quiet window.
+        self._unhealthy_first: Dict[str, float] = {}
         self._recovered_at: Dict[str, float] = {}
         self._flaps: Dict[str, int] = {}
         self._mu = threading.Lock()
@@ -133,7 +138,14 @@ class GpuHealthChecker:
 
     def catch_error(self, event: XidEvent) -> None:
         """Decide which devices an event takes down
-        (ref: health_checker.go:179-226)."""
+        (ref: health_checker.go:179-226).  The decision is one span,
+        ``health.event`` (a histogram of the same name): the time from
+        the event to the transitions being queued."""
+        with trace.span("health.event", histogram="health.event",
+                        code=event.code, device=event.device):
+            self._catch_error(event)
+
+    def _catch_error(self, event: XidEvent) -> None:
         if event.code not in self.critical_xid:
             log.info("Xid %d is not critical; skipping (device=%s, %s)",
                      event.code, event.device, event.message)
@@ -157,6 +169,7 @@ class GpuHealthChecker:
         with self._mu:
             # Every critical event pushes the quiet window out.
             self._unhealthy_since[name] = now
+            self._unhealthy_first.setdefault(name, now)
             recovered_at = self._recovered_at.pop(name, None)
             if recovered_at is not None and self.recovery_window_s:
                 if now - recovered_at < FLAP_RESET_FACTOR * self._window_for(name):
@@ -216,12 +229,16 @@ class GpuHealthChecker:
                         else FAULT_FILE_DEFAULT_XID)
                 device = None if tokens[1] == "*" else tokens[1]
                 counters.inc("health.fault_file.events")
+                trace.event("health.fault_file", kind="fault",
+                            device=tokens[1], code=code)
                 self.catch_error(XidEvent(
                     code=code, device=device,
                     message=comment.strip() or "injected via fault file"))
                 return True
             if kind == "clear" and len(tokens) == 2:
                 counters.inc("health.fault_file.events")
+                trace.event("health.fault_file", kind="clear",
+                            device=tokens[1])
                 self.clear_device(tokens[1])
                 return True
             raise ValueError("want 'fault <dev>|* [xid]' or 'clear <dev>'")
@@ -260,16 +277,22 @@ class GpuHealthChecker:
                 if now - since < window:
                     continue
                 del self._unhealthy_since[name]
+                first = self._unhealthy_first.pop(name, since)
                 self._recovered_at[name] = now
-                recovered.append((name, window))
+                recovered.append((name, window, now - first))
         announced = 0
-        for name, window in recovered:
+        for name, window, outage_s in recovered:
             if name not in self.manager.devices:
                 log.info("device %s vanished while unhealthy; dropping", name)
                 continue
             log.warning("device %s quiet for %.0fs after a critical Xid: "
                         "announcing Healthy", name, window)
             counters.inc("health.recovered")
+            # The whole outage, first fault to announcement; the marker
+            # span places it in the trace.
+            histo.observe("health.recovery", outage_s)
+            trace.event("health.recover", device=name,
+                        outage_s=round(outage_s, 3), window_s=window)
             self.manager.health_events.put(Device(id=name, health=HEALTHY))
             announced += 1
         return announced

@@ -25,6 +25,7 @@ import os
 import time
 from typing import Callable, List, Optional
 
+from container_engine_accelerators_tpu_torch.obs import trace
 from container_engine_accelerators_tpu_torch.scheduler.k8s import ApiException
 from container_engine_accelerators_tpu_torch.utils import faults
 
@@ -99,16 +100,21 @@ def reconcile(api, node_name: str, fetch: Fetcher,
                 # A new notice, or an escalation (MIGRATE -> TERMINATE)
                 # while tainted: converge the value and post again, so a
                 # consumer keyed on TERMINATE sees it.
-                faults.check("k8s.patch")
-                api.patch_node_taints(node_name, _with_taint(taints, event),
-                                      resource_version=rv)
+                with trace.span("k8s.patch", histogram="k8s.patch",
+                                node=node_name, attempt=attempt):
+                    faults.check("k8s.patch")
+                    api.patch_node_taints(node_name,
+                                          _with_taint(taints, event),
+                                          resource_version=rv)
                 post_event(fault_file, event)
                 log.warning("maintenance %s: tainted node %s and posted "
                             "Xid %d", event, node_name, MAINTENANCE_XID)
             elif not event and current is not None:
-                faults.check("k8s.patch")
-                api.patch_node_taints(node_name, _without_taint(taints),
-                                      resource_version=rv)
+                with trace.span("k8s.patch", histogram="k8s.patch",
+                                node=node_name, attempt=attempt):
+                    faults.check("k8s.patch")
+                    api.patch_node_taints(node_name, _without_taint(taints),
+                                          resource_version=rv)
                 log.info("maintenance cleared: untainted node %s", node_name)
         except (ApiException, faults.FaultInjectedError) as e:
             # An injected conflict carries status 409 as a real stale

@@ -10,10 +10,18 @@ Names are dotted ``<component>.<event>``: ``health.unhealthy``,
 ``kubelet.reregister``, ``metrics.rebind``, the NRI plugin's
 ``nri.reconnect`` and ``nri.reconnect.failed``, and
 ``fault.fired.<site>`` for every injected fault (``utils/faults.py``).
+
+Every increment also feeds the windowed series of ``obs/timeseries.py``,
+so each counter has a per-second rate over the trailing window, exported
+as ``agent_rate{event=...}``: the cumulative value says how many since
+boot, the rate whether it is happening now.  Stdlib only, like
+``obs/``.
 """
 
 import threading
 from typing import Dict
+
+from container_engine_accelerators_tpu_torch.obs import timeseries
 
 _lock = threading.Lock()
 _counters: Dict[str, int] = {}
@@ -21,6 +29,7 @@ _counters: Dict[str, int] = {}
 
 def inc(name: str, n: int = 1) -> int:
     """Add ``n`` to counter ``name`` (created at 0); returns the new value."""
+    timeseries.record(name, n)
     with _lock:
         value = _counters.get(name, 0) + n
         _counters[name] = value

@@ -1,8 +1,8 @@
 """Deterministic fault injection, copied from
 ``container_engine_accelerators_tpu/utils/faults.py`` so that the port
-imports nothing of the JAX package.  The JAX module's span annotations
-are left out; the spec grammar, the errors and the ``fault.fired.<site>``
-counters are the same.
+imports nothing of the JAX package.  The spec grammar, the errors, the
+``fault.fired.<site>`` counters and the ``fault=<site>`` stamp on the
+span a fault kills are the same.
 
 Sites wired in the port:
 
@@ -26,7 +26,9 @@ InjectedConnectionDrop, ``conflict`` raises InjectedConflict (``status
 = 409``, what the maintenance watcher's 409 retry keys on) — all
 ``OSError`` subclasses, so the code's own ``except OSError`` paths treat
 them as the real failure.  A fired site counts ``fault.fired.<site>`` in
-``metrics/counters.py``, which ``/metrics`` exports as ``agent_events``.
+``metrics/counters.py``, which ``/metrics`` exports as ``agent_events``,
+and stamps ``fault=<site>`` and ``fault_mode`` on the active span
+(``obs/trace.py``), so a trace shows which attempt the injection killed.
 A malformed entry is logged and skipped, never raised.
 """
 
@@ -38,6 +40,7 @@ import threading
 from typing import Dict, List, Optional
 
 from container_engine_accelerators_tpu_torch.metrics import counters
+from container_engine_accelerators_tpu_torch.obs import trace
 
 log = logging.getLogger(__name__)
 
@@ -152,6 +155,7 @@ class FaultInjector:
                 return
             self._fired[site] = self._fired.get(site, 0) + 1
         counters.inc(f"fault.fired.{site}")
+        trace.annotate(fault=site, fault_mode=rule.mode)
         log.warning("fault injection: %s %s at hit %d", site, rule.mode, hit)
         raise _MODES[rule.mode](
             f"injected {rule.mode} at fault site {site!r} (hit {hit})"

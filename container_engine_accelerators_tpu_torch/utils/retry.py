@@ -2,8 +2,10 @@
 ``container_engine_accelerators_tpu/utils/retry.py`` that the port uses
 (``RetryPolicy.attempts`` and ``backoff_s`` for the checkpointer and the
 kubelet registration, ``call`` for the NRI plugin's dial), copied so
-that the port imports nothing of the JAX package.  The JAX module's
-counters, spans and flight-recorder hooks are left out.
+that the port imports nothing of the JAX package.  ``call`` opens one
+``retry.attempt`` span an attempt and, once the budget is spent, counts
+``retry.exhausted`` and dumps the flight recorder (``obs/flight.py``),
+as the JAX module does.
 
 The correct response to a transient ``OSError`` (a checkpoint mount
 that flaps under node pressure, a runtime socket mid-restart) is
@@ -16,6 +18,9 @@ import logging
 import random
 import time
 from typing import Callable, Iterator, Optional, Tuple, Type
+
+from container_engine_accelerators_tpu_torch.metrics import counters
+from container_engine_accelerators_tpu_torch.obs import flight, trace
 
 log = logging.getLogger(__name__)
 
@@ -86,18 +91,26 @@ class RetryPolicy:
         *args,
         retry_on: Tuple[Type[BaseException], ...] = (OSError,),
         sleep: Callable[[float], object] = time.sleep,
+        on_retry: Optional[Callable[[int, BaseException], object]] = None,
         **kwargs,
     ):
         """Run ``fn`` under this policy; re-raise the last error once the
-        budget is spent."""
+        budget is spent.  Each attempt is a ``retry.attempt`` span (fn and
+        attempt attributes), so a slow recovery's trace shows every try;
+        ``on_retry(attempt, error)`` runs after each failed one."""
         name = getattr(fn, "__name__", str(fn))
         last: Optional[BaseException] = None
         for attempt in self.attempts(sleep=sleep):
             try:
-                return fn(*args, **kwargs)
+                with trace.span("retry.attempt", fn=name, attempt=attempt):
+                    return fn(*args, **kwargs)
             except retry_on as e:  # the loop is the point
                 last = e
+                if on_retry is not None:
+                    on_retry(attempt, e)
                 log.warning("attempt %d/%d of %s failed: %s", attempt + 1,
                             self.max_attempts, name, e)
+        counters.inc("retry.exhausted")
+        flight.on_terminal(f"retry budget exhausted: {name}")
         assert last is not None
         raise last

@@ -1,0 +1,537 @@
+"""The port's critical-path engine (``obs/critpath.py``), span cursor,
+sink rotation and ``/spans`` endpoint against the JAX package's.
+
+The JAX package's cases (interval algebra, tree analysis, ``tail_since``
+paging, ``/spans`` beside ``/metrics`` on the port's MetricServer, JSONL
+rotation, recorded spans, ``agent_trace --critical-path`` and
+``agent_top``'s phase panel) run against the port's modules; then
+``critpath.analyze`` and the interval functions on JAX's fixture span
+sets and on seeded random trees give equal results in both packages.
+"""
+
+import copy
+import importlib
+import json
+import os
+import urllib.request
+
+import numpy as np
+import pytest
+from prometheus_client import CollectorRegistry
+
+from container_engine_accelerators_tpu.obs import critpath as jax_critpath
+from container_engine_accelerators_tpu_torch.metrics.metrics import MetricServer
+from container_engine_accelerators_tpu_torch.obs import critpath, trace
+from container_engine_accelerators_tpu_torch.utils.retry import RetryPolicy
+
+FAST_BIND = RetryPolicy(max_attempts=8, initial_backoff_s=0.05,
+                        max_backoff_s=0.2, deadline_s=10.0)
+
+
+@pytest.fixture(autouse=True)
+def clean_trace():
+    trace.reset()
+    yield
+    trace.reset()
+
+
+def _load_cli(name):
+    return importlib.import_module(
+        f"container_engine_accelerators_tpu_torch.cmd.{name}")
+
+
+def _span(name, ts, dur_us, trace_id="t0", span_id=None, parent=None,
+          **attrs):
+    return {"trace": trace_id, "span": span_id or f"{name}@{ts}",
+            "parent": parent, "name": name, "ts": ts,
+            "dur_us": dur_us, "status": "ok", "thread": "T",
+            "attrs": attrs}
+
+
+class _NoGpus:
+    def collect_gpu_device(self, name):  # pragma: no cover
+        raise RuntimeError("no GPUs")
+
+    def devices(self):
+        return []
+
+    def model(self, name):  # pragma: no cover
+        return "none"
+
+
+def _server(tmp_path):
+    return MetricServer(
+        collector=_NoGpus(),
+        registry=CollectorRegistry(),
+        pod_resources_socket=str(tmp_path / "missing.sock"),
+        port=0,
+        collection_interval_s=3600,
+    )
+
+
+def _write_jsonl(path, spans, torn=False):
+    with open(path, "w") as f:
+        for s in spans:
+            f.write(json.dumps(s) + "\n")
+        if torn:
+            f.write('{"trace": "t0", "span": "torn", "na')  # SIGKILL
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's cases, against the port's modules
+# ---------------------------------------------------------------------------
+
+
+class TestIntervals:
+    def test_merge_and_covered(self):
+        assert critpath.merge([(3, 4), (1, 2), (1.5, 3.5)]) \
+            == [(1, 4)]
+        assert critpath.covered_s([(0, 1), (2, 3), (2.5, 3.5)]) \
+            == pytest.approx(2.5)
+        assert critpath.merge([(2, 1)]) == []  # inverted: dropped
+
+    def test_subtract(self):
+        out = critpath.subtract([(0, 10)], [(2, 3), (5, 7)])
+        assert out == [(0, 2), (3, 5), (7, 10)]
+        assert critpath.subtract([(0, 2)], [(0, 5)]) == []
+        assert critpath.subtract([(0, 2)], []) == [(0, 2)]
+
+    def test_exposed_semantics(self):
+        # Serial shape: comm overlaps nothing -> fully exposed.
+        assert critpath.exposed_s([(1, 3)], [(0, 1)]) \
+            == pytest.approx(2.0)
+        # Perfect overlap -> fully hidden.
+        assert critpath.exposed_s([(1, 3)], [(0, 4)]) == 0.0
+        # Partial: only the protrusion is exposed.
+        assert critpath.exposed_s([(1, 3)], [(0, 2)]) \
+            == pytest.approx(1.0)
+
+
+class TestTreeAnalysis:
+    def tree(self):
+        root = _span("dcn.pipeline", 0.0, 10e6, span_id="r")
+        wait = _span("dcn.chunk.wait", 0.1, 9.8e6, span_id="w",
+                     parent="r")
+        # Thread-parallel: stage overlaps the two sends.
+        stage = _span("dcn.chunk.stage", 0.2, 4e6, span_id="st",
+                      parent="w")
+        send1 = _span("dcn.chunk.send", 0.2, 5e6, span_id="s1",
+                      parent="w")
+        send2 = _span("dcn.chunk.send", 5.3, 4.5e6, span_id="s2",
+                      parent="w")
+        return [root, wait, stage, send1, send2]
+
+    def test_self_time_unions_parallel_children(self):
+        spans = self.tree()
+        roots, children = critpath.build_trees(spans, "t0")
+        assert [s["span"] for s in roots] == ["r"]
+        wait = spans[1]
+        # Children cover [0.2, 5.2] u [5.3, 9.8] = 9.5s of the 9.8s.
+        self_s = critpath.self_time_s(wait, children["w"])
+        assert self_s == pytest.approx(0.3, abs=0.01)
+        cov = critpath.coverage_of(wait, children["w"])
+        assert cov == pytest.approx(9.5 / 9.8, abs=0.01)
+
+    def test_orphan_parent_degrades_to_root(self):
+        spans = [_span("a", 0, 1e6, span_id="x", parent="gone")]
+        roots, _children = critpath.build_trees(spans, "t0")
+        assert roots == spans
+
+    def test_critical_path_follows_dominant_child(self):
+        spans = self.tree()
+        _roots, children = critpath.build_trees(spans, "t0")
+        chain = critpath.critical_path(spans[0], children)
+        assert [h["name"] for h in chain] == [
+            "dcn.pipeline", "dcn.chunk.wait", "dcn.chunk.send"]
+        assert chain[0]["pct_of_root"] == 100.0
+        assert chain[0]["coverage"] == pytest.approx(0.98, abs=0.01)
+
+    def test_phase_rollup_is_work_time(self):
+        spans = self.tree()
+        _roots, children = critpath.build_trees(spans, "t0")
+        rollup = critpath.phase_rollup(spans[0], children)
+        # Leaf phases carry their full durations (work time: parallel
+        # workers sum past the wall, like CPU time in a profile); the
+        # structural spans keep only their uncovered remainder.
+        assert rollup["dcn.chunk.send"] == pytest.approx(9.5)
+        assert rollup["dcn.chunk.stage"] == pytest.approx(4.0)
+        assert rollup["dcn.pipeline (self)"] == pytest.approx(
+            0.2, abs=0.01)
+        assert rollup["dcn.chunk.wait"] == pytest.approx(0.3,
+                                                        abs=0.01)
+
+    def test_hedge_attempts_split_out(self):
+        assert critpath.phase_key(
+            _span("serving.attempt", 0, 1, role="hedge")) \
+            == "serving.attempt.hedge"
+        assert critpath.phase_key(
+            _span("serving.attempt", 0, 1, role="primary")) \
+            == "serving.attempt"
+
+    def test_parent_cycle_terminates_not_hangs(self):
+        """Corrupt evidence is expected input: two spans whose parent
+        ids point at each other (torn writes, span-id collisions
+        across merged files) must terminate the walk."""
+        a = _span("a", 0, 1e6, span_id="a", parent="b")
+        b = _span("b", 0, 1e6, span_id="b", parent="a")
+        _roots, children = critpath.build_trees([a, b], "t0")
+        # Force the pathological children map directly too: the walk
+        # itself must be cycle-safe regardless of how trees were built.
+        chain = critpath.critical_path(a, {"a": [b], "b": [a]})
+        assert len(chain) <= 65
+        assert critpath.analyze([a, b])["spans"] == 2
+
+    def test_analyze_names_dominant_phase(self):
+        spans = self.tree()
+        out = critpath.analyze(spans)
+        assert "dcn.pipeline" in out["shapes"]
+        shape = out["shapes"]["dcn.pipeline"]
+        assert shape["count"] == 1
+        assert shape["dominant_phase"] == "dcn.chunk.send"
+        assert out["dominant_phase"] == "dcn.chunk.send"
+        assert shape["worst"]["trace"] == "t0"
+        # Junk input degrades, never raises.
+        assert critpath.analyze([{"no": "span"}])["shapes"] == {}
+
+
+class TestTailSince:
+    def test_cursor_pages_without_loss(self):
+        for i in range(5):
+            trace.event(f"e{i}")
+        spans, cur, dropped = trace.tail_since(0, limit=2)
+        assert [s["name"] for s in spans] == ["e0", "e1"]
+        assert dropped == 0
+        spans, cur, _ = trace.tail_since(cur, limit=2)
+        assert [s["name"] for s in spans] == ["e2", "e3"]
+        spans, cur, _ = trace.tail_since(cur, limit=2)
+        assert [s["name"] for s in spans] == ["e4"]
+        assert trace.tail_since(cur) == ([], cur, 0)
+
+    def test_eviction_is_counted_not_silent(self):
+        trace.configure(None, ring_capacity=4)
+        try:
+            _, cur, _ = trace.tail_since(0)
+            for i in range(10):
+                trace.event(f"e{i}")
+            spans, _cur2, dropped = trace.tail_since(cur)
+            assert [s["name"] for s in spans] == ["e6", "e7", "e8",
+                                                 "e9"]
+            assert dropped == 6
+        finally:
+            trace.configure(None,
+                            ring_capacity=trace.DEFAULT_RING_CAPACITY)
+
+
+class TestSpansEndpoint:
+    def test_spans_beside_metrics_with_paging(self, tmp_path):
+        trace.event("pre.boot", who="test")
+        server = _server(tmp_path)
+        server.start(retry=FAST_BIND)
+        try:
+            base = f"http://127.0.0.1:{server.port}"
+            obj = json.loads(urllib.request.urlopen(
+                f"{base}/spans?since=0", timeout=10).read())
+            names = [s["name"] for s in obj["spans"]]
+            assert "pre.boot" in names
+            assert obj["dropped"] == 0
+            cursor = obj["cursor"]
+            # Paged: nothing new yet.
+            obj2 = json.loads(urllib.request.urlopen(
+                f"{base}/spans?since={cursor}", timeout=10).read())
+            assert obj2["spans"] == []
+            trace.event("post.scrape")
+            obj3 = json.loads(urllib.request.urlopen(
+                f"{base}/spans?since={cursor}", timeout=10).read())
+            assert [s["name"] for s in obj3["spans"]] == \
+                ["post.scrape"]
+            # Malformed query degrades to defaults, never a 500.
+            obj4 = json.loads(urllib.request.urlopen(
+                f"{base}/spans?since=bogus&limit=wat",
+                timeout=10).read())
+            assert isinstance(obj4["spans"], list)
+            # /metrics still serves beside it.
+            body = urllib.request.urlopen(
+                f"{base}/metrics", timeout=10).read().decode()
+            assert "python_info" in body or "agent_" in body \
+                or body == "" or True
+        finally:
+            server.stop()
+
+    def test_limit_is_clamped(self, tmp_path):
+        for i in range(30):
+            trace.event(f"bulk{i}")
+        server = _server(tmp_path)
+        server.start(retry=FAST_BIND)
+        try:
+            obj = json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/spans?since=0"
+                f"&limit=10", timeout=10).read())
+            assert len(obj["spans"]) == 10
+            # The cursor advanced only past what was returned.
+            obj2 = json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/spans"
+                f"?since={obj['cursor']}&limit=1000",
+                timeout=10).read())
+            got = [s["name"] for s in obj["spans"]] \
+                + [s["name"] for s in obj2["spans"]]
+            assert [n for n in got if n.startswith("bulk")] == \
+                [f"bulk{i}" for i in range(30)]
+        finally:
+            server.stop()
+
+
+class TestSinkRotation:
+    def test_rotation_keeps_one_generation(self, tmp_path,
+                                           monkeypatch):
+        path = str(tmp_path / "t.jsonl")
+        monkeypatch.setenv(trace.TRACE_MAX_BYTES_ENV, "600")
+        trace.configure(path)
+        for i in range(40):
+            trace.event(f"spin{i}", pad="x" * 40)
+        trace.configure(None)
+        assert os.path.exists(path)
+        assert os.path.exists(path + ".1")
+        assert os.path.getsize(path) < 2000
+        # Every line in both generations is intact JSON, and nothing
+        # beyond the two generations exists.
+        for p in (path, path + ".1"):
+            for line in open(p):
+                json.loads(line)
+        assert not os.path.exists(path + ".2")
+        assert not os.path.exists(path + ".1.1")
+
+    def test_foreign_rotation_is_not_clobbered(self, tmp_path,
+                                               monkeypatch):
+        """Several processes may share one TPU_TRACE_FILE.  If another
+        writer rotated the path first, THIS writer's fd points at the
+        .1 generation — renaming the path again would clobber the
+        other process's fresh live file.  The guard skips the rename
+        and reopens the live path."""
+        path = str(tmp_path / "t.jsonl")
+        monkeypatch.setenv(trace.TRACE_MAX_BYTES_ENV, "400")
+        trace.configure(path)
+        trace.event("first")  # sink now open on the original inode
+        # "Another process" rotates: the live path becomes a fresh
+        # file; our fd still points at the renamed generation.
+        os.replace(path, path + ".1")
+        with open(path, "w") as f:
+            f.write('{"marker": "other-process-live-file"}\n')
+        # One write past the cap: the guard detects the foreign
+        # rotation (fd inode != live path inode), skips the rename,
+        # and reopens the live path; the next write appends there
+        # (and stays under the cap, so no second — owned — rotation).
+        trace.event("spin0", pad="x" * 400)
+        trace.event("spin1")
+        trace.configure(None)
+        live = open(path).read()
+        assert '"marker"' in live
+        assert '"spin1"' in live
+        assert '"marker"' not in open(path + ".1").read()
+
+    def test_malformed_cap_degrades_to_unbounded(self, tmp_path,
+                                                 monkeypatch):
+        path = str(tmp_path / "t.jsonl")
+        monkeypatch.setenv(trace.TRACE_MAX_BYTES_ENV, "not-a-size")
+        trace.configure(path)
+        for i in range(10):
+            trace.event(f"e{i}")
+        trace.configure(None)
+        assert not os.path.exists(path + ".1")
+        assert len(open(path).readlines()) == 10
+
+
+class TestRecordSpan:
+    def test_nests_under_explicit_parent(self):
+        with trace.span("outer") as outer:
+            trace.record_span("measured.phase", duration_s=0.25,
+                              trace_id=outer.trace_id,
+                              parent_id=outer.span_id, rid=7)
+        spans = trace.tail()
+        rec = next(s for s in spans if s["name"] == "measured.phase")
+        assert rec["trace"] == outer.trace_id
+        assert rec["parent"] == outer.span_id
+        assert rec["dur_us"] == pytest.approx(250000, rel=0.01)
+        assert rec["attrs"]["rid"] == 7
+
+    def test_negative_duration_clamps(self):
+        rec = trace.record_span("odd", duration_s=-1.0).to_dict()
+        assert rec["dur_us"] == 0.0
+
+
+class TestAgentTraceCriticalPath:
+    def spans(self):
+        return [
+            _span("dcn.pipeline", 0.0, 10e6, span_id="r"),
+            _span("dcn.chunk.wait", 0.1, 9.8e6, span_id="w",
+                  parent="r"),
+            _span("dcn.chunk.send", 0.2, 8e6, span_id="s",
+                  parent="w"),
+            _span("dcn.chunk.stage", 0.2, 2e6, span_id="st",
+                  parent="w"),
+        ]
+
+    def test_by_op_name_renders_chain_and_rollup(self, tmp_path,
+                                                 capsys):
+        path = str(tmp_path / "t.jsonl")
+        _write_jsonl(path, self.spans())
+        at = _load_cli("agent_trace")
+        at.main([path, "--critical-path", "dcn.pipeline"])
+        out = capsys.readouterr()
+        result = json.loads(out.out.strip().splitlines()[-1])[
+            "critical_path"]
+        assert result["root"] == "dcn.pipeline"
+        assert [h["name"] for h in result["path"]] == [
+            "dcn.pipeline", "dcn.chunk.wait", "dcn.chunk.send"]
+        assert result["coverage"] >= 0.95
+        assert "phase self-time rollup" in out.err
+        assert "dcn.chunk.send" in out.err
+
+    def test_by_trace_id_prefix(self, tmp_path, capsys):
+        path = str(tmp_path / "t.jsonl")
+        _write_jsonl(path, self.spans())
+        at = _load_cli("agent_trace")
+        at.main([path, "--critical-path", "t0"])
+        result = json.loads(capsys.readouterr().out.strip()
+                            .splitlines()[-1])["critical_path"]
+        assert result["root"] == "dcn.pipeline"
+
+    def test_miss_is_a_clear_error(self, tmp_path):
+        path = str(tmp_path / "t.jsonl")
+        _write_jsonl(path, self.spans())
+        at = _load_cli("agent_trace")
+        with pytest.raises(SystemExit, match="no span named"):
+            at.main([path, "--critical-path", "no.such.op"])
+
+    def test_torn_lines_are_counted_in_every_mode(self, tmp_path,
+                                                  capsys):
+        """A SIGKILLed worker leaves a truncated last line: every mode
+        must skip it, COUNT it, and say so — never crash."""
+        path = str(tmp_path / "torn.jsonl")
+        _write_jsonl(path, self.spans(), torn=True)
+        at = _load_cli("agent_trace")
+
+        summary = at.main([path])
+        out = capsys.readouterr()
+        assert summary["skipped_lines"] == 1
+        assert "skipped 1 malformed line" in out.err
+
+        at.main([path, "--trace", "t0"])
+        out = capsys.readouterr()
+        assert json.loads(out.out.strip().splitlines()[-1])[
+            "skipped_lines"] == 1
+
+        at.main([path, "--exemplar", "dcn.pipeline"])
+        out = capsys.readouterr()
+        assert json.loads(out.out.strip().splitlines()[-1])[
+            "skipped_lines"] == 1
+
+        at.main([path, "--critical-path", "dcn.pipeline"])
+        out = capsys.readouterr()
+        assert json.loads(out.out.strip().splitlines()[-1])[
+            "critical_path"]["skipped_lines"] == 1
+
+
+class TestAgentTopPhases:
+    def test_total_us_from_cumulative_buckets(self):
+        top = _load_cli("agent_top")
+        # 3 samples <= 128us, then 1 more <= 1024us (cumulative 4).
+        assert top.total_us_from_buckets({128: 3, 1024: 4}) \
+            == pytest.approx(3 * 128 + 1024)
+        assert top.total_us_from_buckets({}) == 0.0
+
+    def test_demo_renders_phase_panel(self, capsys):
+        top = _load_cli("agent_top")
+        assert top.main(["--demo", "--once"]) == 0
+        out = capsys.readouterr().out
+        assert "phase (where the time goes)" in out
+        assert "dcn.chunk.send" in out
+        assert "exposed comm ratio" in out
+
+
+# ---------------------------------------------------------------------------
+# Parity with the JAX package's critical-path engine
+# ---------------------------------------------------------------------------
+
+
+def _fixture_sets():
+    """JAX's fixture span sets (tests/test_critpath.py), by name."""
+    pipeline = TestTreeAnalysis().tree()
+    return {
+        "pipeline": pipeline,
+        "agent_trace": TestAgentTraceCriticalPath().spans(),
+        "orphan": [_span("a", 0, 1e6, span_id="x", parent="gone")],
+        "cycle": [_span("a", 0, 1e6, span_id="a", parent="b"),
+                  _span("b", 0, 1e6, span_id="b", parent="a")],
+        "hedged": [
+            _span("serving.request", 0.0, 5e6, span_id="q"),
+            _span("serving.attempt", 0.1, 3e6, span_id="p", parent="q",
+                  role="primary"),
+            _span("serving.attempt", 1.0, 3.5e6, span_id="h", parent="q",
+                  role="hedge"),
+        ],
+        "junk": [{"no": "span"}, _span("x", 0.0, 10.0, span_id="x")],
+        "two_traces": pipeline + [
+            dict(s, trace="t1", span=s["span"] + "'",
+                 parent=s["parent"] and s["parent"] + "'",
+                 ts=s["ts"] + 20.0)
+            for s in pipeline],
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_fixture_sets()))
+def test_analyze_equal_on_jax_fixture_sets(name):
+    spans = _fixture_sets()[name]
+    assert critpath.analyze(copy.deepcopy(spans)) == \
+        jax_critpath.analyze(copy.deepcopy(spans))
+
+
+def _random_tree(rng, trace_id, n):
+    spans = [_span("root.op", 0.0, 1e7, trace_id=trace_id, span_id="s0")]
+    names = ["dcn.chunk.send", "dcn.chunk.stage", "dcn.chunk.wait",
+             "serving.attempt", "health.event", "plugin.allocate"]
+    for i in range(1, n):
+        parent = spans[int(rng.integers(0, len(spans)))]
+        start = parent["ts"] + float(rng.uniform(0, parent["dur_us"] / 2e6))
+        end_cap = parent["ts"] + parent["dur_us"] / 1e6
+        dur = float(rng.uniform(0, max(end_cap - start, 1e-6))) * 1e6
+        attrs = {"role": "hedge"} if rng.random() < 0.1 else {}
+        spans.append(_span(names[int(rng.integers(0, len(names)))], start,
+                           round(dur, 1), trace_id=trace_id,
+                           span_id=f"s{i}", parent=parent["span"], **attrs))
+    return spans
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_analyze_equal_on_seeded_trees(seed):
+    rng = np.random.default_rng(seed)
+    spans = []
+    for t in range(4):
+        spans += _random_tree(rng, f"trace{t}", int(rng.integers(3, 40)))
+    assert critpath.analyze(copy.deepcopy(spans)) == \
+        jax_critpath.analyze(copy.deepcopy(spans))
+    for t in range(4):
+        roots, children = critpath.build_trees(spans, f"trace{t}")
+        jroots, jchildren = jax_critpath.build_trees(spans, f"trace{t}")
+        assert roots == jroots and children == jchildren
+        for root in roots:
+            assert critpath.critical_path(root, children) == \
+                jax_critpath.critical_path(root, jchildren)
+            assert critpath.phase_rollup(root, children) == \
+                jax_critpath.phase_rollup(root, jchildren)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_interval_algebra_equal_on_seeded_intervals(seed):
+    rng = np.random.default_rng(seed)
+
+    def intervals(n):
+        starts = rng.uniform(0, 100, n)
+        return [(float(a), float(a + b))
+                for a, b in zip(starts, rng.uniform(-5, 20, n))]
+
+    for _ in range(20):
+        a, b = intervals(12), intervals(9)
+        assert critpath.merge(a) == jax_critpath.merge(a)
+        assert critpath.covered_s(a) == jax_critpath.covered_s(a)
+        assert critpath.subtract(a, b) == jax_critpath.subtract(a, b)
+        assert critpath.exposed_s(a, b) == jax_critpath.exposed_s(a, b)

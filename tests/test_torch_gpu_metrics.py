@@ -1,9 +1,11 @@
 """The port's MetricServer against the JAX package's: fixed duty cycles
 and memory from both fake nodes and one PodResources assignment (the same
 containers, GPU names for TPU names) give the same values in both
-servers' /metrics under the mapped names; then the port's own cases
-(counters, the periodic reset, a taken port, NVML's since-last duty
-cycle read once a pass)."""
+servers' /metrics under the mapped names, and the same spans,
+observations, series and gauges fed to both packages' ``obs/`` give the
+same ``agent_*`` families; then the port's own cases (counters, the
+periodic reset, a taken port, NVML's since-last duty cycle read once a
+pass)."""
 
 import os
 import socket
@@ -13,9 +15,12 @@ import urllib.request
 import pytest
 from prometheus_client import CollectorRegistry
 
+from container_engine_accelerators_tpu.metrics import counters as tpu_counters
 from container_engine_accelerators_tpu.metrics.metrics import (
     MetricServer as TpuMetricServer,
 )
+from container_engine_accelerators_tpu.obs import histo as tpu_histo
+from container_engine_accelerators_tpu.obs import timeseries as tpu_timeseries
 from container_engine_accelerators_tpu.tpulib import SysfsTpuLib
 from container_engine_accelerators_tpu.utils.retry import (
     RetryPolicy as TpuRetryPolicy,
@@ -39,6 +44,7 @@ from container_engine_accelerators_tpu_torch.metrics.metrics import (
     GpuMetricsCollector,
     MetricServer,
 )
+from container_engine_accelerators_tpu_torch.obs import histo, timeseries
 from container_engine_accelerators_tpu_torch.utils.retry import RetryPolicy
 from tests.test_metrics import PodResourcesStub as TpuPodResourcesStub
 from tests.test_metrics import make_pod_resources as tpu_pod_resources
@@ -52,7 +58,11 @@ FAMILIES = {"duty_cycle": "duty_cycle", "memory_total": "memory_total",
             "memory_used": "memory_used", "request": "request",
             "duty_cycle_tpu_node": "duty_cycle_gpu_node",
             "memory_total_tpu_node": "memory_total_gpu_node",
-            "memory_used_tpu_node": "memory_used_gpu_node"}
+            "memory_used_tpu_node": "memory_used_gpu_node",
+            "agent_events": "agent_events",
+            "agent_latency": "agent_latency", "agent_rate": "agent_rate",
+            "agent_goodput": "agent_goodput", "agent_gauge": "agent_gauge",
+            "agent_exemplar": "agent_exemplar"}
 
 
 def scrape(port):
@@ -124,9 +134,32 @@ def gpu_server(tmp_path, gpu_node):
     stub.stop()
 
 
+def feed_same_obs_state():
+    """The same counters, observations, series and gauges in both
+    packages' process state, from a clean start."""
+    for side in ((tpu_counters, tpu_histo, tpu_timeseries),
+                 (counters, histo, timeseries)):
+        c, h, ts = side
+        c.reset()
+        h.reset()
+        ts.reset()
+        c.inc("health.unhealthy", 3)
+        c.inc("kubelet.register.failed")
+        for i, us in enumerate((90, 120, 700, 5000, 5100, 70000)):
+            h.observe("plugin.allocate", us / 1e6,
+                      trace_id=f"{i:016x}" if i % 2 else None)
+        h.observe("health.recovery", 12.5)
+        ts.record("goodput.link.n0->n1", 4 << 20)
+        ts.record("goodput.flow.demo.ring", 2 << 20)
+        ts.record("xferd.rx.bytes", 6 << 20)
+        ts.gauge("slo.min_qps.ok", 1)
+        ts.gauge_add("dcn.chunks.inflight", 3)
+
+
 @pytest.mark.parametrize("tpu_family,gpu_family", sorted(FAMILIES.items()))
 def test_same_values_as_jax_under_mapped_names(tpu_server, gpu_server,
                                                tpu_family, gpu_family):
+    feed_same_obs_state()
     tpu_server.collect_once()
     gpu_server.collect_once()
     tpu = {to_gpu_labels(k): v for k, v in

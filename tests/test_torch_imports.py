@@ -55,7 +55,11 @@ def test_port_imports_without_jax():
               "cmd.nri_device_injector", "scheduler.quantity",
               "scheduler.topology", "scheduler.daemon",
               "cmd.topology_scheduler", "cmd.label_nodes", "collectives",
-              "collectives.synth", "collectives.bench"}
+              "collectives.synth", "collectives.bench", "obs",
+              "obs.trace", "obs.histo", "obs.timeseries", "obs.promtext",
+              "obs.flight", "obs.profiler", "obs.critpath", "obs.history",
+              "obs.anomaly", "cmd.agent_trace", "cmd.agent_prof",
+              "cmd.agent_trend", "cmd.agent_top"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys
@@ -96,18 +100,21 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 
 def test_node_layer_imports_without_torch():
     """The node modules (gpulib, deviceplugin, health, metrics, sharing,
-    partition, scheduler, nri, the daemons and tools) need no torch: a
-    node agent image carries none."""
+    partition, scheduler, nri, obs, the daemons and tools) need no torch:
+    a node agent image carries none."""
     node = [m for m in _port_modules()
             if m.split(".")[1:2] in (["gpulib"], ["deviceplugin"],
                                      ["health"], ["metrics"], ["sharing"],
-                                     ["partition"], ["scheduler"], ["nri"])
+                                     ["partition"], ["scheduler"], ["nri"],
+                                     ["obs"])
             or m.endswith((".cmd.gpu_device_plugin", ".cmd.partition_gpu",
                            ".cmd.maintenance_watcher", ".utils.config",
                            ".utils.devname", ".utils.device", ".utils.faults",
                            ".utils.retry", ".utils.netio",
                            ".cmd.nri_device_injector",
-                           ".cmd.topology_scheduler", ".cmd.label_nodes"))]
+                           ".cmd.topology_scheduler", ".cmd.label_nodes",
+                           ".cmd.agent_trace", ".cmd.agent_prof",
+                           ".cmd.agent_trend", ".cmd.agent_top"))]
     assert len(node) >= 46
     code = f"""
 import importlib, sys
