@@ -22,7 +22,9 @@ the int8 / prefix-cache / MoE server on the mesh, the JAX dry run's nine
 regimes, and the node layer (NVML, the ``nvidia.com/gpu`` device
 plugin daemon, its Xid health checker and metrics server, its fault
 sites, MIG, the maintenance watcher, MPS, the NRI device injector, the
-node labeler and the topology-aware scheduler) on the card;
+node labeler and the topology-aware scheduler) on the card, and the DCN
+transfer plane (two ranks' shards of the trainer's parameters through
+their own PyXferds and through the native daemons, and ``dcn_bench``);
 and holds every hand-written CUDA kernel against its plain PyTorch
 version.  Phases, one JSON line each:
 
@@ -208,7 +210,10 @@ version.  Phases, one JSON line each:
     the per-rank accounting, time_us and algbw (busbw is 0 at n = 1 by
     nccl-tests' factors); then one ``--percentiles`` run (all_reduce,
     1M-4M): p50 and p99 a size, one ``bench.iter`` span a round, and
-    the ``bench.all_reduce`` histogram's count;
+    the ``bench.all_reduce`` histogram's count; every run with
+    ``DCN_UDS_DIR`` at a port ``PyXferd``, whose ``stats`` for
+    ``bench-<op>`` must count the sweep's bytes
+    (``DcnBenchAccounting``), as must its total;
 26. ``mesh_train``: ``cmd/train_lm.py`` at its defaults on the (1, 1)
     mesh with DTensor weights, 6 steps each: its loop through
     ``make_lm_train_step(create_mesh(1, 1), ..., "megatron")``, then
@@ -375,8 +380,27 @@ version.  Phases, one JSON line each:
     from the client and from the buckets, µs a span in this process (ring
     only, then with the JSONL sink; median of 10,000), ms and bytes of a
     ``/metrics`` scrape and of a full ``/spans`` page, the daemon's
-    ``prof.overhead_ratio``, the flight blob's bytes; phases 33-42a
-    launch none of the port's kernels;
+    ``prof.overhead_ratio``, the flight blob's bytes;
+42b. ``dcn_xfer``: the cross-node leg of a collective on a GPU node.
+    Two ranks (spawned processes, gloo through
+    ``parallel/dcn.py::initialize(device="cpu")``), each with half of
+    the f32 parameters of ``cmd/train_lm.py``'s default model (seed 0)
+    on ``cuda:0`` and its own port ``PyXferd`` on loopback: the shard
+    to the host, ``exchange_shard`` with ``barrier=dist.barrier``, the
+    peer's bytes back to the card by ``torch.frombuffer(...).to``, the
+    sum on the card — bit-equal to gloo's ``all_reduce`` of the host
+    copies — in the serial lane, the socket pipeline (``TPU_DCN_SHM=0``,
+    ``TPU_DCN_SHM_DIRECT=0``) and the default lane, then serially
+    between two native daemons (``native/dcnxferd``, built here at first
+    use; no ``wait`` op, so the poll path); the ms and GB/s of the
+    device-to-host copy (pageable and pinned), each lane's whole
+    ``exchange_shard`` and its ``dcn.exchange.*`` spans, and the
+    host-to-device copy; the ``dcn.lane.{shm_direct,shm,socket}`` byte
+    counters and ``dcn.exposed_ratio`` of each lane; then the port's
+    ``cmd/dcn_bench.py --producer --ring-socket --tuned`` (64K-64M, 5
+    iterations, every transfer byte-exact): each mode's best GB/s and
+    exposed ratio at 64M, and the memcpy ceiling; phases 33-42b launch
+    none of the port's kernels;
 43. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
     ``serve`` and ``serve_slots`` phases' and phases 14-17', 20's and
     29's; flash attention's: the ``train``, ``train_moe``,
@@ -5179,6 +5203,283 @@ def node_obs(card):
 # paths that are host-bound already.  Multi-rank correctness is held on the
 # CPU under gloo (tests/test_torch_dist_*.py).
 
+DCN_WORLD = 2
+DCN_SEED = 0  # the trainer's init seed: the shard is its parameters' half
+# (lane, env for the client's PipelineConfig, exchange_shard(pipelined=)).
+DCN_LANES = (("serial", {}, False),
+             ("socket", {"TPU_DCN_SHM": "0", "TPU_DCN_SHM_DIRECT": "0"},
+              True),
+             ("default", {}, None),
+             ("native", {}, False))
+DCN_LANE_ENV = ("TPU_DCN_SHM", "TPU_DCN_SHM_DIRECT")
+DCN_SERIES = ("shm_direct", "shm", "socket")
+# The leg's latency histograms (sums of their spans): the exchange and
+# its phases, and the read-back (serial: base64 over the control socket;
+# pipelined: DXR1 ranges or the shm mapping).
+DCN_SPANS = ("dcn.exchange", "dcn.exchange.register", "dcn.exchange.barrier",
+             "dcn.exchange.stage", "dcn.exchange.send", "dcn.exchange.land",
+             "dcn.exchange.pipeline", "dcn.read", "dcn.chunk.read",
+             "dcn.shm.read")
+DCN_TIMEOUT_S = 300
+DCNXFERD_SRC = "native/dcnxferd/dcnxferd.cc"
+DCNXFERD_BIN = "native/dcnxferd/build/dcnxferd"  # listed in .gitignore
+DCNXFERD_POOL = 1 << 30  # both flows of a leg, with room
+DCN_BENCH_SIZES = (65536, 1048576, 16777216, 67108864)
+DCN_BENCH_ARGS = ["--producer", "--ring-socket", "--tuned", "--sizes",
+                  ",".join(map(str, DCN_BENCH_SIZES)), "--iters", "5"]
+
+
+def _dcnxferd():
+    """The native daemon, built at first use with the Makefile's recipe.
+    -> (path, seconds the build took, 0 when it was there)."""
+    binary = os.path.join(HERE, DCNXFERD_BIN)
+    t0 = time.perf_counter()
+    if not os.path.exists(binary):
+        os.makedirs(os.path.dirname(binary), exist_ok=True)
+        subprocess.run(["g++", "-std=c++17", "-O2", "-Wall", "-Wextra",
+                        "-o", binary, os.path.join(HERE, DCNXFERD_SRC)],
+                       check=True, capture_output=True, timeout=600)
+    return binary, round(time.perf_counter() - t0, 3)
+
+
+def _native_daemon(binary, uds):
+    proc = subprocess.Popen(
+        [binary, "--uds_path", uds, "--pool_bytes", str(DCNXFERD_POOL),
+         "--max_flows", "8", "--data_port", "0"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    deadline = time.monotonic() + 30
+    while not os.path.exists(os.path.join(uds, "xferd.sock")):
+        if proc.poll() is not None:
+            raise RuntimeError(f"dcnxferd exited: {proc.stderr.read()}")
+        if time.monotonic() > deadline:
+            proc.kill()
+            proc.wait()
+            raise TimeoutError("dcnxferd never made its socket")
+        time.sleep(0.02)
+    return proc
+
+
+def _gbps(nbytes, ms):
+    return round(nbytes / ms / 1e6, 3) if ms > 0 else None
+
+
+def _dcn_rank(rank, world, tmp, addr, native_dirs):
+    """One rank of phase 42b, a spawned process: its shard on the card,
+    its own ``PyXferd``, one ``exchange_shard`` a lane."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from container_engine_accelerators_tpu_torch.fleet.xferd import PyXferd
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+        init_params,
+    )
+    from container_engine_accelerators_tpu_torch.obs import histo, timeseries
+    from container_engine_accelerators_tpu_torch.parallel import dcn
+
+    dcn.initialize(env={"WORLD_SIZE": str(world), "RANK": str(rank),
+                        "MASTER_ADDR": addr[0], "MASTER_PORT": str(addr[1])},
+                   device="cpu")
+    peer = 1 - rank
+    dev = torch.device("cuda", 0)
+
+    daemon = PyXferd(os.path.join(tmp, f"x{rank}"), node=f"rank{rank}")
+    try:
+        params = init_params(TransformerLM(dtype=torch.float32,
+                                           device="meta"),
+                             torch.Generator().manual_seed(DCN_SEED))
+        flat = torch.cat([p.reshape(-1) for p in params.values()])
+        del params
+        half = flat.numel() // world
+        shard = flat[rank * half:(rank + 1) * half].to(dev)
+        out = {"model_params": flat.numel(), "shard_elems": half,
+               "shard_bytes": half * 4, "lanes": {}}
+        del flat
+        nbytes = half * 4
+        pinned = torch.empty(half, dtype=torch.float32, pin_memory=True)
+        daemon.start()
+        for lane, env, pipelined in DCN_LANES:
+            for key in DCN_LANE_ENV:
+                os.environ.pop(key, None)
+            os.environ.update(env)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            host = shard.cpu()
+            d2h_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            pinned.copy_(shard)
+            torch.cuda.synchronize(dev)
+            pinned_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            data = host.numpy().tobytes()
+            bytes_ms = (time.perf_counter() - t0) * 1e3
+            uds = native_dirs[rank] if lane == "native" else daemon.uds_dir
+            client = dcn.make_xfer_client(uds)
+            ports = [None] * world
+            dist.all_gather_object(ports, client.data_port())
+            gauges = dict(timeseries.gauges())
+            timeseries.gauge("dcn.exposed_ratio", float("nan"))
+            histo.reset()
+            barrier = dist.barrier
+            if lane == "native" and rank:
+                # A native daemon's send holds its one event loop until
+                # the peer daemon has read the whole frame, so two
+                # daemons sending to each other at once both wait for
+                # the other: rank 1 sends once rank 0's shard landed.
+                def barrier(c=client, flow=f"grad{peer}.{lane}"):
+                    dist.barrier()
+                    dcn.wait_flow_rx(c, flow, nbytes, DCN_TIMEOUT_S)
+            dist.barrier()
+            with client:
+                t0 = time.perf_counter()
+                raw = dcn.exchange_shard(
+                    client, local_flow=f"grad{rank}.{lane}",
+                    peer_flow=f"grad{peer}.{lane}", data=data,
+                    peer_host="127.0.0.1", peer_port=ports[peer],
+                    barrier=barrier, pipelined=pipelined,
+                    timeout_s=DCN_TIMEOUT_S)
+                xchg_ms = (time.perf_counter() - t0) * 1e3
+            spans = {name: round(h["sum_us"] / 1e3, 3)
+                     for name, h in histo.snapshot().items()
+                     if name in DCN_SPANS}
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # bytes are read-only
+                peer_host = torch.frombuffer(raw, dtype=torch.float32)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            peer_dev = peer_host.to(dev)
+            torch.cuda.synchronize(dev)
+            h2d_ms = (time.perf_counter() - t0) * 1e3
+            total = shard + peer_dev
+            want = host.clone()
+            dist.all_reduce(want)
+            equal = torch.equal(total.cpu().view(torch.int32),
+                                want.view(torch.int32))
+            after = timeseries.gauges()
+            moved = {k: int(after.get(f"dcn.lane.{k}.total_bytes", 0.0)
+                            - gauges.get(f"dcn.lane.{k}.total_bytes", 0.0))
+                     for k in DCN_SERIES}
+            exposed = after.get("dcn.exposed_ratio")
+            out["lanes"][lane] = {
+                "bit_equal": bool(equal), "bytes_in": len(raw),
+                "d2h_pageable_ms": round(d2h_ms, 3),
+                "d2h_pageable_gbps": _gbps(nbytes, d2h_ms),
+                "d2h_pinned_ms": round(pinned_ms, 3),
+                "d2h_pinned_gbps": _gbps(nbytes, pinned_ms),
+                "tobytes_ms": round(bytes_ms, 3),
+                "exchange_ms": round(xchg_ms, 3),
+                "exchange_gbps": _gbps(nbytes, xchg_ms),
+                "h2d_ms": round(h2d_ms, 3),
+                "h2d_gbps": _gbps(nbytes, h2d_ms),
+                "span_ms": spans, "lane_bytes": moved,
+                "exposed_ratio": (None if exposed is None
+                                  or math.isnan(exposed) else exposed)}
+            if not equal or len(raw) != nbytes:
+                raise AssertionError(f"rank {rank} lane {lane}: the sum is "
+                                     f"not gloo's all_reduce ({len(raw)} "
+                                     f"of {nbytes} bytes)")
+            dist.barrier()
+    finally:
+        daemon.stop()
+        dcn.shutdown()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dcn_bench():
+    """The port's ``cmd/dcn_bench.py`` as a user runs it: each mode's
+    best GB/s and exposed ratio at the largest size, and memcpy's."""
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "container_engine_accelerators_tpu_torch.cmd.dcn_bench",
+         *DCN_BENCH_ARGS], cwd=HERE, capture_output=True, text=True,
+        timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"dcn_bench exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    rows = [r for r in rows if r.get("bench") == "dcn_xfer"]
+    modes = sorted({r["mode"] for r in rows})
+    cells = {(r["mode"], r["bytes"]) for r in rows}
+    want = {(m, n) for m in modes for n in DCN_BENCH_SIZES}
+    if cells != want or len(modes) != 7:
+        raise AssertionError(f"dcn_bench rows: modes {modes}, missing "
+                             f"{sorted(want - cells)}")
+    top = max(DCN_BENCH_SIZES)
+    at_top = {r["mode"]: {"best_gbps": round(r["mbps"] / 1e3, 4),
+                          "best_ms": round(r["best_s"] * 1e3, 3),
+                          "median_ms": round(r["median_s"] * 1e3, 3),
+                          "exposed_ratio": r["exposed_ratio"],
+                          "pct_of_memcpy": r["pct_of_memcpy"]}
+              for r in rows if r["bytes"] == top}
+    return {"argv": DCN_BENCH_ARGS, "rows": len(rows), "bytes": top,
+            "modes": at_top, "memcpy_gbps": at_top["memcpy"]["best_gbps"],
+            "summary": proc.stderr.strip().splitlines()[-1]}
+
+
+def dcn_xfer_phase(card):
+    """Phase 42b: the cross-node leg of a collective on a GPU node."""
+    import torch.multiprocessing as mp
+
+    binary, build_s = _dcnxferd()
+    with tempfile.TemporaryDirectory(prefix="cs_dcn_") as tmp:
+        dirs = [os.path.join(tmp, f"n{r}") for r in range(DCN_WORLD)]
+        natives = [_native_daemon(binary, d) for d in dirs]
+        try:
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(
+                _dcn_rank, args=(DCN_WORLD, tmp,
+                                 ("127.0.0.1", _free_port()), dirs),
+                nprocs=DCN_WORLD, join=False, start_method="spawn")
+            deadline = time.monotonic() + 2 * DCN_TIMEOUT_S
+            try:
+                while not ctx.join(timeout=1.0):
+                    if time.monotonic() > deadline:
+                        raise TimeoutError("dcn_xfer ranks did not finish")
+            finally:
+                for proc in ctx.processes:
+                    if proc.is_alive():
+                        proc.kill()
+                    proc.join()
+            ranks_s = round(time.perf_counter() - t0, 3)
+            ranks = []
+            for r in range(DCN_WORLD):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        finally:
+            for proc in natives:
+                proc.terminate()
+            for proc in natives:
+                proc.wait(timeout=30)
+    bench = _dcn_bench()
+    _phase("dcn_xfer", card=card,
+           shard="half of the f32 parameters of cmd/train_lm.py's default "
+                 "model (12L 8x64 mlp2048 vocab32000, seed 0) a rank, on "
+                 "cuda:0",
+           model_params=ranks[0]["model_params"],
+           shard_elems=ranks[0]["shard_elems"],
+           shard_bytes=ranks[0]["shard_bytes"],
+           ranks="2 spawned processes, gloo; each its own port PyXferd on "
+                 "loopback (the native lane: a native dcnxferd each)",
+           check="shard + peer's bytes on the card == gloo all_reduce of "
+                 "the host copies, bit for bit, every lane and rank",
+           native_build_s=build_s, ranks_s=ranks_s,
+           lanes={lane: [rk["lanes"][lane] for rk in ranks]
+                  for lane, _, _ in DCN_LANES},
+           bench=bench)
+
+
 MESH_STEPS = 6  # == TRAIN_STEPS: mesh_train's losses beside the train phase's
 MESH_IMAGE_STEPS = 8
 MESH_PARITY_BATCH = 32  # ResNet-50 f32 parity step (TF32 off)
@@ -5825,13 +6126,78 @@ def collectives_phase(card):
     """Phase 25a: ``collectives/bench.py``'s ``main`` (the NCCL sweep)
     at world 1 on phase 25's group, for each of the four ops, 1M-64M:
     exit 0, the verdict file's keys and values, each result's size_bytes
-    the nccl-tests accounting (S a step, x2), time_us and algbw."""
+    the nccl-tests accounting (S a step, x2), time_us and algbw; every
+    run mirrored into a port ``PyXferd`` through ``DCN_UDS_DIR``."""
+    with tempfile.TemporaryDirectory(prefix="cs_coll_") as tmp, \
+            _BenchAccounting(tmp) as acct:
+        return _collectives_sweeps(card, acct)
+
+
+class _BenchAccounting:
+    """A port ``PyXferd`` behind ``DCN_UDS_DIR`` for the sweeps; each
+    ``DcnBenchAccounting``'s flow stats are read (over its own
+    connection) as it closes.  ``check(op, results)``: the flow and the
+    daemon's total count the sweep's bytes."""
+
+    def __init__(self, tmp):
+        from container_engine_accelerators_tpu_torch.collectives import bench
+        from container_engine_accelerators_tpu_torch.fleet.xferd import (
+            PyXferd,
+        )
+
+        self.bench, self.flows, self.tmp = bench, {}, tmp
+        self.daemon = PyXferd(os.path.join(tmp, "dcn"), node="bench")
+        self._close = bench.DcnBenchAccounting.close
+
+    def __enter__(self):
+        from container_engine_accelerators_tpu_torch.parallel import dcn
+
+        self.daemon.start()
+        os.environ[dcn.DCN_UDS_ENV] = self.daemon.uds_dir
+        flows, close = self.flows, self._close
+
+        def read_then_close(acct):
+            if acct._client is not None:
+                stats = acct._client.stats(flow=acct._flow)
+                flows[acct._flow] = next(
+                    f for f in stats["flows"] if f["flow"] == acct._flow)
+            close(acct)
+
+        self.bench.DcnBenchAccounting.close = read_then_close
+        self.total = self._total()
+        return self
+
+    def _total(self):
+        from container_engine_accelerators_tpu_torch.parallel.dcn_client \
+            import DcnXferClient
+
+        with DcnXferClient(self.daemon.uds_dir) as c:
+            return c.stats()["total_transferred"]
+
+    def check(self, op, results):
+        want = sum(r["size_bytes"] for r in results)
+        got = self.flows.pop(f"bench-{op}", {}).get("transferred")
+        total, self.total = self._total() - self.total, self._total()
+        if got != want or total != want:
+            raise AssertionError(f"DcnBenchAccounting of {op}: flow "
+                                 f"{got}, daemon total {total}, sweep {want}")
+        return want
+
+    def __exit__(self, *exc):
+        from container_engine_accelerators_tpu_torch.parallel import dcn
+
+        self.bench.DcnBenchAccounting.close = self._close
+        os.environ.pop(dcn.DCN_UDS_ENV, None)
+        self.daemon.stop()
+
+
+def _collectives_sweeps(card, acct):
     import contextlib
     import io
 
     import torch
 
-    from container_engine_accelerators_tpu_torch.collectives import bench
+    bench = acct.bench
 
     # The JAX rig's verdict keys (collectives/bench.py::main).
     keys = {"op", "devices", "platform", "device_kind", "dtype", "iters",
@@ -5839,34 +6205,38 @@ def collectives_phase(card):
             "pass_threshold", "line_rate_fraction", "pass"}
     sizes = [2**20 * 2**i for i in range(7)]  # 1M .. 64M
     out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_coll_") as tmp:
-        for op in bench.OPS:
-            path = os.path.join(tmp, f"{op}.json")
-            with contextlib.redirect_stdout(io.StringIO()):
-                rc = bench.main(["-b", "1M", "-e", "64M", "-f", "2",
-                                 "--op", op, "--verdict-json", path])
-            with open(path) as f:
-                verdict = json.load(f)
-            got = [r["size_bytes"] for r in verdict["results"]]
-            if (rc != 0 or set(verdict) != keys or got != sizes
-                    or verdict["platform"] != "gpu" or verdict["devices"] != 1
-                    or verdict["device_kind"] != torch.cuda.get_device_name()
-                    or verdict["pass"] is not None):
-                head = {k: v for k, v in verdict.items() if k != "results"}
-                raise AssertionError(f"collectives {op}: rc {rc}, verdict "
-                                     f"{head}, sizes {got}")
-            out[op] = {"time_us": [round(r["time_us"], 3)
+    accounted = {}
+    tmp = acct.tmp
+    for op in bench.OPS:
+        path = os.path.join(tmp, f"{op}.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = bench.main(["-b", "1M", "-e", "64M", "-f", "2",
+                             "--op", op, "--verdict-json", path])
+        with open(path) as f:
+            verdict = json.load(f)
+        got = [r["size_bytes"] for r in verdict["results"]]
+        if (rc != 0 or set(verdict) != keys or got != sizes
+                or verdict["platform"] != "gpu" or verdict["devices"] != 1
+                or verdict["device_kind"] != torch.cuda.get_device_name()
+                or verdict["pass"] is not None):
+            head = {k: v for k, v in verdict.items() if k != "results"}
+            raise AssertionError(f"collectives {op}: rc {rc}, verdict "
+                                 f"{head}, sizes {got}")
+        accounted[op] = acct.check(op, verdict["results"])
+        out[op] = {"time_us": [round(r["time_us"], 3)
+                               for r in verdict["results"]],
+                   "alg_bw_gbps": [round(r["alg_bw_gbps"], 2)
                                    for r in verdict["results"]],
-                       "alg_bw_gbps": [round(r["alg_bw_gbps"], 2)
-                                       for r in verdict["results"]],
-                       "bus_bw_gbps": [round(r["bus_bw_gbps"], 2)
-                                       for r in verdict["results"]]}
-        tails = _percentiles_run(bench, tmp)
+                   "bus_bw_gbps": [round(r["bus_bw_gbps"], 2)
+                                   for r in verdict["results"]]}
+    tails = _percentiles_run(bench, tmp, acct)
     _phase("collectives", card=card,
            entry="collectives/bench.py main(['-b', '1M', '-e', '64M', '-f', "
                  "'2', '--op', OP, '--verdict-json', F]): bf16, 100 chained "
                  "rounds after 5, between two CUDA events",
            sizes_bytes=sizes, ops=out, percentiles=tails,
+           dcn_accounting={"daemon": "port PyXferd via DCN_UDS_DIR",
+                           "flow": "bench-<op>", "bytes": accounted},
            note="one rank: every collective is a local copy through NCCL "
                 "(the shift a clone); busbw is 0 by nccl-tests' factor "
                 "2(n-1)/n or (n-1)/n at n = 1 (the shift's factor is 1); "
@@ -5876,7 +6246,7 @@ def collectives_phase(card):
 PERCENTILE_ITERS = 50
 
 
-def _percentiles_run(bench, tmp):
+def _percentiles_run(bench, tmp, acct):
     """``collectives/bench.py --percentiles`` at world 1: each round one
     ``bench.iter`` span feeding the ``bench.all_reduce`` histogram."""
     import contextlib
@@ -5893,6 +6263,7 @@ def _percentiles_run(bench, tmp):
                          "--percentiles", "--verdict-json", path])
     with open(path) as f:
         results = json.load(f)["results"]
+    acct.check("all_reduce", results)
     spans = [s for s in trace.tail() if s["name"] == "bench.iter"]
     count = histo.snapshot().get("bench.all_reduce", {}).get("count")
     want = PERCENTILE_ITERS * len(results)
@@ -6806,7 +7177,8 @@ def main():
     _timed("node_nri", node_nri, smi)
     _timed("node_scheduler", node_scheduler, smi)
     _timed("node_obs", node_obs, smi)
-    _launches_none("the node phases", before)
+    _timed("dcn_xfer", dcn_xfer_phase, smi)
+    _launches_none("the node and DCN phases", before)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -35,8 +35,28 @@ Ported so far:
 - observability (``obs/``): spans, latency histograms, windowed rates,
   the flight recorder and the stack sampler, wired into the node daemon
   and served beside ``/metrics`` as ``/spans`` and ``/profile``, read by
-  ``cmd/agent_{trace,top,prof,trend}.py``.
+  ``cmd/agent_{trace,top,prof,trend}.py``;
+- the DCN transfer plane, host code that imports no torch: the node
+  daemon ``fleet/xferd.py::PyXferd``, its client
+  (``parallel/dcn_client.py``), the shm lanes and descriptor ring
+  (``parallel/dcn_shm.py``), the pipelined lanes and their tuner
+  (``parallel/dcn_pipeline.py``, ``parallel/dcn_tune.py``),
+  ``parallel/dcn.py::exchange_shard``, ``cmd/dcn_bench.py``, and the
+  lock-order race detector (``analysis/lockwatch.py``).
 
 The kernels are hand-written CUDA in ``ops/csrc/``, built together by
 ``ops/build.py``.
 """
+
+# Concurrency shim (analysis/lockwatch.py): with TPU_LOCKWATCH=1, patch
+# the lock allocators before any submodule constructs its locks, so every
+# module (and every subprocess, which inherits the env) is watched with
+# no code changes.  Stdlib-only at import; a no-op otherwise.
+import os as _os
+
+if _os.environ.get("TPU_LOCKWATCH") == "1":
+    from container_engine_accelerators_tpu_torch.analysis import (
+        lockwatch as _lockwatch,
+    )
+
+    _lockwatch.install()

@@ -26,14 +26,17 @@ collective is a local copy and busbw reads 0 by the factor above.  Rank
 (``obs/trace.py``; op, size and iteration attributes) that also feeds
 the ``bench.<op>`` latency histogram, as the JAX rig does.
 
-Not ported yet: the JAX rig's mirror of the sweep into the node transfer
-daemon's accounting (``DcnBenchAccounting``; it waits for the port of
-``parallel/dcn_client.py``).  The times are the same without it.
+With ``DCN_UDS_DIR`` in the env each rank mirrors its sweep's bytes
+into the node dcnxferd's flow accounting (:class:`DcnBenchAccounting`,
+flow ``bench-<op>``; a second rank of one node adds ``.<LOCAL_RANK>``),
+so the daemon's ``stats`` see bench traffic like workload traffic.
 """
 
 import argparse
 import dataclasses
 import json
+import logging
+import os
 import sys
 import time
 from typing import Callable, List, Optional
@@ -45,6 +48,8 @@ from container_engine_accelerators_tpu_torch.collectives.synth import (
     bus_factor,
 )
 from container_engine_accelerators_tpu_torch.obs import trace
+
+log = logging.getLogger(__name__)
 
 OPS = ("all_reduce", "all_gather", "reduce_scatter", "ppermute")
 
@@ -60,6 +65,96 @@ class CollectiveResult:
     # of single rounds, which a mean cannot show.
     p50_us: Optional[float] = None
     p99_us: Optional[float] = None
+
+
+class DcnBenchAccounting:
+    """Mirror sweep traffic into the node dcnxferd's flow accounting.
+
+    When the pod env carries ``DCN_UDS_DIR`` the bench registers a flow
+    with the node transfer daemon and records each sweep point's bytes,
+    so per-node `stats` (and anything scraping them) sees bench traffic
+    exactly like workload traffic.  The client is the *resilient* one:
+    a daemon restart mid-sweep reconnects, replays the flow, and the
+    sweep finishes.  If the daemon stays gone past the retry budget the
+    accounting degrades gracefully — logged once, disabled, bench
+    results unaffected.
+    """
+
+    # Accounting only: reserve the minimum staging buffer, not the
+    # sweep's max message size (the pool belongs to real transfers).
+    FLOW_BYTES = 4096
+
+    def __init__(self, client, flow: str):
+        self._client = client
+        self._flow = flow
+        if self._client is not None:
+            self._client.register_flow(self._flow, peer="bench",
+                                       bytes=self.FLOW_BYTES)
+
+    @classmethod
+    def from_env(cls, flow: str) -> "DcnBenchAccounting":
+        from container_engine_accelerators_tpu_torch.parallel import dcn
+        from container_engine_accelerators_tpu_torch.parallel.dcn_client import (
+            DcnXferError,
+        )
+        from container_engine_accelerators_tpu_torch.utils.retry import RetryPolicy
+
+        client = None
+        try:
+            # Small budget for the initial probe: optional accounting
+            # must not stall bench startup ~30s when the sidecar is
+            # down.  Once connected, swap in the full budget so a
+            # mid-sweep daemon restart is actually covered.
+            client = dcn.make_xfer_client(
+                resilient=True,
+                retry=RetryPolicy(max_attempts=3, initial_backoff_s=0.1,
+                                  max_backoff_s=0.5, deadline_s=2.0),
+            )
+            acct = cls(client, flow)
+            if client is not None:
+                from container_engine_accelerators_tpu_torch.parallel.dcn_client \
+                    import DEFAULT_DCN_RETRY
+
+                client._retry = DEFAULT_DCN_RETRY
+            return acct
+        except (DcnXferError, OSError) as e:
+            log.error("dcn accounting unavailable: %s", e)
+            if client is not None:  # connected but register_flow refused
+                try:
+                    client.close()
+                except OSError:
+                    pass
+            return cls(None, flow)
+
+    def record(self, result: "CollectiveResult") -> None:
+        if self._client is None:
+            return
+        from container_engine_accelerators_tpu_torch.parallel.dcn_client import (
+            DcnXferError,
+        )
+
+        try:
+            self._client.record_transfer(self._flow, result.size_bytes)
+        except (DcnXferError, OSError) as e:
+            log.error("dcn accounting disabled after terminal error: %s", e)
+            self.close()
+            self._client = None
+
+    def close(self) -> None:
+        if self._client is not None:
+            try:
+                self._client.close()
+            except OSError:
+                pass
+
+
+def bench_flow(op: str, env=None) -> str:
+    """The accounting flow of this rank: ``bench-<op>``, and
+    ``bench-<op>.<LOCAL_RANK>`` for a node's further ranks (a flow name
+    is one connection's on the daemon)."""
+    env = env if env is not None else os.environ
+    local = int(env.get("LOCAL_RANK", "0"))
+    return f"bench-{op}" if local == 0 else f"bench-{op}.{local}"
 
 
 def _parse_size(s: str) -> int:
@@ -276,6 +371,7 @@ def main(argv=None) -> int:
 
     owns_group = not dist.is_initialized()
     n, rank = dcn.initialize(device=args.device, force=True)
+    acct = DcnBenchAccounting.from_env(bench_flow(args.op))
     try:
         results = run_sweep(
             min_bytes=_parse_size(args.min_bytes),
@@ -285,6 +381,7 @@ def main(argv=None) -> int:
             warmup=args.warmup,
             op=args.op,
             dtype=dtype,
+            on_result=acct.record,
             per_iter=args.percentiles,
         )
         on_cuda = _device(None).type == "cuda"
@@ -299,6 +396,7 @@ def main(argv=None) -> int:
         if n > 1:
             ok = _agree(ok)
     finally:
+        acct.close()
         if owns_group:
             dcn.shutdown()
     return 0 if ok else 1

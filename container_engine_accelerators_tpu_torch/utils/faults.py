@@ -6,6 +6,8 @@ span a fault kills are the same.
 
 Sites wired in the port:
 
+    dcn.connect       DcnXferClient socket connect
+    dcn.send          every control-socket call (send/readline path)
     checkpoint.save   TrainCheckpointer.save
     health.stream     the health checker's Xid event-wait loop
     kubelet.register  the device plugin's Register RPC to the kubelet

@@ -83,6 +83,7 @@ class RetryPolicy:
                 log.debug("retry deadline %.1fs reached after attempt %d",
                           self.deadline_s, attempt + 1)
                 break
+            counters.inc("retry.attempts")
             sleep(delay)
 
     def call(

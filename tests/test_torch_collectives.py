@@ -156,3 +156,77 @@ def test_verdict_keys_and_bar_equal_jax(tmp_path, extra, rc, passed):
         [r.keys() for r in jv["results"]]
     assert [r["size_bytes"] for r in pv["results"]] == [4096, 8192]
     assert (pv["platform"], pv["devices"]) == ("cpu", 1)
+
+
+# ---- DcnBenchAccounting: the sweep mirrored into the node daemon ----------
+
+
+def _daemon_total(uds):
+    from container_engine_accelerators_tpu_torch.parallel.dcn_client import (
+        DcnXferClient,
+    )
+
+    with DcnXferClient(uds) as c:
+        return c.stats()["total_transferred"]
+
+
+@pytest.mark.parametrize("daemon_pkg", ["torch", "jax"])
+def test_dcn_accounting_mirrors_the_sweep_as_jax_does(tmp_path, monkeypatch,
+                                                      daemon_pkg):
+    """With ``DCN_UDS_DIR`` set each package's CLI records every sweep
+    point's bytes into the daemon (either package's ``PyXferd``) under
+    the flow ``bench-<op>``, and releases it at exit."""
+    if daemon_pkg == "torch":
+        from container_engine_accelerators_tpu_torch.fleet.xferd import (
+            PyXferd,
+        )
+    else:
+        from container_engine_accelerators_tpu.fleet.xferd import PyXferd
+
+    daemon = PyXferd(str(tmp_path / "x")).start()
+    monkeypatch.setenv("DCN_UDS_DIR", daemon.uds_dir)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    seen = {}
+    for name, mod, flags in (("jax", jbench, CLI[:-2]), ("port", bench, CLI)):
+        close = mod.DcnBenchAccounting.close
+
+        def spy(acct, close=close, name=name):
+            seen[name] = (acct._flow, acct._client.stats(flow=acct._flow))
+            close(acct)
+
+        monkeypatch.setattr(mod.DcnBenchAccounting, "close", spy)
+        before = _daemon_total(daemon.uds_dir)
+        assert mod.main(flags) == 0
+        seen[name] += (_daemon_total(daemon.uds_dir) - before,)
+    try:
+        for name in ("jax", "port"):
+            flow, stats, total = seen[name]
+            assert flow == "bench-all_reduce"
+            (entry,) = [f for f in stats["flows"] if f["flow"] == flow]
+            assert entry["transferred"] == total == 4096 + 8192
+        assert _daemon_total(daemon.uds_dir) == 2 * (4096 + 8192)
+        from container_engine_accelerators_tpu_torch.parallel.dcn_client \
+            import DcnXferClient
+
+        with DcnXferClient(daemon.uds_dir) as c:
+            assert c.stats()["active_flows"] == 0  # released at exit
+    finally:
+        daemon.stop()
+
+
+def test_dcn_accounting_without_a_daemon_leaves_the_sweep_alone(
+        tmp_path, monkeypatch):
+    monkeypatch.setenv("DCN_UDS_DIR", str(tmp_path / "nobody"))
+    acct = bench.DcnBenchAccounting.from_env("bench-all_reduce")
+    assert acct._client is None
+    acct.record(bench.CollectiveResult("all_reduce", 4096, 1.0, 1.0, 1.0))
+    acct.close()
+    assert bench.main(CLI) == 0
+
+
+@pytest.mark.parametrize("local,flow", [(None, "bench-all_reduce"),
+                                        ("0", "bench-all_reduce"),
+                                        ("3", "bench-all_reduce.3")])
+def test_accounting_flow_a_rank(local, flow):
+    env = {} if local is None else {"LOCAL_RANK": local}
+    assert bench.bench_flow("all_reduce", env) == flow

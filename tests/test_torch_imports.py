@@ -59,7 +59,11 @@ def test_port_imports_without_jax():
               "obs.trace", "obs.histo", "obs.timeseries", "obs.promtext",
               "obs.flight", "obs.profiler", "obs.critpath", "obs.history",
               "obs.anomaly", "cmd.agent_trace", "cmd.agent_prof",
-              "cmd.agent_trend", "cmd.agent_top"}
+              "cmd.agent_trend", "cmd.agent_top", "analysis",
+              "analysis.lockwatch", "parallel.dcn_shm",
+              "parallel.dcn_client", "fleet", "fleet.xferd",
+              "parallel.dcn_tune", "parallel.dcn_pipeline",
+              "cmd.dcn_bench"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys
@@ -100,13 +104,20 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 
 def test_node_layer_imports_without_torch():
     """The node modules (gpulib, deviceplugin, health, metrics, sharing,
-    partition, scheduler, nri, obs, the daemons and tools) need no torch:
-    a node agent image carries none."""
+    partition, scheduler, nri, obs, the daemons and tools) and the DCN
+    transfer plane (analysis, fleet, parallel's dcn modules, dcn_bench)
+    need no torch: a node agent image carries none."""
     node = [m for m in _port_modules()
             if m.split(".")[1:2] in (["gpulib"], ["deviceplugin"],
                                      ["health"], ["metrics"], ["sharing"],
                                      ["partition"], ["scheduler"], ["nri"],
-                                     ["obs"])
+                                     ["obs"], ["analysis"], ["fleet"])
+            or m.split(".")[1:] in (["parallel", "dcn_shm"],
+                                    ["parallel", "dcn_client"],
+                                    ["parallel", "dcn_tune"],
+                                    ["parallel", "dcn_pipeline"],
+                                    ["parallel", "dcn"], ["parallel"],
+                                    ["cmd", "dcn_bench"])
             or m.endswith((".cmd.gpu_device_plugin", ".cmd.partition_gpu",
                            ".cmd.maintenance_watcher", ".utils.config",
                            ".utils.devname", ".utils.device", ".utils.faults",
@@ -115,7 +126,7 @@ def test_node_layer_imports_without_torch():
                            ".cmd.topology_scheduler", ".cmd.label_nodes",
                            ".cmd.agent_trace", ".cmd.agent_prof",
                            ".cmd.agent_trend", ".cmd.agent_top"))]
-    assert len(node) >= 46
+    assert len(node) >= 57
     code = f"""
 import importlib, sys
 sys.modules["torch"] = None
@@ -123,6 +134,29 @@ sys.modules["jax"] = None
 for m in {node!r}:
     importlib.import_module(m)
 print("OK", len({node!r}))
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+def test_transfer_plane_leaves_torch_unloaded():
+    """Importing the transfer plane (with torch installed) loads no
+    torch: ``parallel/__init__`` resolves the mesh's names lazily, and
+    they still resolve."""
+    code = f"""
+import sys
+import {PKG}.parallel.dcn_client
+import {PKG}.fleet.xferd
+import {PKG}.parallel.dcn_pipeline
+import {PKG}.analysis.lockwatch
+import {PKG}.parallel.dcn
+from {PKG}.fleet import PyXferd
+assert "torch" not in sys.modules, "torch loaded"
+from {PKG}.parallel import create_mesh, dcn, DATA_AXIS
+assert "torch" in sys.modules and callable(create_mesh)
+assert DATA_AXIS == "data", DATA_AXIS
+print("OK")
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
