@@ -399,8 +399,31 @@ version.  Phases, one JSON line each:
     counters and ``dcn.exposed_ratio`` of each lane; then the port's
     ``cmd/dcn_bench.py --producer --ring-socket --tuned`` (64K-64M, 5
     iterations, every transfer byte-exact): each mode's best GB/s and
-    exposed ratio at 64M, and the memcpy ceiling; phases 33-42b launch
-    none of the port's kernels;
+    exposed ratio at 64M, and the memcpy ceiling;
+42c. ``fleet_sim``: the port's ``cmd/fleet_sim.py`` as a user runs it
+    (``python -m``, one process a run) five times: the built-in ring
+    scenario (a chip fault, a rack partition, its heal); the same fault
+    schedule on an A3-sized pool (16 nodes in 4 racks, 8 GPUs a node,
+    1 MiB legs); ``--workload serving``; ``--workload collective``,
+    whose final busbw must meet its floor; and ``--proc``, a real SIGKILL
+    and a supervised respawn of a worker process.  Each must exit 0 and
+    converge.  Numbers a run: rounds, legs ok and failed, p99 leg ms,
+    goodput, restarts and seconds;
+42d. ``fleet_gpu``: the port's ``FleetController`` boots the built-in
+    serving scenario's fleet and a ``ServingFrontend`` goes over its
+    nodes; 32 requests, each the bytes of one bf16 224x224x3 image made on
+    ``cuda:0`` from a seeded generator (a ResNet-50 serving request),
+    come back through the nodes' DCN legs and land on the card by
+    ``torch.frombuffer(...).to``, bit-equal to their source; then one
+    ``CollectiveEngine`` all_reduce round of 4 MiB on the same fleet,
+    each node's buffer equal to the card's int32 sum mod 256 of the
+    nodes' ``make_inputs`` buffers stacked on ``cuda:0``.  Numbers: the
+    request median and p99 ms (each from the frontend's own
+    ``Request.t_submit``, the 32 submitted at once), the burst's ms from
+    the first submit to the last result, hedges fired, won and wasted,
+    shed requests, D2H and H2D ms, and the round's ms, algorithm and
+    busbw;
+    phases 33-42d launch none of the port's kernels;
 43. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
     ``serve`` and ``serve_slots`` phases' and phases 14-17', 20's and
     29's; flash attention's: the ``train``, ``train_moe``,
@@ -5480,6 +5503,247 @@ def dcn_xfer_phase(card):
            bench=bench)
 
 
+# The fleet_sim phase: the port's cmd/fleet_sim.py as a user runs it, one
+# process each.  "a3_pool": the built-in scenario's fault schedule (a
+# chip fault, a rack partition for two rounds, its heal) on the
+# node_scheduler phase's pool size, 16 nodes in 4 racks of 8 GPUs each
+# (A3 nodes carry 8 H100s), with 1 MiB legs.
+FLEET_SIM_RUNS = (
+    ("ring", []),
+    ("a3_pool", None),
+    ("serving", ["--workload", "serving"]),
+    ("collective", ["--workload", "collective"]),
+    ("proc", ["--proc"]),
+)
+FLEET_A3 = {"name": "a3-pool-partition", "nodes": 16, "racks": 4,
+            "chips": 8, "payload_bytes": 1 << 20}
+FLEET_SIM_TIMEOUT_S = 240
+# The fleet_gpu phase: 32 ResNet-50 serving requests, one bf16 224x224x3
+# image each, and one all_reduce round of a 4 MiB bucket.
+FLEET_GPU_REQUESTS = 32
+FLEET_GPU_IMAGE = (224, 224, 3)
+FLEET_GPU_SEED = 19
+FLEET_AR_BYTES = 4 << 20
+
+
+def _fleet_sim_run(name, argv, tmp):
+    from container_engine_accelerators_tpu_torch.fleet.controller import (
+        DEFAULT_SCENARIO,
+    )
+
+    if argv is None:
+        path = os.path.join(tmp, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(dict(DEFAULT_SCENARIO, **FLEET_A3), f)
+        argv = ["--scenario", path]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("TPU_FAULT_SPEC", "TPU_HISTORY_DIR")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "container_engine_accelerators_tpu_torch.cmd.fleet_sim", *argv],
+        cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=FLEET_SIM_TIMEOUT_S)
+    seconds = round(time.perf_counter() - t0, 3)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"fleet_sim {name} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    report = json.loads(lines[-1])
+    if not report["converged"]:
+        raise AssertionError(f"fleet_sim {name} did not converge")
+    nodes = report["nodes"].values()
+    measured = report["slo"]["measured"]
+    row = {"argv": [os.path.basename(a) if a.startswith(tmp) else a
+                    for a in argv],
+           "scenario": report["scenario"],
+           "nodes": len(report["nodes"]),
+           "gpus": sum(n["total"] for n in nodes),
+           "rounds": len(report["rounds"]),
+           "legs_ok": sum(n["legs_ok"] for n in nodes),
+           "legs_failed": sum(n["legs_failed"] for n in nodes),
+           "p99_leg_ms": measured["p99_leg_ms"],
+           "goodput_bps": measured["min_goodput_bps"],
+           "restarts": sum(n["restarts"] for n in nodes),
+           "slo_ok": report["slo"]["ok"], "seconds": seconds}
+    if report.get("workload") == "collective":
+        legs = [leg for rnd in report["rounds"] for leg in rnd["legs"]
+                if leg.get("workload") == "collective"]
+        row.update(final_busbw_bps=legs[-1]["busbw_bps"],
+                   busbw_floor_bps=report["slo"]["spec"].get(
+                       "min_final_busbw_bps"),
+                   resynth=report["collective"]["resynth"],
+                   algorithms=sorted({leg["algorithm"] for leg in legs}))
+    if report.get("workload") == "serving":
+        row.update(qps=measured["min_qps"],
+                   p99_e2e_ms=measured["p99_e2e_ms"],
+                   error_ratio=measured["max_error_ratio"])
+    if report["proc"]:
+        row["daemon_generations"] = {
+            n: s["daemon_generation"] for n, s in report["nodes"].items()}
+        if not row["restarts"]:
+            raise AssertionError("fleet_sim proc: no worker respawned")
+    return row
+
+
+def fleet_sim_phase(card):
+    """Phase 42c: the port's fleet_sim five times, each its own process."""
+    before = _kernel_counts()
+    with tempfile.TemporaryDirectory(prefix="cs_fleet_sim_") as tmp:
+        runs = {name: _fleet_sim_run(name, argv, tmp)
+                for name, argv in FLEET_SIM_RUNS}
+    _launches_none("fleet_sim", before)
+    _phase("fleet_sim", card=card,
+           runs=runs,
+           a3_pool="the built-in fault schedule (chip fault on n1's "
+                   "nvidia0, rack:r0<->rack:r1 partitioned rounds 2-3, "
+                   "heal) on 16 nodes in 4 racks, 8 GPUs a node, 1 MiB "
+                   "legs",
+           check="every run exits 0 and converges; the collective run's "
+                 "final busbw meets its floor (else exit 3); the proc run "
+                 "respawned a SIGKILLed worker")
+
+
+def fleet_gpu_phase(card):
+    """Phase 42d: GPU payloads through the serving frontend and the
+    collective engine of an emulated fleet."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.collectives import synth
+    from container_engine_accelerators_tpu_torch.collectives.runner import (
+        CollectiveConfig,
+        CollectiveEngine,
+    )
+    from container_engine_accelerators_tpu_torch.fleet.controller import (
+        DEFAULT_SERVING_SCENARIO,
+        FleetController,
+    )
+    from container_engine_accelerators_tpu_torch.metrics import counters
+    from container_engine_accelerators_tpu_torch.serving.frontend import (
+        RequestShed,
+        ServingConfig,
+        ServingFrontend,
+    )
+
+    before = _kernel_counts()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(FLEET_GPU_SEED)
+    images = [torch.randn(FLEET_GPU_IMAGE, generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(FLEET_GPU_REQUESTS)]
+    d2h_ms, payloads = [], []
+    for img in images:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = img.view(torch.uint8).cpu()
+        d2h_ms.append((time.perf_counter() - t0) * 1e3)
+        payloads.append(host.numpy().tobytes())
+    nbytes = len(payloads[0])
+    scenario = dict(DEFAULT_SERVING_SCENARIO, rounds=0, faults=[])
+    hedge_keys = ("serving.hedge.fired", "serving.hedge.won",
+                  "serving.hedge.wasted", "serving.shed",
+                  "serving.dedup.dropped")
+    with tempfile.TemporaryDirectory(prefix="cs_fleet_gpu_") as tmp:
+        ctl = FleetController(scenario, workdir=tmp).boot()
+        try:
+            c0 = {k: counters.get(k) for k in hedge_keys}
+            fe = ServingFrontend(
+                ctl.nodes, ServingConfig.from_scenario(scenario["serving"]))
+            fe.start()
+            reqs, shed = [], 0
+            try:
+                t_burst = time.monotonic()
+                for payload in payloads:
+                    try:
+                        reqs.append(fe.submit(payload))
+                    except RequestShed:
+                        shed += 1
+                # A request's latency runs from its own admission stamp
+                # (Request.t_submit, the frontend's clock) to the poll
+                # that sees it done; the burst's time from the first
+                # submit to the last result.
+                done_ms, t_last = {}, t_burst
+                deadline = time.monotonic() + 120
+                while len(done_ms) < len(reqs):
+                    if time.monotonic() > deadline:
+                        raise AssertionError("fleet_gpu: requests did not "
+                                             "terminate")
+                    for i, req in enumerate(reqs):
+                        if i not in done_ms and req.done():
+                            t_last = time.monotonic()
+                            done_ms[i] = (t_last - req.t_submit) * 1e3
+                    time.sleep(0.0005)
+                burst_ms = (t_last - t_burst) * 1e3
+            finally:
+                fe.close()
+            hedges = {k: counters.get(k) - c0[k] for k in hedge_keys}
+            if shed or len(reqs) != FLEET_GPU_REQUESTS:
+                raise AssertionError(f"fleet_gpu: {shed} requests shed")
+            h2d_ms = []
+            for i, (req, img) in enumerate(zip(reqs, images)):
+                if req.error is not None or req.result is None:
+                    raise AssertionError(f"fleet_gpu: request {i}: "
+                                         f"{req.error}")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                back = torch.frombuffer(bytearray(req.result),
+                                        dtype=torch.uint8).to(dev)
+                torch.cuda.synchronize()
+                h2d_ms.append((time.perf_counter() - t0) * 1e3)
+                if not torch.equal(back, img.view(torch.uint8).reshape(-1)):
+                    raise AssertionError(f"fleet_gpu: request {i} came back "
+                                         f"with different bytes")
+            engine = CollectiveEngine(
+                ctl.nodes, ctl.topology, links=ctl.links,
+                cfg=CollectiveConfig(op="all_reduce", bytes=FLEET_AR_BYTES))
+            try:
+                entry = engine.run_round(0)
+            finally:
+                engine.close()
+            if not entry["ok"]:
+                raise AssertionError(f"fleet_gpu all_reduce: {entry}")
+            order = engine.synth.current().order
+            inputs = synth.make_inputs("all_reduce", order, FLEET_AR_BYTES,
+                                       seed=0)
+            stacked = torch.stack([
+                torch.frombuffer(bytearray(inputs[n]), dtype=torch.uint8)
+                .to(dev) for n in order])
+            card_sum = (stacked.to(torch.int32).sum(0) % 256).to(torch.uint8)
+            for n in order:
+                got = torch.frombuffer(engine.last_outputs[n],
+                                       dtype=torch.uint8).to(dev)
+                if not torch.equal(got, card_sum):
+                    raise AssertionError(f"fleet_gpu all_reduce: node {n} "
+                                         f"differs from the card's sum")
+        finally:
+            ctl.close()
+    _launches_none("fleet_gpu", before)
+    lat = sorted(done_ms.values())
+    _phase("fleet_gpu", card=card,
+           fleet="the built-in serving scenario's fleet (3 nodes, 1 rack, "
+                 "2 GPUs each), no faults; its ServingConfig",
+           requests=len(reqs), payload_bytes=nbytes,
+           payload="one bf16 224x224x3 image a request, torch.randn on "
+                   "cuda:0 (seed 19)",
+           request_median_ms=round(statistics.median(lat), 3),
+           request_p99_ms=round(lat[min(len(lat) - 1,
+                                        math.ceil(0.99 * len(lat)) - 1)], 3),
+           burst_ms=round(burst_ms, 3),
+           latency="a request's ms from its Request.t_submit to its "
+                   "result, all 32 submitted at once; burst_ms from the "
+                   "first submit to the last result",
+           hedges=hedges, shed=shed,
+           d2h_ms_median=round(statistics.median(d2h_ms), 4),
+           h2d_ms_median=round(statistics.median(h2d_ms), 4),
+           check="every result back on the card bit-equal to its image; "
+                 "every node's all_reduce buffer equal to the card's "
+                 "int32 sum mod 256 of the stacked inputs",
+           all_reduce={"bytes": FLEET_AR_BYTES, "nodes": len(order),
+                       "algorithm": entry["algorithm"],
+                       "ms": entry["time_ms"],
+                       "busbw_bps": entry["busbw_bps"],
+                       "algbw_bps": entry["algbw_bps"]})
+
+
 MESH_STEPS = 6  # == TRAIN_STEPS: mesh_train's losses beside the train phase's
 MESH_IMAGE_STEPS = 8
 MESH_PARITY_BATCH = 32  # ResNet-50 f32 parity step (TF32 off)
@@ -7178,7 +7442,9 @@ def main():
     _timed("node_scheduler", node_scheduler, smi)
     _timed("node_obs", node_obs, smi)
     _timed("dcn_xfer", dcn_xfer_phase, smi)
-    _launches_none("the node and DCN phases", before)
+    _timed("fleet_sim", fleet_sim_phase, smi)
+    _timed("fleet_gpu", fleet_gpu_phase, smi)
+    _launches_none("the node, DCN and fleet phases", before)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

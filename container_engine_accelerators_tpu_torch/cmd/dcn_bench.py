@@ -692,7 +692,17 @@ def run_prof_overhead_gate(rig, size, iters, cfg, max_overhead,
 
 
 def main(argv=None):
-    args = parse_args(argv)
+    """The CLI; a caller in the same process gets the sampler back as
+    it was (the sweep and the gate start it)."""
+    sampling = profiler.running()
+    try:
+        return _main(parse_args(argv))
+    finally:
+        if not sampling:
+            profiler.stop()
+
+
+def _main(args):
     sizes = sorted({int(s) for s in args.sizes.split(",") if s})
     if not sizes:
         print("no sizes to sweep", file=sys.stderr)

@@ -83,6 +83,9 @@ BIND_RETRY = RetryPolicy(
 
 # /spans bounds: the default page and the hard cap of one GET, so a
 # scraper that never passes `limit` still gets a bounded body.
+# The listener's serve_forever poll: stop() waits up to one interval
+# for the loop to see its shutdown (the library default is 0.5 s).
+SHUTDOWN_POLL_S = 0.05
 SPANS_DEFAULT_LIMIT = 512
 SPANS_MAX_LIMIT = 2048
 # /profile bounds: the folded stacks of one GET.
@@ -239,6 +242,7 @@ class MetricServer:
         self._httpd = retry.call(attempt, retry_on=(OSError,),
                                  sleep=self._stop.wait, on_retry=on_retry)
         thread = threading.Thread(target=self._httpd.serve_forever,
+                                  args=(SHUTDOWN_POLL_S,),
                                   name="gpu-metrics-http", daemon=True)
         thread.start()
         self._threads.append(thread)

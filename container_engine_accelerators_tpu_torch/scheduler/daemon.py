@@ -288,8 +288,9 @@ def calculate_pods_assignment(
     valid, usually near-optimal placement).  Pass ``None`` to search
     exhaustively.
 
-    ``link_penalty`` is the optional link-health annotation source: a
-    callable adding a distance surcharge between two candidate nodes
+    ``link_penalty`` is the optional link-health annotation source
+    (``collectives.topo.CommGraph.scheduler_link_penalty`` or a
+    ``LinkHealthPenalty``): a callable adding a distance surcharge between two candidate nodes
     when the fabric between them is known partitioned or lossy.  The
     packer then *avoids* nodes behind bad links whenever a healthier
     placement exists, and — because a penalty is finite, never a veto

@@ -7,6 +7,10 @@ rotation, recorded spans, ``agent_trace --critical-path`` and
 ``agent_top``'s phase panel) run against the port's modules; then
 ``critpath.analyze`` and the interval functions on JAX's fixture span
 sets and on seeded random trees give equal results in both packages.
+The fleet legs: an in-process pipelined scenario's ``critical_path``
+report section, and the proc-mode latency acceptance scenario
+(``scenarios/critpath_proc_latency.json``) naming the DCN send leg as
+the dominant phase and exiting 3 on an impossible exposed-comm ceiling.
 """
 
 import copy
@@ -535,3 +539,61 @@ def test_interval_algebra_equal_on_seeded_intervals(seed):
         assert critpath.covered_s(a) == jax_critpath.covered_s(a)
         assert critpath.subtract(a, b) == jax_critpath.subtract(a, b)
         assert critpath.exposed_s(a, b) == jax_critpath.exposed_s(a, b)
+
+
+class TestFleetCriticalPath:
+    def test_inprocess_pipelined_report_section(self):
+        from container_engine_accelerators_tpu.fleet.controller import (
+            run_scenario as jax_run_scenario,
+        )
+        from container_engine_accelerators_tpu_torch.fleet.controller import (
+            run_scenario,
+        )
+
+        scenario = {
+            "name": "critpath-smoke", "nodes": 2, "racks": 1,
+            "chips": 2, "topology": "1x2x1", "rounds": 2,
+            "payload_bytes": 262144, "pipelined": True, "tuned": False,
+            "chunk_bytes": 65536, "shm": False,
+            "slo": {"max_exposed_comm_ratio": 1.0},
+        }
+        jax_report = jax_run_scenario(dict(scenario))
+        report = run_scenario(dict(scenario))
+        assert report["converged"] and jax_report["converged"]
+        cp = report["critical_path"]
+        shape = cp["shapes"]["dcn.pipeline"]
+        jax_shape = jax_report["critical_path"]["shapes"]["dcn.pipeline"]
+        # Named child phases cover as much of the transfer span as the
+        # JAX package's do on the same scenario and host.  Coverage
+        # falls with the host's load (0.83-0.89 in both packages on a
+        # loaded CPU, within 0.02 of each other run by run), so it is
+        # held against JAX's reading, not a fixed bar.
+        assert shape["coverage"] >= jax_shape["coverage"] - 0.1, \
+            (shape["coverage"], jax_shape["coverage"])
+        assert shape["path"][0]["name"] == "dcn.pipeline" == \
+            jax_shape["path"][0]["name"]
+        measured = report["slo"]["measured"]["max_exposed_comm_ratio"]
+        assert 0.0 < measured < 1.0
+        assert report["slo"]["ok"]
+
+    def test_proc_latency_fault_dominated_by_send_leg(self, capsys,
+                                                      monkeypatch):
+        monkeypatch.delenv("TPU_FAULT_SPEC", raising=False)
+        fs = _load_cli("fleet_sim")
+        scenario = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "scenarios", "critpath_proc_latency.json")
+        rc = fs.main(["--scenario", scenario,
+                      "--slo", "max_exposed_comm_ratio=1e-9"])
+        report = json.loads(capsys.readouterr().out.strip()
+                            .splitlines()[-1])
+        assert report["converged"], report["rounds"][-1]
+        assert rc == 3
+        by_key = {c["slo"]: c for c in report["slo"]["checks"]}
+        assert by_key["max_exposed_comm_ratio"]["ok"] is False
+        cp = report["critical_path"]
+        assert cp["shapes"], "empty critical_path section"
+        send_leg = {"dcn.chunk.send", "dcn.send", "xferd.send",
+                    "xferd.op", "dcn.shm.post"}
+        assert cp["dominant_phase"].replace(" (self)", "") in send_leg, \
+            cp["dominant_phase"]

@@ -16,8 +16,10 @@ contract:
   doorbell), and exchange_shard's capture-tee keeps one-shot producers
   replayable across fallback legs.
 
-The JAX file's proc-mode half (SIGKILL mid-ring over fleet worker
-processes) waits for the port of ``fleet/proc.py``.
+The proc-mode half runs the ring over the port's fleet worker
+processes: a lost doorbell answer falls back under the same seqs, and a
+SIGKILL mid-ring fails loudly, then lands exactly once after the
+supervised respawn — both proven from the workers' scraped counters.
 """
 
 import os
@@ -28,6 +30,8 @@ import uuid
 import pytest
 
 import container_engine_accelerators_tpu_torch.fleet.xferd as xferd_mod
+from container_engine_accelerators_tpu_torch.fleet.proc import ProcNode
+from container_engine_accelerators_tpu_torch.fleet.topology import NodeSpec
 from container_engine_accelerators_tpu_torch.fleet.xferd import PyXferd
 from container_engine_accelerators_tpu_torch.metrics import counters
 from container_engine_accelerators_tpu_torch.parallel import dcn, dcn_pipeline
@@ -305,3 +309,145 @@ class TestExchangeShardProducer:
                 producer=iter([b"x" * 100]), nbytes=512,
                 peer_host="127.0.0.1", peer_port=b.data_port,
                 timeout_s=5, pipelined=False)
+
+
+# ---------------------------------------------------------------------------
+# Proc-mode chaos: real process boundaries, scraped evidence
+# ---------------------------------------------------------------------------
+
+PIPE_PAYLOAD = bytes(range(256)) * 64  # 16 KiB = 4 chunks
+PIPE_N = len(PIPE_PAYLOAD)
+
+
+def _spec(name):
+    return NodeSpec(name=name, chips=2, topology="1x2x1")
+
+
+def _node(tmp_path, name, **kw):
+    kw.setdefault("handshake_timeout_s", 60.0)
+    env = dict(os.environ)
+    env.pop("TPU_FAULT_SPEC", None)  # determinism under fault-spec runs
+    env.pop("TPU_DCN_SHM_RING", None)  # ring capability on
+    kw.setdefault("env", env)
+    return ProcNode(_spec(name), str(tmp_path / name), **kw)
+
+
+def _flow_stat(client, flow):
+    return next(f for f in client.stats()["flows"] if f["flow"] == flow)
+
+
+def _wait_stable_rx(client, flow, expect, settle_s=0.25):
+    dcn.wait_flow_rx(client, flow, expect, timeout_s=10)
+    deadline = time.monotonic() + settle_s
+    while time.monotonic() < deadline:
+        assert _flow_stat(client, flow)["rx_bytes"] == expect
+        time.sleep(0.02)
+
+
+def _scrape_after_collect(port, settle_s=0.8):
+    from container_engine_accelerators_tpu_torch.fleet.telemetry import (
+        scrape_metric_server,
+    )
+    time.sleep(settle_s)
+    return scrape_metric_server(port, timeout_s=5.0)
+
+
+@pytest.mark.chaos
+class TestRingChaosProc:
+    def test_doorbell_lost_falls_back_same_seqs_dedup_scraped(
+            self, tmp_path):
+        """The doorbell's answer dies with the sender's control
+        connection — work enqueued, answer lost.  The SAME transfer
+        downgrades to the classic per-chunk round (dcn.ring.fallback)
+        and re-sends the SAME seqs; the completer's late sends and the
+        fallback round referee through the receiver WORKER's dedup
+        window — exactly-once proven from scraped counters."""
+        a = _node(tmp_path, "na")
+        b = _node(tmp_path, "nb")
+        try:
+            b.client.register_flow("rdb", bytes=PIPE_N)
+            a.client.register_flow("rdb", bytes=PIPE_N)
+            a.drop_response_once("shm_post")
+            fb0 = counters.get("dcn.ring.fallback")
+            res = dcn_pipeline.send_pipelined(
+                a.client, "rdb", PIPE_PAYLOAD, "127.0.0.1",
+                b.daemon.data_port, RING_CFG, timeout_s=10)
+            assert res["lane"] == "socket"
+            assert counters.get("dcn.ring.fallback") == fb0 + 1
+            _wait_stable_rx(b.client, "rdb", PIPE_N)  # exactly once
+            s = _scrape_after_collect(b.metrics_port)
+            landed = s.value("agent_events",
+                             event="xferd.frames.landed")
+            deduped = s.value("agent_events",
+                              event="dcn.frames.deduped")
+            # 4 chunks landed once each; every duplicate delivery
+            # (enqueued completer vs fallback round, same seqs)
+            # deduped away.
+            assert landed == 4.0
+            assert deduped >= 1.0
+            assert dcn_pipeline.read_pipelined(
+                b.client, "rdb", PIPE_N, RING_CFG) == PIPE_PAYLOAD
+        finally:
+            a.close()
+            b.close()
+
+    def test_sender_sigkill_mid_ring_fallback_then_exactly_once(
+            self, tmp_path):
+        """SIGKILL the sender's daemon mid-ring (doorbell posted,
+        completer armed slow, zero sends out): the wedged transfer
+        fails LOUDLY — never silently dropped descriptors — and after
+        the supervised respawn the SAME payload re-posts through a
+        FRESH ring and lands exactly once: scraped landed count,
+        byte-exact read-back.  (The fallback decision against a dead
+        completer is covered by the doorbell-lost test above; a dead
+        LOCAL daemon fails the whole transfer loudly, classic path
+        included, because there is no data port left to stage to.)"""
+        a = _node(tmp_path, "na")
+        b = _node(tmp_path, "nb")
+        try:
+            b.client.register_flow("rk9", bytes=PIPE_N)
+            a.client.register_flow("rk9", bytes=PIPE_N)
+            # Slow completer: first send would happen 2 s after the
+            # doorbell — the kill below lands mid-ring, deterministic-
+            # ally before ANY chunk leaves the dying incarnation.
+            assert a.ring_delay(2.0) == 2.0
+
+            errs = []
+
+            def send_wedged():
+                try:
+                    dcn_pipeline.send_pipelined(
+                        a.client, "rk9", PIPE_PAYLOAD, "127.0.0.1",
+                        b.daemon.data_port, RING_CFG, timeout_s=2.5)
+                except DcnXferError as e:
+                    errs.append(e)
+
+            t = threading.Thread(target=send_wedged)
+            t.start()
+            time.sleep(0.8)  # doorbell + staging done, no sends yet
+            a.kill_daemon()  # SIGKILL: zero teardown lines run
+            t.join(timeout=30)
+            assert not t.is_alive()
+            assert errs and "unconfirmed" in str(errs[0])
+
+            a.restart_daemon()
+            assert a.snapshot()["daemon_generation"] == 2
+            a.client.ping()  # reconnect + flow replay + re-probe
+            res = dcn_pipeline.send_pipelined(
+                a.client, "rk9", PIPE_PAYLOAD, "127.0.0.1",
+                b.daemon.data_port, RING_CFG, timeout_s=10)
+            assert res["lane"] == "socket" and res["rounds"] == 1
+            _wait_stable_rx(b.client, "rk9", PIPE_N)  # exactly once
+            sb = _scrape_after_collect(b.metrics_port)
+            assert sb.value("agent_events",
+                            event="xferd.frames.landed") == 4.0
+            # The fresh incarnation rang exactly one doorbell for the
+            # re-posted round (its counters started at zero).
+            sa = _scrape_after_collect(a.metrics_port, settle_s=0.0)
+            assert sa.value("agent_events",
+                            event="dcn.shm.ring.posts") == 1.0
+            assert dcn_pipeline.read_pipelined(
+                b.client, "rk9", PIPE_N, RING_CFG) == PIPE_PAYLOAD
+        finally:
+            a.close()
+            b.close()

@@ -10,9 +10,10 @@ is the part that must stay correct under everything the chaos suites
 throw at the pipeline.  Integration runs against a real PyXferd pair
 with the proc-mode link shim injecting loss, proving the loop closes
 end to end with exactly-once intact while the grid changes between
-retry rounds.  The JAX file's fleet scenario (degrade mid-run, heal,
-goodput floor; marked slow there) waits for the port of
-``fleet/controller.py``.
+retry rounds.  The fleet scenarios (a link degrades mid-run and heals:
+the controller acts and goodput recovers above its floor) run through
+the port's controller, in process and as the proc-mode CI gate
+``scenarios/tune_link_degrade.json``.
 """
 
 import uuid
@@ -529,3 +530,48 @@ class TestPipelineIntegration:
         res, got = self._xfer(pair, payload, cfg)
         assert got == payload
         assert res["chunks"] == 4 and res["stripes"] == 2
+
+
+class TestTunedFleetScenario:
+    def test_degrade_heal_recovers_goodput(self):
+        from container_engine_accelerators_tpu_torch.fleet.controller import (
+            run_scenario,
+        )
+
+        report = run_scenario({
+            "name": "tune-degrade-inproc", "nodes": 3, "racks": 1,
+            "chips": 2, "topology": "1x2x1", "rounds": 6,
+            "payload_bytes": 65536, "pipelined": True, "tuned": True,
+            "shm": False, "chunk_bytes": 16384, "stripes": 2,
+            "faults": [
+                {"round": 2, "link": "node:n0->node:n1:latency:20",
+                 "for": 2},
+                {"round": 2, "link": "node:n0->node:n1:drop:6"},
+            ],
+            "slo": {"min_final_goodput_bps": 1000},
+        })
+        assert report["converged"]
+        assert report["slo"]["ok"], report["slo"]
+        delta = report["agent_events_delta"]
+        assert any(k.startswith("dcn.tune.") for k in delta), delta
+
+    def test_proc_scenario_file_is_the_ci_gate(self, monkeypatch):
+        """scenarios/tune_link_degrade.json: a proc-mode fleet, the link
+        degraded through the worker link shim, healed, and the goodput
+        floor judged from HTTP-scraped telemetry."""
+        import os
+
+        from container_engine_accelerators_tpu_torch.fleet.controller import (
+            load_scenario,
+            run_scenario,
+        )
+
+        monkeypatch.delenv("TPU_FAULT_SPEC", raising=False)
+        path = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "scenarios", "tune_link_degrade.json")
+        report = run_scenario(load_scenario(path))
+        assert report["proc"] and report["converged"]
+        assert report["slo"]["ok"], report["slo"]
+        delta = report["agent_events_delta"]
+        assert any(k.startswith("dcn.tune.") for k in delta), delta

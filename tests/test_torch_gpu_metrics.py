@@ -20,6 +20,7 @@ from container_engine_accelerators_tpu.metrics.metrics import (
     MetricServer as TpuMetricServer,
 )
 from container_engine_accelerators_tpu.obs import histo as tpu_histo
+from container_engine_accelerators_tpu.obs import profiler as tpu_profiler
 from container_engine_accelerators_tpu.obs import timeseries as tpu_timeseries
 from container_engine_accelerators_tpu.tpulib import SysfsTpuLib
 from container_engine_accelerators_tpu.utils.retry import (
@@ -44,7 +45,11 @@ from container_engine_accelerators_tpu_torch.metrics.metrics import (
     GpuMetricsCollector,
     MetricServer,
 )
-from container_engine_accelerators_tpu_torch.obs import histo, timeseries
+from container_engine_accelerators_tpu_torch.obs import (
+    histo,
+    profiler,
+    timeseries,
+)
 from container_engine_accelerators_tpu_torch.utils.retry import RetryPolicy
 from tests.test_metrics import PodResourcesStub as TpuPodResourcesStub
 from tests.test_metrics import make_pod_resources as tpu_pod_resources
@@ -136,10 +141,12 @@ def gpu_server(tmp_path, gpu_node):
 
 def feed_same_obs_state():
     """The same counters, observations, series and gauges in both
-    packages' process state, from a clean start."""
-    for side in ((tpu_counters, tpu_histo, tpu_timeseries),
-                 (counters, histo, timeseries)):
-        c, h, ts = side
+    packages' process state, from a clean start (no sampler left
+    running, nor its aggregates, by an earlier test in this process)."""
+    for side in ((tpu_counters, tpu_histo, tpu_timeseries, tpu_profiler),
+                 (counters, histo, timeseries, profiler)):
+        c, h, ts, prof = side
+        prof.reset()
         c.reset()
         h.reset()
         ts.reset()

@@ -63,7 +63,11 @@ def test_port_imports_without_jax():
               "analysis.lockwatch", "parallel.dcn_shm",
               "parallel.dcn_client", "fleet", "fleet.xferd",
               "parallel.dcn_tune", "parallel.dcn_pipeline",
-              "cmd.dcn_bench"}
+              "cmd.dcn_bench", "fleet.topology", "fleet.links",
+              "fleet.node", "fleet.proc", "fleet.telemetry",
+              "serving", "serving.breaker", "serving.frontend",
+              "collectives.topo", "collectives.search",
+              "collectives.runner", "fleet.controller", "cmd.fleet_sim"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys
@@ -104,9 +108,10 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 
 def test_node_layer_imports_without_torch():
     """The node modules (gpulib, deviceplugin, health, metrics, sharing,
-    partition, scheduler, nri, obs, the daemons and tools) and the DCN
+    partition, scheduler, nri, obs, the daemons and tools), the DCN
     transfer plane (analysis, fleet, parallel's dcn modules, dcn_bench)
-    need no torch: a node agent image carries none."""
+    and the fleet rig above it (serving, the collective engine,
+    fleet_sim) need no torch: a node agent image carries none."""
     node = [m for m in _port_modules()
             if m.split(".")[1:2] in (["gpulib"], ["deviceplugin"],
                                      ["health"], ["metrics"], ["sharing"],
@@ -117,7 +122,13 @@ def test_node_layer_imports_without_torch():
                                     ["parallel", "dcn_tune"],
                                     ["parallel", "dcn_pipeline"],
                                     ["parallel", "dcn"], ["parallel"],
-                                    ["cmd", "dcn_bench"])
+                                    ["cmd", "dcn_bench"],
+                                    ["collectives", "topo"],
+                                    ["collectives", "synth"],
+                                    ["collectives", "search"],
+                                    ["collectives", "runner"],
+                                    ["cmd", "fleet_sim"])
+            or m.split(".")[1:2] == ["serving"]
             or m.endswith((".cmd.gpu_device_plugin", ".cmd.partition_gpu",
                            ".cmd.maintenance_watcher", ".utils.config",
                            ".utils.devname", ".utils.device", ".utils.faults",
@@ -126,7 +137,7 @@ def test_node_layer_imports_without_torch():
                            ".cmd.topology_scheduler", ".cmd.label_nodes",
                            ".cmd.agent_trace", ".cmd.agent_prof",
                            ".cmd.agent_trend", ".cmd.agent_top"))]
-    assert len(node) >= 57
+    assert len(node) >= 70
     code = f"""
 import importlib, sys
 sys.modules["torch"] = None
@@ -161,3 +172,83 @@ print("OK")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
+
+
+def test_fleet_rig_leaves_torch_unloaded():
+    """Importing the fleet rig's packages loads nothing else (their
+    names resolve lazily), and the whole rig loads no torch."""
+    code = f"""
+import sys
+import {PKG}.fleet, {PKG}.serving, {PKG}.collectives
+assert not any(m.startswith(("{PKG}.fleet.", "{PKG}.serving.",
+                             "{PKG}.collectives."))
+               for m in sys.modules), sorted(sys.modules)
+from {PKG}.fleet import FleetController, ProcNode, NodeSpec
+from {PKG}.serving import ServingFrontend, NodeBreaker
+import {PKG}.collectives.runner, {PKG}.cmd.fleet_sim
+assert "torch" not in sys.modules, "torch loaded"
+print("OK")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+SITECUSTOMIZE = """
+import atexit, importlib.abc, os, sys
+sys.modules["torch"] = None
+sys.modules["jax"] = None
+
+
+class _NoJaxPackage(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "container_engine_accelerators_tpu" or name.startswith(
+                "container_engine_accelerators_tpu."):
+            raise ImportError("the JAX package in a port worker: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _NoJaxPackage())
+
+
+@atexit.register
+def _dump():
+    with open(os.environ["WORKER_MODULES_OUT"], "w") as f:
+        f.write("\\n".join(sorted(k for k, v in sys.modules.items()
+                                  if v is not None)))
+"""
+
+
+def test_spawned_proc_worker_loads_no_torch_jax_or_jax_package(tmp_path):
+    """A real fleet worker process (``ProcNode``) under a site hook that
+    makes torch, jax and the JAX package unimportable: it handshakes,
+    serves its RPCs and a chip fault, and its ``sys.modules`` at exit
+    holds none of them."""
+    sys.path.insert(0, REPO)
+    from container_engine_accelerators_tpu_torch.fleet.proc import ProcNode
+    from container_engine_accelerators_tpu_torch.fleet.topology import (
+        NodeSpec,
+    )
+
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(SITECUSTOMIZE)
+    out = tmp_path / "modules.txt"
+    env = dict(os.environ, PYTHONPATH=str(site),
+               WORKER_MODULES_OUT=str(out))
+    env.pop("TPU_FAULT_SPEC", None)
+    node = ProcNode(NodeSpec(name="w", chips=2), str(tmp_path / "w"),
+                    env=env, handshake_timeout_s=60.0)
+    try:
+        node.inject_chip_fault("nvidia1")
+        assert node.device_health()["nvidia1"] == "Unhealthy"
+        assert node.force_recover() == 1
+    finally:
+        node.close()
+    mods = out.read_text().split("\n")
+    assert f"{PKG}.fleet.node" in mods and f"{PKG}.fleet.proc" in mods
+    bad = [m for m in mods
+           if m.split(".")[0] in ("torch", "jax", "flax",
+                                  "container_engine_accelerators_tpu")]
+    assert not bad, bad
+

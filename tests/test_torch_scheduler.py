@@ -405,3 +405,101 @@ def test_cli_ignored_namespace_binds_nothing(capsys):
         K.stop(server)
     assert "bound 0 pods" in capsys.readouterr().out
     assert cluster.writes == []
+
+
+# ---- link-health annotations (the port's collectives/topo.py -> packer) ----
+
+
+def _link_nodes(*names_racks):
+    return sorted(
+        ({"name": n, "cpu": 8.0, "memory": 2**34, "gpu": 8,
+          "node_labels": {pt.PLACEMENT_GROUP_LABEL: "pg0",
+                          pt.CLUSTER_LABEL: "c0", pt.RACK_LABEL: rack,
+                          pt.HOST_LABEL: n}}
+         for n, rack in names_racks),
+        key=pt.node_topology_key)
+
+
+def _link_pods():
+    return [{"name": f"p-{i}", "namespace": "default", "index": str(i),
+             "cpu": 1.0, "memory": 1.0, "gpu": 8, "node_selector": None}
+            for i in range(2)]
+
+
+def _fleet_penalty(*faults, racks=(("a", "r0"), ("b", "r0"), ("c", "r1"))):
+    """A penalty built the production way: the port's fleet topology,
+    real link-table faults, a CommGraph snapshot."""
+    from container_engine_accelerators_tpu_torch.collectives.topo import (
+        CommGraph,
+    )
+    from container_engine_accelerators_tpu_torch.fleet.links import LinkTable
+    from container_engine_accelerators_tpu_torch.fleet.topology import (
+        FleetTopology,
+        NodeSpec,
+    )
+
+    fleet = FleetTopology([NodeSpec(name=n, rack=r) for n, r in racks])
+    links = LinkTable(fleet)
+    for f in faults:
+        assert links.apply(f), f"fault {f!r} armed nothing"
+    return CommGraph.build(fleet, links=links,
+                           rates=lambda a, b: 0.0).scheduler_link_penalty()
+
+
+@pytest.mark.parametrize("fault", ["node:a<->node:b:partition",
+                                   "node:a<->node:b:drop:5"])
+def test_link_penalty_steers_off_a_bad_link(fault):
+    """Healthy: the packer takes the same-rack pair (a, b).  With that
+    pair's fabric partitioned or lossy, the port's CommGraph penalty
+    steers the job onto a cross-rack pair."""
+    nodes = _link_nodes(("a", "r0"), ("b", "r0"), ("c", "r1"))
+    pods = _link_pods()
+    base = pd.calculate_pods_assignment(nodes, pods, search_budget_s=None)
+    assert {nodes[i]["name"] for i in base} == {"a", "b"}
+    steered = pd.calculate_pods_assignment(
+        nodes, pods, search_budget_s=None,
+        link_penalty=_fleet_penalty(fault))
+    chosen = {nodes[i]["name"] for i in steered}
+    assert "c" in chosen and chosen != {"a", "b"}
+
+
+def test_link_penalty_never_vetoes_and_ignores_strangers():
+    nodes = _link_nodes(("a", "r0"), ("b", "r0"))
+    penalty = _fleet_penalty("node:a<->node:b:partition",
+                             racks=(("a", "r0"), ("b", "r0")))
+    assignment = pd.calculate_pods_assignment(
+        nodes, _link_pods(), search_budget_s=None, link_penalty=penalty)
+    assert {nodes[i]["name"] for i in assignment} == {"a", "b"}
+    stranger = {"node_labels": {pt.HOST_LABEL: "zz-unknown"}}
+    known = {"node_labels": {pt.HOST_LABEL: "a"}}
+    assert penalty(stranger, known) == penalty(stranger, stranger) == 0.0
+
+
+def test_live_link_health_penalty_follows_faults_in_the_daemon():
+    """LinkHealthPenalty re-snapshots the link table, so a fault armed
+    between passes steers the next placement of the port's packer."""
+    from container_engine_accelerators_tpu_torch.collectives.topo import (
+        LinkHealthPenalty,
+    )
+    from container_engine_accelerators_tpu_torch.fleet.links import LinkTable
+    from container_engine_accelerators_tpu_torch.fleet.topology import (
+        FleetTopology,
+        NodeSpec,
+    )
+
+    fleet = FleetTopology([NodeSpec(name="a", rack="r0"),
+                           NodeSpec(name="b", rack="r0"),
+                           NodeSpec(name="c", rack="r1")])
+    links = LinkTable(fleet)
+    live = LinkHealthPenalty(fleet, links, rates=lambda a, b: 0.0,
+                             refresh_s=0)
+    nodes = _link_nodes(("a", "r0"), ("b", "r0"), ("c", "r1"))
+    first = pd.calculate_pods_assignment(nodes, _link_pods(),
+                                         search_budget_s=None,
+                                         link_penalty=live)
+    assert {nodes[i]["name"] for i in first} == {"a", "b"}
+    links.apply("node:a<->node:b:partition")
+    second = pd.calculate_pods_assignment(nodes, _link_pods(),
+                                          search_budget_s=None,
+                                          link_penalty=live)
+    assert "c" in {nodes[i]["name"] for i in second}
