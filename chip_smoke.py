@@ -24,9 +24,10 @@ plugin daemon, its Xid health checker and metrics server, its fault
 sites, MIG, the maintenance watcher, MPS, the NRI device injector, the
 node labeler and the topology-aware scheduler) on the card, and the DCN
 transfer plane (two ranks' shards of the trainer's parameters through
-their own PyXferds and through the native daemons, and ``dcn_bench``);
-and holds every hand-written CUDA kernel against its plain PyTorch
-version.  Phases, one JSON line each:
+their own PyXferds and through the native daemons, and ``dcn_bench``),
+the emulated fleet, a draft distilled from the trained target and served
+for speculation, and the soak world; and holds every hand-written CUDA
+kernel against its plain PyTorch version.  Phases, one JSON line each:
 
 1. the card (``nvidia-smi`` name and power limit, printed verbatim too);
 2. the build of every kernel from ``ops/csrc/`` in one
@@ -424,11 +425,41 @@ version.  Phases, one JSON line each:
     shed requests, D2H and H2D ms, and the round's ms, algorithm and
     busbw;
     phases 33-42d launch none of the port's kernels;
+42e. ``distill``: a distilled draft for speculation at full width, each
+    step one process of the port's CLIs under ``COUNTED_RUN`` (the module
+    run as ``__main__``; its launch counters, speculative stats and
+    train-step end times written at exit): (a) ``train_lm`` at its
+    defaults for 60 steps with ``--checkpoint-dir``; (b)
+    ``make_distill_data --tokens 65536 --batch 64 --prompt-len 8
+    --gen-len 120`` on it (8 batches of 8,192 tokens); (c) a 3-layer
+    draft, ``train_lm --num-layers 3 --data-dir`` for 60 steps; (d)
+    ``serve_lm --flash-decode`` on the target's checkpoint, plain and
+    with ``--speculative 4`` over the distilled and over a random draft,
+    the three started together, four greedy requests (``INT8_LENS``) to
+    each.  Checks: every exit code; the corpus (shards and index, total
+    tokens, every token in the vocab, each row's prompt from
+    ``default_rng(seed)``); each process's launches exactly (the flash
+    kernels 2 x layers x steps and layers x steps in (a) and (c), none in
+    (b), flash decode layers x single-token steps on the plain server
+    and draft layers x (k + 1) x rounds plus the warm-up's 1-token
+    prefill on the speculative ones); the rows as ``serve_spec`` holds
+    them, with the f32 speculative tokens equal to ``generate``'s for
+    either draft; then the JAX test's recipe (``tests/test_distill.py``:
+    vocab 32, a 2-layer target, a 1-layer draft, from the JAX test's own
+    initial draws) on the card, the distilled draft's acceptance above
+    the random draft's + 0.1.  Numbers: each draft's acceptance and
+    tokens per round, latency against plain, the sampling tokens/s, both
+    trainings' steady ms a step, each step's seconds;
+42f. ``fleet_soak``: the port's ``cmd/fleet_soak.py`` on
+    ``scenarios/soak_ci.json`` and on ``scenarios/soak_anomaly.json
+    --anomaly-gate --anomaly-fp-budget 2``, one process each: each must
+    exit 0.  Numbers: converged, windows, kills / greys / heals, each
+    sentinel's verdict, the anomaly recall and false positives, seconds;
 43. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
-    ``serve`` and ``serve_slots`` phases' and phases 14-17', 20's and
-    29's; flash attention's: the ``train``, ``train_moe``,
+    ``serve`` and ``serve_slots`` phases' and phases 14-17', 20's, 29's
+    and 42e's servers'; flash attention's: the ``train``, ``train_moe``,
     ``mesh_train``, ``seq_train``, ``seq_resume``, ``pipeline``,
-    ``mesh_train_moe`` and ``dryrun`` phases').
+    ``mesh_train_moe`` and ``dryrun`` phases' and 42e's trainers').
 
 Each phase's seconds follow it on a ``timing`` line.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -442,6 +473,7 @@ import ast
 import json
 import math
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -5536,13 +5568,11 @@ def _fleet_sim_run(name, argv, tmp):
         with open(path, "w") as f:
             json.dump(dict(DEFAULT_SCENARIO, **FLEET_A3), f)
         argv = ["--scenario", path]
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("TPU_FAULT_SPEC", "TPU_HISTORY_DIR")}
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m",
          "container_engine_accelerators_tpu_torch.cmd.fleet_sim", *argv],
-        cwd=HERE, env=env, capture_output=True, text=True,
+        cwd=HERE, env=_tool_env(), capture_output=True, text=True,
         timeout=FLEET_SIM_TIMEOUT_S)
     seconds = round(time.perf_counter() - t0, 3)
     lines = proc.stdout.strip().splitlines()
@@ -5742,6 +5772,568 @@ def fleet_gpu_phase(card):
                        "ms": entry["time_ms"],
                        "busbw_bps": entry["busbw_bps"],
                        "algbw_bps": entry["algbw_bps"]})
+
+
+
+# ---- phases 42e-42f: distillation and the soak world ----------------------
+
+# The distill phase's full-width chain, each step one process of the port's
+# CLIs.  (a) the target: train_lm at its defaults; (b) make_distill_data:
+# 8 batches of 64 rows of 8 + 120 tokens = 65,536 tokens (the draft's
+# loader needs 8 x 2,049 a step); (c) the draft: train_lm at 3 layers
+# (serve_lm's default draft depth, num_layers // 4) on that corpus; (d)
+# serve_lm with --flash-decode on the target's checkpoint: plain, and with
+# --speculative 4 over the distilled and over a random draft.
+DISTILL_STEPS = 60
+DISTILL_CORPUS = {"tokens": 65536, "batch": 64, "prompt_len": 8,
+                  "gen_len": 120, "seed": 0}  # the tool's default seed
+DISTILL_DRAFT_LAYERS = 3
+DISTILL_SHARD_TOKENS = 1 << 22  # make_distill_data's shard size
+DISTILL_SEED = FEATURE_SEED + 9  # the requests' prompts (INT8_LENS)
+DISTILL_TIMEOUT_S = 600
+# The JAX test's recipe (tests/test_distill.py): vocab 32, a 2-layer
+# target trained 30 steps, a 40,000-token corpus, a 1-layer draft trained
+# 60 steps on it; the distilled draft must beat the random one's
+# acceptance by more than 0.1.  The three models start from the JAX
+# test's own draws (PRNGKey 0 for the target and the draft, 123 for the
+# random draft), stored by tests/torch_distill_inits.py: the margin holds
+# for those draws, not for most seeds.
+SMALL_INITS = os.path.join("tests", "data", "distill_jax_inits.npz")
+SMALL_TARGET = ["--num-layers", "2", "--num-heads", "2", "--head-dim", "8",
+                "--mlp-dim", "64", "--vocab-size", "32"]
+SMALL_DRAFT = ["--num-layers", "1", "--num-heads", "2", "--head-dim", "8",
+               "--mlp-dim", "32", "--vocab-size", "32"]
+SMALL_MARGIN = 0.1
+# One CLI of the port run as ``python -m`` would run it (runpy, as
+# __main__), recording what the launch counters and the speculative
+# decoder count in that process: at exit it writes the flash kernels'
+# LAUNCHES, each generate_speculative call's rounds / drafted / accepted
+# (the server's warm-up first) and the end time of each train step (the
+# step synchronized) to the JSON file named by argv[2].  SIGTERM exits 0.
+COUNTED_RUN = r"""
+import atexit, json, runpy, signal, sys, time
+import torch
+from container_engine_accelerators_tpu_torch.models import lm_train, speculative
+from container_engine_accelerators_tpu_torch.ops import flash_attention, flash_decode
+module, out = sys.argv[1], sys.argv[2]
+sys.argv = [module] + sys.argv[3:]
+calls, step_ends = [], []
+inner_spec = speculative.generate_speculative
+def counted_spec(*a, **kw):
+    tokens, st = inner_spec(*a, **kw)
+    calls.append([int(st["rounds"]), int(st["drafted"].sum()),
+                  int(st["accepted"].sum())])
+    return tokens, st
+speculative.generate_speculative = counted_spec
+inner_make = lm_train.make_lm_train_step
+def timed_make(*a, **kw):
+    step_fn, state = inner_make(*a, **kw)
+    def step(*sa, **skw):
+        got = step_fn(*sa, **skw)
+        torch.cuda.synchronize()
+        step_ends.append(time.perf_counter())
+        return got
+    return step, state
+lm_train.make_lm_train_step = timed_make
+def dump():
+    with open(out, "w") as f:
+        json.dump({"launches": {**flash_decode.LAUNCHES,
+                                **flash_attention.LAUNCHES},
+                   "spec_calls": calls, "step_ends": step_ends}, f)
+atexit.register(dump)
+signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+CLI = "container_engine_accelerators_tpu_torch.cmd"
+
+
+def _tool_env():
+    """The environment of a CLI run: no armed fault sites, no run
+    history."""
+    return {k: v for k, v in os.environ.items()
+            if k not in ("TPU_FAULT_SPEC", "TPU_HISTORY_DIR")}
+
+
+def _counted_argv(module, counts, argv):
+    return [sys.executable, "-c", COUNTED_RUN, f"{CLI}.{module}", counts,
+            *argv]
+
+
+def _counted(name, module, argv, tmp):
+    """One CLI run to its end -> (seconds, stderr, its counts)."""
+    counts = os.path.join(tmp, f"{name}.counts.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(_counted_argv(module, counts, argv), cwd=HERE,
+                          env=_tool_env(), capture_output=True, text=True,
+                          timeout=DISTILL_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"distill {name} ({module}) exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    with open(counts) as f:
+        return seconds, proc.stderr, json.load(f)
+
+
+class _CountedServer:
+    """``serve_lm`` as its own process under COUNTED_RUN: started at
+    once, ``port`` read from its "serving LM on :<port>" log line,
+    stopped by SIGTERM."""
+
+    def __init__(self, name, argv, tmp):
+        self.name = name
+        self.counts = os.path.join(tmp, f"{name}.counts.json")
+        self.lines, self.port = [], None
+        self.ready = threading.Event()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            _counted_argv("serve_lm", self.counts, argv + ["--port", "0"]),
+            cwd=HERE, env=_tool_env(), stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stderr:
+            self.lines.append(line)
+            found = re.search(r"serving LM on :(\d+)", line)
+            if found:
+                self.port = int(found.group(1))
+                self.ready.set()
+        self.ready.set()
+
+    def wait_ready(self):
+        self.ready.wait(DISTILL_TIMEOUT_S)
+        if self.port is None:
+            raise AssertionError(f"distill server {self.name} did not "
+                                 f"start: {''.join(self.lines)[-3000:]}")
+        return time.perf_counter() - self.t0
+
+    def stop(self):
+        """-> (exit code, counts); kills a server that does not stop."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+            raise AssertionError(f"distill server {self.name} ignored "
+                                 f"SIGTERM")
+        self.reader.join(timeout=30)
+        if rc != 0 or not os.path.exists(self.counts):
+            raise AssertionError(f"distill server {self.name} exited {rc}: "
+                                 f"{''.join(self.lines)[-3000:]}")
+        with open(self.counts) as f:
+            return rc, json.load(f)
+
+
+def _train_counted(name, argv, tmp, layers):
+    """(a) or (c): the trainer for DISTILL_STEPS steps -> its row and its
+    flash-attention launches, held exactly: forward 2 x layers x steps
+    (remat), each backward layers x steps, no flash decode."""
+    seconds, _, counts = _counted(name, "train_lm", argv + [
+        "--train-steps", str(DISTILL_STEPS), "--steps-per-eval", "20"], tmp)
+    got = counts["launches"]
+    n = layers * DISTILL_STEPS
+    want = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n, "flash_decode": 0}
+    if got != want:
+        raise AssertionError(f"distill {name}: launches {got}, expected "
+                             f"{want}")
+    ends = counts["step_ends"]
+    if len(ends) != DISTILL_STEPS:
+        raise AssertionError(f"distill {name}: {len(ends)} steps timed")
+    steady = [b - a for a, b in zip(ends[1:], ends[2:])]
+    return {"seconds": round(seconds, 3), "layers": layers,
+            "steps": DISTILL_STEPS,
+            "steady_step_ms": round(statistics.median(steady) * 1e3, 3),
+            "launches": {k: got[k] for k in FA_KERNELS}}
+
+
+def _check_corpus(out, vocab):
+    """The corpus against the tool's contract -> its row."""
+    import numpy as np
+
+    c = DISTILL_CORPUS
+    per_row = c["prompt_len"] + c["gen_len"]
+    batches = -(-c["tokens"] // (c["batch"] * per_row))
+    total = batches * c["batch"] * per_row
+    with open(os.path.join(out, "index.json")) as f:
+        index = json.load(f)
+    shards = sorted(x for x in os.listdir(out) if x.endswith(".tokens"))
+    # A shard closes at the end of the batch that brings the buffer to
+    # 2^22 tokens; the rest is flushed last.
+    want, buffered = [], 0
+    for _ in range(batches):
+        buffered += c["batch"] * per_row
+        if buffered >= DISTILL_SHARD_TOKENS:
+            want, buffered = want + [buffered], 0
+    want += [buffered] if buffered else []
+    sizes = [os.path.getsize(os.path.join(out, x)) // 4 for x in shards]
+    if (sizes != want or index["shards"] != [
+            {"name": f"{i:05d}.tokens", "tokens": n}
+            for i, n in enumerate(want)]):
+        raise AssertionError(f"distill corpus: shards {shards} {sizes}, "
+                             f"index {index}, expected sizes {want}")
+    rows = np.concatenate([np.fromfile(os.path.join(out, x), "<u4")
+                           for x in shards]).reshape(-1, per_row)
+    if int(rows.max()) >= vocab:
+        raise AssertionError(f"distill corpus: token {rows.max()} >= vocab")
+    rng = np.random.default_rng(c["seed"])
+    prompts = np.concatenate([
+        rng.integers(0, vocab, (c["batch"], c["prompt_len"]))
+        for _ in range(batches)])
+    if not np.array_equal(rows[:, :c["prompt_len"]], prompts):
+        raise AssertionError("distill corpus: a row's prompt is not "
+                             "default_rng(seed)'s")
+    return {"shards": len(shards), "tokens": total, "batches": batches,
+            "rows": int(rows.shape[0]), "max_token": int(rows.max()),
+            "distinct_sampled_tokens": int(np.unique(
+                rows[:, c["prompt_len"]:]).size)}
+
+
+def _spec_f32(args, target_sd, draft_sd, dev, prompts, n_new):
+    """In f32 at full width: speculative greedy tokens are generate()'s
+    (as serve_spec holds them) -> the f32 acceptance."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.models.generate import (
+        generate,
+    )
+    from container_engine_accelerators_tpu_torch.models.speculative import (
+        generate_speculative,
+    )
+
+    m32 = _twin(args, target_sd, dev, torch.float32)
+    d32 = _twin(args, draft_sd, dev, torch.float32,
+                num_layers=DISTILL_DRAFT_LAYERS)
+    acc = drafted = 0
+    with torch.inference_mode():
+        for p in prompts:
+            x, plen = _padded(p, args.max_prompt_len, dev)
+            got, st = generate_speculative(m32, d32, x, n_new, k=SPEC_K,
+                                           prompt_len=plen)
+            ref = generate(m32, x, n_new, prompt_len=plen)
+            if not torch.equal(got[:, :plen + n_new], ref[:, :plen + n_new]):
+                raise AssertionError("distill: f32 speculative tokens differ "
+                                     "from generate's")
+            acc += int(st["accepted"].sum())
+            drafted += int(st["drafted"].sum())
+    return acc / max(drafted, 1)
+
+
+def _small_draw(name):
+    """One of the JAX test's initial draws as a port state dict."""
+    import numpy as np
+    import torch
+
+    with np.load(os.path.join(HERE, SMALL_INITS)) as f:
+        return {k.split("/", 1)[1]: torch.from_numpy(f[k])
+                for k in f.files if k.startswith(f"{name}/")}
+
+
+def _distill_small(dev):
+    """The JAX test's recipe through the port's CLIs' main() on ``dev``,
+    each model from the JAX test's draw (the trainer resumes from a
+    step-0 checkpoint of it) -> (distilled acceptance, random
+    acceptance)."""
+    import numpy as np
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import (
+        make_distill_data,
+        serve_lm,
+        train_lm,
+    )
+    from container_engine_accelerators_tpu_torch.models.checkpoint import (
+        TrainCheckpointer,
+    )
+    from container_engine_accelerators_tpu_torch.models.lm_train import (
+        create_lm_train_state,
+    )
+    from container_engine_accelerators_tpu_torch.models.speculative import (
+        generate_speculative,
+    )
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+
+    t_cfg = dict(vocab_size=32, num_layers=2, num_heads=2, head_dim=8,
+                 mlp_dim=64)
+    d_cfg = dict(t_cfg, num_layers=1, mlp_dim=32)
+    device = ["--device", f"cuda:{dev.index or 0}"]
+    with tempfile.TemporaryDirectory(prefix="cs_distill_small_") as tmp:
+        t_ck, corpus, d_ck = (os.path.join(tmp, x)
+                              for x in ("target", "corpus", "draft"))
+        for ck, cfg, name in ((t_ck, t_cfg, "target"),
+                              (d_ck, d_cfg, "draft")):
+            model = TransformerLM(**cfg, device="cpu")
+            model.load_state_dict(_small_draw(name))
+            TrainCheckpointer(ck).save(create_lm_train_state(model))
+        train_lm.main(SMALL_TARGET + device + [
+            "--seq-len", "32", "--train-batch-size", "16",
+            "--train-steps", "30", "--steps-per-eval", "10",
+            "--checkpoint-dir", t_ck, "--checkpoint-interval", "30"])
+        make_distill_data.main(SMALL_TARGET + device + [
+            "--checkpoint-dir", t_ck, "--out", corpus, "--tokens", "40000",
+            "--batch", "16", "--prompt-len", "4", "--gen-len", "28"])
+        train_lm.main(SMALL_DRAFT + device + [
+            "--seq-len", "32", "--train-batch-size", "16",
+            "--train-steps", "60", "--steps-per-eval", "20",
+            "--data-dir", corpus, "--checkpoint-dir", d_ck,
+            "--checkpoint-interval", "60"])
+
+        def decode(cfg, sd):
+            m = TransformerLM(**cfg, decode=True, device=dev)
+            m.load_state_dict(sd)
+            return m.eval()
+
+        target = decode(t_cfg, serve_lm._restore(t_ck, t_cfg)[0])
+        prompts = torch.from_numpy(np.random.default_rng(9).integers(
+            0, 32, (4, 4))).to(dev)
+
+        def rate(draft_sd):
+            with torch.inference_mode():
+                _, st = generate_speculative(target, decode(d_cfg, draft_sd),
+                                             prompts, 32, k=4)
+            return float(st["accepted"].sum()) / max(
+                float(st["drafted"].sum()), 1.0)
+
+        return (rate(serve_lm._restore(d_ck, d_cfg)[0]),
+                rate(_small_draw("random")))
+
+
+def distill_phase(dev, card):
+    """Phase 42e: a distilled draft for speculation, at full width, each
+    step a process of the port's CLIs; then the JAX test's small recipe
+    on the card.  -> (flash decode launches, flash-attention launches)."""
+    import numpy as np
+
+    from container_engine_accelerators_tpu_torch.cmd import serve_lm
+
+    before = _kernel_counts()
+    args = serve_lm.parse_args(SERVE_FLAGS + ["--port", "0"])
+    n_new, vocab = args.max_new_tokens, args.vocab_size
+    c = DISTILL_CORPUS
+    steps = {}
+    with tempfile.TemporaryDirectory(prefix="cs_distill_") as tmp:
+        t_ck, corpus, d_ck = (os.path.join(tmp, x)
+                              for x in ("target", "corpus", "draft"))
+        steps["a_train_target"] = _train_counted(
+            "a", ["--checkpoint-dir", t_ck], tmp, args.num_layers)
+        seconds, err, counts = _counted("b", "make_distill_data", [
+            "--checkpoint-dir", t_ck, "--out", corpus,
+            "--tokens", str(c["tokens"]), "--batch", str(c["batch"]),
+            "--prompt-len", str(c["prompt_len"]),
+            "--gen-len", str(c["gen_len"])], tmp)
+        if any(counts["launches"].values()):
+            raise AssertionError(f"distill b: make_distill_data launched "
+                                 f"{counts['launches']} (it builds the "
+                                 f"target without flash decode)")
+        done = re.search(r"done: (\d+) tokens in (\d+) shards .* in "
+                         r"([\d.]+) s \((\d+) tokens/s", err)
+        if not done:
+            raise AssertionError(f"distill b: no done line: {err[-2000:]}")
+        steps["b_make_distill_data"] = {
+            "seconds": round(seconds, 3),
+            "sampling_s": float(done.group(3)),
+            "sampling_tokens_per_s": int(done.group(4)),
+            "corpus": _check_corpus(corpus, vocab)}
+        steps["c_train_draft"] = _train_counted(
+            "c", ["--num-layers", str(DISTILL_DRAFT_LAYERS),
+                  "--data-dir", corpus, "--checkpoint-dir", d_ck], tmp,
+            DISTILL_DRAFT_LAYERS)
+        _launches_none("distill (its CLIs run in their own processes)",
+                       before)
+
+        # (d) three servers on the target's checkpoint, started at once;
+        # while they start, this process holds the f32 tokens and runs
+        # the small recipe (their start_s read that overlap).
+        base = SERVE_FLAGS + ["--checkpoint-dir", t_ck]
+        spec = ["--speculative", str(SPEC_K)]
+        t0 = time.perf_counter()
+        servers = {"plain": _CountedServer("plain", base, tmp),
+                   "distilled": _CountedServer(
+                       "distilled", base + spec + ["--draft-checkpoint-dir",
+                                                   d_ck], tmp),
+                   "random": _CountedServer("random", base + spec, tmp)}
+        rng = np.random.default_rng(DISTILL_SEED)
+        prompts = [rng.integers(0, vocab, n).tolist() for n in INT8_LENS]
+        answers, stops = {}, {}
+        try:
+            # f32 at full width, as serve_spec: speculative tokens are
+            # generate()'s with either draft.
+            cfg = serve_lm._model_cfg(args)
+            d_cfg = dict(cfg, num_layers=DISTILL_DRAFT_LAYERS)
+            target_sd = serve_lm._restore(t_ck, cfg)[0]
+            f32 = {"distilled": _spec_f32(
+                       args, target_sd, serve_lm._restore(d_ck, d_cfg)[0],
+                       dev, prompts, n_new),
+                   "random": _spec_f32(
+                       args, target_sd, serve_lm._random_params(d_cfg, 1),
+                       dev, prompts, n_new)}
+            del target_sd
+            t_small = time.perf_counter()
+            distilled, random_init = _distill_small(dev)
+            small_s = time.perf_counter() - t_small
+            ready = {n: round(s.wait_ready(), 3) for n, s in servers.items()}
+            for name, srv in servers.items():
+                rows, lat = [], []
+                for p in prompts:
+                    status, resp, _ = _post(srv.port, {"prompt_ids": [p],
+                                                       "temperature": 0})
+                    if status != 200 or "tokens" not in resp:
+                        raise AssertionError(f"distill {name}: bad "
+                                             f"response {status} {resp}")
+                    rows.append(resp["tokens"][0])
+                    lat.append(resp["latency_ms"])
+                _check_rows(f"distill {name}", prompts, rows, n_new, vocab)
+                answers[name] = (rows, lat)
+        finally:
+            failed = []
+            for name, srv in servers.items():
+                try:
+                    stops[name] = srv.stop()
+                except AssertionError as e:
+                    failed.append(e)
+        if failed:
+            raise failed[0]
+        d_seconds = time.perf_counter() - t0
+
+        buckets = [serve_lm.bucket_len(n, args.max_prompt_len)
+                   for n in [1] + [len(p) for p in prompts]]
+        bucket_steps = sum(n_new - 1 + (b == 1) for b in buckets)
+        # The prefill of a 1-token bucket (the warm-up's) is a
+        # single-token step of the target and of the draft.
+        one_token = buckets.count(1)
+        serving = {}
+        fd_launches = 0
+        for name, (rc, counts) in stops.items():
+            got = counts["launches"]
+            if name == "plain":
+                want, what = (args.num_layers * bucket_steps,
+                              f"{args.num_layers} layers x {bucket_steps} "
+                              f"single-token steps over {len(prompts) + 1} "
+                              f"generates (the warm-up first)")
+                row = {}
+            else:
+                calls = counts["spec_calls"]
+                rounds = sum(x[0] for x in calls)
+                want, what = (
+                    DISTILL_DRAFT_LAYERS * (SPEC_K + 1) * rounds
+                    + (args.num_layers + DISTILL_DRAFT_LAYERS) * one_token,
+                    f"{DISTILL_DRAFT_LAYERS} draft layers x {SPEC_K + 1} "
+                    f"draft steps x {rounds} rounds, + ({args.num_layers} + "
+                    f"{DISTILL_DRAFT_LAYERS}) layers x {one_token} 1-token "
+                    f"prefill (the warm-up's included)")
+                # The requests' rounds: every call but the warm-up.
+                r, d, a = (sum(x[i] for x in calls[1:]) for i in range(3))
+                row = {"acceptance": a / max(d, 1),
+                       "tokens_per_round": 1 + a / max(r, 1),
+                       "rounds": r, "drafted": d, "accepted": a}
+            if (got["flash_decode"] != want
+                    or any(got[k] for k in FA_KERNELS)):
+                raise AssertionError(f"distill {name} server: launches "
+                                     f"{got}, expected flash_decode {want} "
+                                     f"({what})")
+            fd_launches += want
+            rows, lat = answers[name]
+            plat = answers["plain"][1]
+            row.update(exit_code=rc, start_s=ready[name],
+                       latency_ms=lat,
+                       latency_vs_plain=[round(x / y, 3)
+                                         for x, y in zip(lat, plat)],
+                       launches={"flash_decode": want, "counted_as": what},
+                       bf16_agreement_with_plain=_agreement(
+                           rows, answers["plain"][0], prompts))
+            if name != "plain":
+                row["f32_acceptance"] = f32[name]
+            serving[name] = row
+    steps["d_serve"] = {"seconds": round(d_seconds, 3), "servers": serving,
+                        "seconds_span": "the servers' start to their stop; "
+                                        "the f32 checks and the small recipe "
+                                        "ran in this process meanwhile"}
+    if not distilled > random_init + SMALL_MARGIN:
+        raise AssertionError(f"distill small recipe: the distilled draft "
+                             f"accepted {distilled}, the random one "
+                             f"{random_init}: not above by {SMALL_MARGIN}")
+    fa_launches = {k: (steps["a_train_target"]["launches"][k]
+                       + steps["c_train_draft"]["launches"][k])
+                   for k in FA_KERNELS}
+    _phase("distill", card=card, steps=steps,
+           chain="train_lm (defaults, --checkpoint-dir) -> "
+                 "make_distill_data --tokens 65536 --batch 64 --prompt-len "
+                 "8 --gen-len 120 -> train_lm --num-layers 3 --data-dir -> "
+                 "serve_lm --flash-decode --checkpoint-dir [--speculative 4 "
+                 "[--draft-checkpoint-dir]], each its own process",
+           prompt_lens=INT8_LENS, max_new_tokens=n_new,
+           small_recipe={"distilled_acceptance": distilled,
+                         "random_acceptance": random_init,
+                         "margin": SMALL_MARGIN,
+                         "seconds": round(small_s, 3),
+                         "recipe": "tests/test_distill.py's: vocab 32, a "
+                                   "2-layer target (30 steps), 40,000 "
+                                   "tokens, a 1-layer draft (60 steps), "
+                                   "from its JAX draws (PRNGKey 0, 0, "
+                                   "123)"},
+           launches={"flash_decode": fd_launches, **fa_launches},
+           note="no acceptance margin at full width: the target trained on "
+                "synthetic uniform tokens may carry nothing to distill")
+    return fd_launches, fa_launches
+
+
+# The fleet_soak phase: the JAX Makefile's soak and anomaly legs through the
+# port's cmd/fleet_soak.py, one process each.
+SOAK_RUNS = (
+    ("soak_ci", ["--scenario", "scenarios/soak_ci.json"]),
+    ("soak_anomaly", ["--scenario", "scenarios/soak_anomaly.json",
+                      "--anomaly-gate", "--anomaly-fp-budget", "2"]),
+)
+SOAK_TIMEOUT_S = 300
+
+
+def fleet_soak_phase(card):
+    """Phase 42f: the port's fleet_soak on both scenarios."""
+    before = _kernel_counts()
+    runs = {}
+    for name, argv in SOAK_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{CLI}.fleet_soak", *argv], cwd=HERE,
+            env=_tool_env(), capture_output=True, text=True,
+            timeout=SOAK_TIMEOUT_S)
+        seconds = round(time.perf_counter() - t0, 3)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"fleet_soak {name} exited "
+                                 f"{proc.returncode} after {seconds} s: "
+                                 f"{proc.stderr[-4000:]}")
+        report = json.loads(lines[-1])
+        soak = report["soak"]
+        sentinels = soak["sentinels"]
+        det = (report.get("anomaly") or {}).get("detection") or {}
+        runs[name] = {
+            "argv": argv, "exit_code": proc.returncode, "seconds": seconds,
+            "converged": report["converged"], "windows": soak["windows"],
+            "kills": soak["kills"], "greys": soak["greys"],
+            "heals": soak["heals"],
+            "sentinels": {
+                "monotonicity": sentinels["monotonicity"]["ok"],
+                "leaks": sentinels["leaks"]["ok"],
+                "leak_series": len(sentinels["leaks"]["series"]),
+                "tuner": sentinels["tuner"]["reason"]},
+            "slo_ok": report["slo"]["ok"]}
+        if det:
+            runs[name]["anomaly"] = {
+                "recall": det["recall"], "truth": det["truth"],
+                "false_positives": det["false_positive_count"],
+                "clean_windows": det["clean_windows"],
+                "detect_windows_max": det["detect_windows_max"]}
+    _launches_none("fleet_soak", before)
+    _phase("fleet_soak", card=card, runs=runs,
+           check="each run exits 0: converged, every sentinel and SLO ok, "
+                 "and under --anomaly-gate recall 1.0 with at most 2 false "
+                 "positives")
 
 
 MESH_STEPS = 6  # == TRAIN_STEPS: mesh_train's losses beside the train phase's
@@ -7445,6 +8037,9 @@ def main():
     _timed("fleet_sim", fleet_sim_phase, smi)
     _timed("fleet_gpu", fleet_gpu_phase, smi)
     _launches_none("the node, DCN and fleet phases", before)
+    distill_fd, distill_fa = _timed("distill", distill_phase, dev, smi)
+    fd_launches += distill_fd
+    _timed("fleet_soak", fleet_soak_phase, smi)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -7457,7 +8052,7 @@ def main():
                               + mesh_launches[name] + seq_launches[name]
                               + resume_launches[name] + pipe_launches[name]
                               + moe_mesh_launches[name]
-                              + dry_launches[name]),
+                              + dry_launches[name] + distill_fa[name]),
                  **{k: fa_rows[name][k] for k in keys}}
                 for name, (line, _, src) in FA_KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

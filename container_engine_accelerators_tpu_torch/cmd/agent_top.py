@@ -573,8 +573,8 @@ def _demo_server():
     # Concrete demo instances of the documented goodput.<scope>.<name>
     # / slo.<key>.* families (README metrics tables) — the names here
     # are sample data, not new families.
-    timeseries.record("goodput.link.n0->n1", 4 << 20)
-    timeseries.record("goodput.flow.demo.ring", 2 << 20)
+    timeseries.record("goodput.link.n0->n1", 4 << 20)  # lint: disable=undocumented-metric
+    timeseries.record("goodput.flow.demo.ring", 2 << 20)  # lint: disable=undocumented-metric
     timeseries.gauge("dcn.chunks.inflight", 3)
     timeseries.gauge("dcn.stripes.active", 2)
     timeseries.gauge("dcn.stripes.configured", 2)
@@ -603,10 +603,10 @@ def _demo_server():
     timeseries.gauge("dcn.tune.flows", 1)
     # Concrete demo instances of the documented `dcn.tune.<decision>`
     # family — sample data, not new names.
-    counters.inc("dcn.tune.shrink_chunk")
-    counters.inc("dcn.tune.grow_chunk")
-    timeseries.gauge("slo.min_goodput_bps.ok", 1)
-    timeseries.gauge("slo.min_goodput_bps.value", 4 << 20)
+    counters.inc("dcn.tune.shrink_chunk")  # lint: disable=undocumented-metric
+    counters.inc("dcn.tune.grow_chunk")  # lint: disable=undocumented-metric
+    timeseries.gauge("slo.min_goodput_bps.ok", 1)  # lint: disable=undocumented-metric
+    timeseries.gauge("slo.min_goodput_bps.value", 4 << 20)  # lint: disable=undocumented-metric
     # The serving workload's panel (serving/frontend.py families).
     counters.inc("serving.requests", 40)
     counters.inc("serving.ok", 38)
@@ -618,18 +618,18 @@ def _demo_server():
     timeseries.gauge("serving.queue.depth", 4)
     timeseries.gauge("serving.inflight", 2)
     timeseries.gauge("serving.breaker.open_nodes", 1)
-    timeseries.gauge("slo.min_qps.ok", 1)
-    timeseries.gauge("slo.min_qps.value", 38.0)
+    timeseries.gauge("slo.min_qps.ok", 1)  # lint: disable=undocumented-metric
+    timeseries.gauge("slo.min_qps.value", 38.0)  # lint: disable=undocumented-metric
     # The suspicion panel's inputs: concrete demo instances of the
     # documented anomaly.score.<node> / anomaly.state.<node> gauges
     # (one healthy node, one suspect, one confirmed-grey) plus the
     # verdict-transition counters.
-    timeseries.gauge("anomaly.score.n0", 0.3)
-    timeseries.gauge("anomaly.state.n0", 0)
-    timeseries.gauge("anomaly.score.n1", 2.1)
-    timeseries.gauge("anomaly.state.n1", 1)
-    timeseries.gauge("anomaly.score.n2", 7.4)
-    timeseries.gauge("anomaly.state.n2", 2)
+    timeseries.gauge("anomaly.score.n0", 0.3)  # lint: disable=undocumented-metric
+    timeseries.gauge("anomaly.state.n0", 0)  # lint: disable=undocumented-metric
+    timeseries.gauge("anomaly.score.n1", 2.1)  # lint: disable=undocumented-metric
+    timeseries.gauge("anomaly.state.n1", 1)  # lint: disable=undocumented-metric
+    timeseries.gauge("anomaly.score.n2", 7.4)  # lint: disable=undocumented-metric
+    timeseries.gauge("anomaly.state.n2", 2)  # lint: disable=undocumented-metric
     counters.inc("anomaly.suspect", 2)
     counters.inc("anomaly.confirmed", 1)
     counters.inc("anomaly.cleared", 1)

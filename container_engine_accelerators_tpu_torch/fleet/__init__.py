@@ -16,10 +16,12 @@ imports torch).
                        SIGKILL and supervised respawn;
 - ``fleet.telemetry``  windowed goodput per {node, link}, SLOs, scrapes;
 - ``fleet.controller`` FleetController: declarative scenarios and the
-                       per-node / per-link report.
+                       per-node / per-link report;
+- ``fleet.soak``       SoakWorld: every workload at once under a seeded
+                       fault schedule, judged by invariant sentinels.
 
 Drive it with ``python -m container_engine_accelerators_tpu_torch.cmd.
-fleet_sim``.  Names resolve lazily, so importing the package loads
+fleet_sim`` (``cmd.fleet_soak`` for the soak world).  Names resolve lazily, so importing the package loads
 nothing else.
 """
 
@@ -38,7 +40,10 @@ _EXPORTS = {
     "ProcHandshakeError": "proc",
     "ProcNode": "proc",
     "PyXferd": "xferd",
+    "SoakSchedule": "soak",
+    "SoakWorld": "soak",
     "load_scenario": "controller",
+    "run_soak": "soak",
 }
 
 __all__ = sorted(_EXPORTS)

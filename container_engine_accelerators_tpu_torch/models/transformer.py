@@ -471,10 +471,11 @@ class TransformerLM(nn.Module):
 
 def init_params(model: TransformerLM, generator: torch.Generator) -> dict:
     """Random f32 weights for ``model``'s shapes, drawn on the CPU from
-    ``generator``: the flax initializers' law (truncated normal at two
-    standard deviations, variance 1/fan_in — lecun_normal for the
-    kernels, the embedding's fan-in being its vocab axis), norm scales
-    1.  Load with ``model.load_state_dict``, which casts once.  A
+    ``generator``: the flax initializers' law — the kernels lecun_normal
+    (truncated normal at two standard deviations, variance 1/fan_in),
+    the embedding ``nn.Embed``'s default (a normal of variance 1/D: its
+    fan-in is the feature axis, not the vocab), norm scales 1.  Load
+    with ``model.load_state_dict``, which casts once.  A
     ``quant=True`` model takes ``quant.serving_params`` of a float
     model's weights instead."""
     if getattr(model, "quant", False):
@@ -485,6 +486,12 @@ def init_params(model: TransformerLM, generator: torch.Generator) -> dict:
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
             out[name] = torch.ones(p.shape)
+            continue
+        if name == "embed":
+            # variance_scaling(1.0, "fan_in", "normal", out_axis=0) on
+            # [V, D]: fan-in D, and "normal" is not truncated.
+            out[name] = (torch.randn(p.shape, generator=generator)
+                         / math.sqrt(p.shape[1]))
             continue
         if leaf in ("wi_gate", "wi_up", "wo"):
             # Stacked experts [E, in, out]: flax's lecun_normal with

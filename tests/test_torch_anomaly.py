@@ -4,17 +4,24 @@ package's.
 The JAX package's cases (peer-relative robust z-scores, the verdict
 ladder, the kill switch, the scheduler surcharge on the port's
 ``scheduler/topology.py`` labels, windowed p99 from scraped buckets,
-the detection report and ``agent_top``'s suspicion panel) run against
-the port's modules; then the same seeded evidence windows give the same
+the detection report, ``agent_top``'s suspicion panel, and the soak
+world's side: the ``slow_shm`` schedule and daemon throttle, the
+ground truth a fault records, and — ``slow``, as in JAX — a scripted
+grey node confirmed and cleared end to end) run against the port's
+modules; then the same seeded evidence windows give the same
 verdict sequence, scores and reports in both packages.
 """
 
 import importlib
+import time
 
 import numpy as np
 import pytest
 
 from container_engine_accelerators_tpu.obs import anomaly as jax_anomaly
+from container_engine_accelerators_tpu_torch.fleet import soak
+from container_engine_accelerators_tpu_torch.fleet.soak import SoakSchedule
+from container_engine_accelerators_tpu_torch.fleet.xferd import PyXferd
 from container_engine_accelerators_tpu_torch.obs import anomaly
 from container_engine_accelerators_tpu_torch.obs.anomaly import (
     CONFIRMED,
@@ -384,6 +391,154 @@ class TestAgentTopSuspicionPanel:
         out = capsys.readouterr().out
         assert "suspicion (grey-failure)" in out
         assert "CONFIRMED-GREY" in out
+
+
+# ---------------------------------------------------------------------------
+# the slow_shm grey fault: schedule grammar + daemon throttle
+# ---------------------------------------------------------------------------
+
+
+class TestSlowShmSchedule:
+    def test_shm_scenarios_add_the_window_five_leg(self):
+        s = SoakSchedule(99, NAMES, shm=True)
+        (slow,) = s.faults_for(5)
+        assert slow["slow_shm"] in NAMES and slow["for"] == 1
+        assert s.last_deterministic == 5
+
+    def test_socket_scenarios_never_draw_slow_shm(self):
+        """A socket-only fleet never commits to shm — the fault would
+        be a no-op and the judge would count an undetectable truth."""
+        s = SoakSchedule(99, NAMES)
+        assert s.last_deterministic == 4
+        for w in range(60):
+            for entry in s.faults_for(w):
+                assert "slow_shm" not in entry
+
+    def test_shm_flag_never_perturbs_other_draws(self):
+        """slow_shm draws from a band the non-shm grammar leaves
+        clean: any window where the socket grammar drew something must
+        draw EXACTLY the same thing with shm on."""
+        plain = SoakSchedule(1234, NAMES)
+        shm = SoakSchedule(1234, NAMES, shm=True)
+        for w in range(6, 60):
+            a, b = plain.faults_for(w), shm.faults_for(w)
+            if a:
+                assert a == b
+            elif b:
+                (extra,) = b
+                assert "slow_shm" in extra
+
+    def test_set_shm_delay_clamped(self, tmp_path):
+        d = PyXferd(str(tmp_path / "a"), node="a")
+        assert d.set_shm_delay(99.0) == 2.0
+        assert d.set_shm_delay(-5.0) == 0.0
+        assert d.set_shm_delay(0.25) == 0.25
+        assert d.set_shm_delay(0.0) == 0.0
+
+
+class TestRecordTruth:
+    class _Stub:
+        def __init__(self, tel):
+            self.telemetry = tel
+
+    class _Tel:
+        def __init__(self):
+            self.anomaly_truth = []
+            self.anomaly_chaos = set()
+
+    def test_grey_family_faults_become_truth_with_footprint(self):
+        tel = self._Tel()
+        world = self._Stub(tel)
+        soak.SoakWorld._record_truth(
+            world, 3, {"slow_shm": "n1", "for": 1, "applied": 2})
+        (t,) = tel.anomaly_truth
+        assert t == {"node": "n1", "window": 3, "lifetime": 1,
+                     "kind": "slow_shm"}
+        # Footprint: lifetime + the settle decay allowance.
+        span = 1 + soak.ANOMALY_SETTLE_WINDOWS + 1
+        assert tel.anomaly_chaos == set(range(3, 3 + span))
+
+    def test_non_grey_faults_mark_chaos_only(self):
+        tel = self._Tel()
+        soak.SoakWorld._record_truth(
+            self._Stub(tel), 1,
+            {"action": "kill", "node": "n0", "for": 1, "applied": 1})
+        assert tel.anomaly_truth == []
+        assert 1 in tel.anomaly_chaos
+
+    def test_unapplied_faults_are_not_truth(self):
+        tel = self._Tel()
+        soak.SoakWorld._record_truth(
+            self._Stub(tel), 2,
+            {"grey": "nX", "for": 1, "applied": 0,
+             "skipped": "unknown node"})
+        assert tel.anomaly_truth == [] and tel.anomaly_chaos == set()
+
+
+# ---------------------------------------------------------------------------
+# the composed proof: scripted grey -> confirm -> SIGKILL -> clear
+# ---------------------------------------------------------------------------
+
+
+class _ScriptedSchedule:
+    """A deterministic stand-in for SoakSchedule: a sustained
+    slow_ring grey on a known node (node-local completer throttle, so
+    the attribution is unambiguous — the ``grey:`` kind smears link
+    latency onto every peer), then a SIGKILL of the same node — the
+    confirm must come from the peer-relative evidence, and the clear
+    must survive the respawn's counter resets."""
+
+    def __init__(self, names):
+        self.names = list(names)
+        self.grey_node = self.names[-1]
+        self.last_deterministic = 5
+
+    def faults_for(self, window):
+        if window == 1:
+            return [{"slow_ring": self.grey_node, "for": 3}]
+        if window == 5:
+            return [{"action": "kill", "node": self.grey_node,
+                     "for": 1}]
+        return []
+
+
+@pytest.mark.slow
+class TestGreyConfirmAndClearE2E:
+    def test_scripted_grey_is_confirmed_then_cleared(self):
+        t0 = time.monotonic()
+        world = soak.SoakWorld(
+            {"nodes": 3, "proc": True, "shm": True,
+             "shm_direct": False, "min_windows": 14,
+             "payload_bytes": 32768, "chunk_bytes": 8192,
+             "slo": {"min_final_goodput_bps": 1024,
+                     "max_dedup_ratio": 0.9,
+                     "max_grey_detection_windows": 4}},
+            duration_s=8.0, window_s=1.0, seed=77)
+        try:
+            world.schedule = _ScriptedSchedule(
+                list(world.topology.specs))
+            grey = world.schedule.grey_node
+            report = world.run()
+        finally:
+            world.close()
+        assert report["converged"]
+        anom = report["anomaly"]
+        assert anom["enabled"]
+        # The grey node was CONFIRMED from peer-relative evidence...
+        assert any(c["entity"] == grey
+                   for c in anom["confirmations"]), anom
+        # ...and cleared by the end: the heal plus the respawn's fresh
+        # process left nothing to convict.
+        assert anom["verdicts"][grey]["state"] == "healthy", anom
+        det = anom["detection"]
+        assert det["truth"] >= 1
+        assert det["recall"] == 1.0, det
+        assert det["false_positive_count"] == 0, det
+        # The detection-latency SLO measurement landed.
+        (check,) = [c for c in report["slo"]["checks"]
+                    if c["slo"] == "max_grey_detection_windows"]
+        assert check["value"] <= anomaly.DETECT_WINDOWS_K
+        assert time.monotonic() - t0 < 120
 
 
 # ---------------------------------------------------------------------------

@@ -67,7 +67,9 @@ def test_port_imports_without_jax():
               "fleet.node", "fleet.proc", "fleet.telemetry",
               "serving", "serving.breaker", "serving.frontend",
               "collectives.topo", "collectives.search",
-              "collectives.runner", "fleet.controller", "cmd.fleet_sim"}
+              "collectives.runner", "fleet.controller", "cmd.fleet_sim",
+              "cmd.make_distill_data", "analysis.lint", "cmd.agent_lint",
+              "fleet.soak", "cmd.fleet_soak"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys

@@ -239,7 +239,36 @@ def test_init_params_seeded_and_scaled():
     # lecun-normal law: std sqrt(1/fan_in) (fan_in 64 for q, 256 for down)
     assert abs(a["blocks.0.attn.q"].std().item() - 64 ** -0.5) < 0.02
     assert abs(a["blocks.0.down"].std().item() - 256 ** -0.5) < 0.01
+    # nn.Embed's default: std sqrt(1/D) over the 64 features, untruncated
+    assert abs(a["embed"].std().item() - 64 ** -0.5) < 0.005
+    assert a["embed"].abs().max().item() > 3 * 64 ** -0.5
     assert torch.equal(a["ln_f.scale"], torch.ones(64))
+
+
+@pytest.mark.parametrize("experts", [0, 4])
+def test_init_params_law_matches_flax_init(experts):
+    """Every leaf's spread as flax's ``init`` draws it (tolerance: 4% of
+    the flax leaf's std, the sampling noise at these sizes being under
+    1%; the router's 256 draws: 15%), and the same tails: at most the
+    truncation at two standard deviations where flax truncates."""
+    from container_engine_accelerators_tpu_torch.models.convert import (
+        from_flax_params,
+    )
+
+    cfg = dict(vocab_size=1000, num_layers=2, num_heads=4, head_dim=16,
+               mlp_dim=256, num_experts=experts)
+    ref = from_flax_params(jtr.transformer_lm(**cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
+    ours = init_params(TransformerLM(**cfg, device="meta"),
+                       torch.Generator().manual_seed(0))
+    assert ours.keys() == ref.keys()
+    for name, w in ours.items():
+        want = ref[name].std().item()
+        tol = 0.15 if name.endswith("router") else 0.04
+        assert abs(w.std().item() - want) <= tol * max(want, 1e-12), name
+        # Truncated at 2 sigma of the untruncated law (std / 0.8796).
+        truncated = ref[name].abs().max().item() <= 2.3 * want
+        assert (w.abs().max().item() <= 2.3 * want) == truncated, name
 
 
 def test_bucket_len_matches_jax():
