@@ -253,7 +253,7 @@ kernel against its plain PyTorch version.  Phases, one JSON line each:
 29. ``mesh_serve``: ``cmd/serve_lm.py``'s ``build_generate(args,
     create_mesh(1, 1))`` and ``start_engine`` at phase 5's
     flags on the (1, 1) mesh against the plain server: one 64-token
-    prompt's 16-token greedy request (latency, twice) and
+    prompt's 8-token greedy request (latency, once) and
     ``serve_slots``' 8 prompts through ``--slots 8`` (batch wall time,
     once), identical greedy tokens and flash decode launches; then the
     f32 greedy tokens (8, after a 300-token prompt) of a TP-sharded
@@ -455,11 +455,24 @@ kernel against its plain PyTorch version.  Phases, one JSON line each:
     --anomaly-gate --anomaly-fp-budget 2``, one process each: each must
     exit 0.  Numbers: converged, windows, kills / greys / heals, each
     sentinel's verdict, the anomaly recall and false positives, seconds;
+42g. ``measure``: the port's measurement tools, each ``main(argv)`` in
+    this process: ``bench_micro``, ``bench_attention --check --steps 5``
+    (flash against dense within 1e-2 of the largest |value| in bf16, its
+    flash launches exactly what its dispatches predict), ``bench_prefix
+    --calls 5`` (the cached call's tokens the full call's),
+    ``bench_serving`` at the watcher's widths in f32 with 16 new tokens,
+    greedy and ``--speculative 4`` (its gates as they stand),
+    ``roofline_resnet --batches 128 --steps 20``, ``roofline_check
+    --steps 10 --profile-steps 4`` (a verdict on both floor axes); every
+    share of a peak or a floor in [0, 1].  Numbers: every tool's JSON
+    lines, the bf16 logit spread across paddings at the serving width,
+    seconds;
 43. the ``{"kernels": [...]}`` summary line (flash decode's launches: the
     ``serve`` and ``serve_slots`` phases' and phases 14-17', 20's, 29's
     and 42e's servers'; flash attention's: the ``train``, ``train_moe``,
     ``mesh_train``, ``seq_train``, ``seq_resume``, ``pipeline``,
-    ``mesh_train_moe`` and ``dryrun`` phases' and 42e's trainers').
+    ``mesh_train_moe`` and ``dryrun`` phases', 42e's trainers' and
+    42g's ``bench_attention``).
 
 Each phase's seconds follow it on a ``timing`` line.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -495,8 +508,6 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # atol and rtol, as the JAX tests
 # (0.0078) of it; the rest is room for p rounded against another running
 # max.
 BF16_ERR_TO_MAX = 1e-2
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, same source
 KERNEL_SRC = "container_engine_accelerators_tpu_torch/ops/csrc/flash_decode.cu"
 TPU_KERNEL = "container_engine_accelerators_tpu/ops/flash_decode.py:62"
 L2_BYTES = 50 * 2 ** 20
@@ -522,6 +533,24 @@ SLOTS_SEED = 6  # prompt lengths and tokens of the serve_slots phase
 PROFILE_STEPS = 21
 TRACED_STEPS = 11
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _hbm_bytes_per_s():
+    """The card's HBM bytes/s (``utils/chip.py``, NVIDIA's data sheet)."""
+    from container_engine_accelerators_tpu_torch.utils.chip import (
+        _chip_hbm_bw,
+    )
+
+    return _chip_hbm_bw(0)[0]
+
+
+def _peak_flops(dtype):
+    """The card's dense peak FLOP/s for ``dtype`` (``utils/chip.py``)."""
+    from container_engine_accelerators_tpu_torch.utils.chip import (
+        _chip_peak_flops,
+    )
+
+    return _chip_peak_flops(0, dtype)[0]
 
 
 def _phase(phase, **kw):
@@ -1100,8 +1129,8 @@ def time_kernel(fd, dev, cache_len, lengths, heads=8, kv_heads=8,
     nbytes = (2 * batch * heads * head_dim * 2 + 4 * batch
               + 2 * visible * kv_heads * head_dim * 2)
     flops = 4 * heads * head_dim * visible
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    bytes_ms = nbytes / _hbm_bytes_per_s() * 1e3
+    ops_ms = flops / _peak_flops("bfloat16") * 1e3
     spread = (f"length={lengths[0]}" if batch == 1 else
               f"lengths {min(lengths)}..{max(lengths)} (sum {visible})")
     row = {"shape": f"B={batch} H={heads} KVH={kv_heads} D={head_dim} "
@@ -1447,8 +1476,8 @@ def time_fa_kernels(fa, dev):
     rows = {}
     for name, (line, products, src) in FA_KERNELS.items():
         flops = 2 * products * d * pairs
-        bytes_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bytes_ms = nbytes[name] / _hbm_bytes_per_s() * 1e3
+        ops_ms = flops / _peak_flops("bfloat16") * 1e3
         err_keys = {"flash_attention_fwd": ("o",),
                     "flash_attention_bwd_dq": ("dq",),
                     "flash_attention_bwd_dkv": ("dk", "dv")}[name]
@@ -1477,8 +1506,8 @@ def time_fa_kernels(fa, dev):
     # once, dq, dk and dv written once.
     bwd_ms = _graph_ms(lambda q, k, v, o, lse, do:
                        fa.flash_backward(q, k, v, o, lse, do, True, scale), inputs)
-    bytes_ms = (8 * tensor_bytes + lse_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * 7 * d * pairs / PEAK_FLOPS["bfloat16"] * 1e3
+    bytes_ms = (8 * tensor_bytes + lse_bytes) / _hbm_bytes_per_s() * 1e3
+    ops_ms = 2 * 7 * d * pairs / _peak_flops("bfloat16") * 1e3
     _phase("fa_backward_time", what="flash_attention_bwd: the port's whole "
            "bf16 backward (flash_backward: the dQ op with the delta pre-pass, "
            "then the dK/dV op with its delta) and SDPA's backward kernel, "
@@ -3032,11 +3061,14 @@ IMAGE_TOL = {"logits_to_max": 1e-4, "loss_rel": 1e-4, "stats_to_leaf_max": 1e-4,
 
 
 def _bf16_peak(card_name):
-    """NVIDIA's dense bf16 peak for an H100 by its name (the data sheet:
-    SXM 989 TFLOP/s, PCIe 756), else None."""
-    if "H100" not in card_name:
-        return None
-    return 756e12 if "PCIe" in card_name else 989e12
+    """NVIDIA's dense bf16 peak for an H100 by its name
+    (``utils/chip.py``), else None."""
+    from container_engine_accelerators_tpu_torch.utils.chip import (
+        _chip_peak_flops,
+    )
+
+    peak, source = _chip_peak_flops(name=card_name)
+    return peak if source != "default" else None
 
 
 def _kernel_counts():
@@ -5281,7 +5313,7 @@ DCNXFERD_BIN = "native/dcnxferd/build/dcnxferd"  # listed in .gitignore
 DCNXFERD_POOL = 1 << 30  # both flows of a leg, with room
 DCN_BENCH_SIZES = (65536, 1048576, 16777216, 67108864)
 DCN_BENCH_ARGS = ["--producer", "--ring-socket", "--tuned", "--sizes",
-                  ",".join(map(str, DCN_BENCH_SIZES)), "--iters", "5"]
+                  ",".join(map(str, DCN_BENCH_SIZES)), "--iters", "3"]
 
 
 def _dcnxferd():
@@ -6336,17 +6368,198 @@ def fleet_soak_phase(card):
                  "positives")
 
 
+# The measure phase: the port's measurement tools, each main(argv) in this
+# process (a CLI process spends ~20 s starting), at the watcher's shapes.
+MEASURE_ATTN_STEPS = 5
+# bench_serving at the watcher's greedy shape, in f32: at this width the
+# bf16 logits of one context move by 0.04-0.05 with the padding alone (the
+# JAX model on the CPU as the port on the card, PERF.md §6), past the 0.02
+# tie margin its gate holds the engine to, so in bf16 the gate fails on
+# rounding; in f32 the gate's premise (the same math on both paths) holds.
+# 16 new tokens, not the watcher's 64: the whole script must stay within
+# its time limit.
+MEASURE_SERVING = ["--slots", "4", "--requests", "12", "--max-new", "16",
+                   "--num-layers", "12", "--num-heads", "16", "--head-dim",
+                   "64", "--mlp-dim", "4096", "--vocab-size", "32768",
+                   "--dtype", "float32"]
+MEASURE_RUNS = (
+    ("bench_micro", []),
+    ("bench_attention", ["--check", "--steps", str(MEASURE_ATTN_STEPS)]),
+    ("bench_prefix", ["--calls", "5"]),
+    ("bench_serving", MEASURE_SERVING),
+    ("bench_serving", MEASURE_SERVING + ["--speculative", "4"]),
+    ("roofline_resnet", ["--batches", "128", "--steps", "20"]),
+    ("roofline_check", ["--steps", "10", "--profile-steps", "4"]),
+)
+
+
+def _tool_lines(name, argv):
+    """Run ``cmd/<name>.py``'s ``main(argv)`` in this process -> (its
+    stdout's JSON lines, seconds); a non-zero return raises."""
+    import contextlib
+    import importlib
+    import io
+
+    tool = importlib.import_module(f"{CLI}.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main(list(argv))
+    seconds = round(time.perf_counter() - t0, 3)
+    if rc:
+        raise AssertionError(f"{name} {argv} returned {rc}")
+    return ([json.loads(line) for line in buf.getvalue().splitlines()
+             if line.startswith("{")], seconds)
+
+
+def _share(what, value):
+    """A share of a peak or a floor: in [0, 1], else the phase fails."""
+    if value is None or not 0.0 <= value <= 1.0:
+        raise AssertionError(f"measure: {what} = {value}, not a share in "
+                             f"[0, 1]")
+    return value
+
+
+def _bf16_logit_spread():
+    """The largest difference between the bf16 logits of one 70-token
+    context prefilled in buckets of 70, 96 and 128 tokens, on the
+    watcher's full-width model (random weights from seed 0): the rounding
+    noise that bench_serving's tie margin is held against."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd.bench_serving import (
+        _random_lm,
+    )
+    from container_engine_accelerators_tpu_torch.models.generate import (
+        prefill,
+    )
+
+    cfg = dict(vocab_size=32768, num_layers=12, num_heads=16, head_dim=64,
+               mlp_dim=4096)
+    model = _random_lm(cfg, torch.bfloat16, torch.device("cuda"), 0)
+    ids = torch.randint(0, 32768, (70,),
+                        generator=torch.Generator().manual_seed(3)).tolist()
+    rows = []
+    with torch.inference_mode():
+        for bucket in (70, 96, 128):
+            p = torch.tensor([ids + [0] * (bucket - 70)], device="cuda")
+            rows.append(prefill(model, p, 70, bucket + 1)[1].float()[0])
+    return max(float((a - b).abs().max()) for a in rows for b in rows)
+
+
+def measure_phase(fa, card):
+    """Phase 42g: the measurement tools on the card — bench_micro,
+    bench_attention --check (its flash launches exact, counted into the
+    kernels line), bench_prefix, bench_serving greedy and --speculative 4
+    at the watcher's widths (their gates as they stand), roofline_resnet
+    and roofline_check.  Every share of a peak or a floor <= 1."""
+    import torch
+
+    peak = _peak_flops("bfloat16")
+    before = _kernel_counts()
+    out, seconds, shares = {}, {}, {}
+    flash_calls = None
+    for name, argv in MEASURE_RUNS:
+        key = name + ("_spec" if "--speculative" in argv else "")
+        fa_before = dict(fa.LAUNCHES)
+        lines, seconds[key] = _tool_lines(name, argv)
+        out[key] = lines
+        if name == "bench_attention":
+            flash_calls = {k: fa.LAUNCHES[k] - fa_before[k]
+                           for k in fa_before}
+        torch.cuda.empty_cache()
+
+    micro = {r["metric"]: r for r in out["bench_micro"]}
+    for metric in ("micro_hbm_copy_gbps", "micro_matmul_bf16_tflops"):
+        shares[metric] = _share(metric, micro[metric]["vs_baseline"])
+
+    rows = [r for r in out["bench_attention"] if "fwd_ms" in r]
+    checks = [r for r in out["bench_attention"]
+              if "check_max_abs_err_out" in r]
+    flash = [r for r in rows if r["config"].startswith("flash_")]
+    if len(flash) != 1 or len(checks) != 1 or len(rows) != 2:
+        raise AssertionError(f"bench_attention rows: {out['bench_attention']}")
+    if flash_calls != flash[0]["flash_calls"]:
+        raise AssertionError(f"bench_attention launched {flash_calls}, its "
+                             f"dispatches predict {flash[0]['flash_calls']}")
+    for r in rows:
+        if "suspect" in r:
+            raise AssertionError(f"bench_attention row suspect: {r}")
+        for k in ("fwd_tflops", "fwdbwd_tflops"):
+            shares[f"{r['config']}.{k}"] = _share(
+                f"{r['config']} {k} / peak", r[k] * 1e12 / peak)
+    check = checks[0]
+    errs = dict(zip(("out", "dq", "dk", "dv"),
+                    zip([check["check_max_abs_err_out"]]
+                        + check["check_max_abs_err_dqkv"],
+                        [check["check_ref_max_abs_out"]]
+                        + check["check_ref_max_abs_dqkv"])))
+    attn_err_to_max = {k: e / m for k, (e, m) in errs.items()}
+    if not all(v <= BF16_ERR_TO_MAX for v in attn_err_to_max.values()):
+        raise AssertionError(f"bench_attention --check: flash vs dense max "
+                             f"abs err over max |dense| {attn_err_to_max} "
+                             f"(bound {BF16_ERR_TO_MAX} in bf16)")
+
+    prefix = {r["metric"]: r for r in out["bench_prefix"]}
+    cached = prefix["prefix_ttft_cached_ms"]
+    if not cached["tokens_match_full"]:
+        raise AssertionError(f"bench_prefix: the cached call's tokens differ "
+                             f"from the full call's: {cached}")
+
+    serving = {k: out[k][-1] for k in ("bench_serving", "bench_serving_spec")}
+    for k, r in serving.items():
+        if r["platform"] != "cuda":
+            raise AssertionError(f"{k} ran on {r['platform']}")
+
+    (resnet,) = out["roofline_resnet"]
+    shares["roofline_resnet.mfu"] = _share("roofline_resnet mfu",
+                                           resnet["mfu"])
+    shares["roofline_resnet.mfu_ceiling"] = _share(
+        "roofline_resnet mfu_ceiling", resnet["mfu_ceiling"])
+    shares["roofline_resnet.fraction_of_ceiling"] = _share(
+        "roofline_resnet fraction_of_ceiling", resnet["fraction_of_ceiling"])
+    (check_row,) = out["roofline_check"]
+    shares["roofline_check.floor_over_step"] = _share(
+        "roofline_check floor / step", 1 / check_row["vs_baseline"])
+    shares["roofline_check.mxu_frac"] = _share("roofline_check mxu_frac",
+                                               check_row["mxu_frac"])
+    if not (check_row["roofline_verdict"] in (
+            "model-confirmed-headroom", "mxu-bound-headroom",
+            "model-refuted-near-ceiling")
+            and check_row["t_compute_ms"] > 0
+            and check_row["t_memory_ms"] > 0):
+        raise AssertionError(f"roofline_check: no verdict on both floor "
+                             f"axes: {check_row}")
+
+    spread = _bf16_logit_spread()
+    after = _kernel_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    want = {k: flash_calls.get(k, 0) for k in after}
+    if launched != want:
+        raise AssertionError(f"measure: launches {launched}, only "
+                             f"bench_attention's {want} expected")
+    _phase("measure", card=card, seconds=seconds,
+           total_s=round(sum(seconds.values()), 3), shares=shares,
+           attention_err_to_max=attn_err_to_max,
+           attention_err_bound=BF16_ERR_TO_MAX,
+           serving_bf16_logit_spread=spread,
+           serving_tie_margin=0.02,
+           flash_launches=flash_calls, tools=out)
+    return flash_calls
+
+
 MESH_STEPS = 6  # == TRAIN_STEPS: mesh_train's losses beside the train phase's
 MESH_IMAGE_STEPS = 8
 MESH_PARITY_BATCH = 32  # ResNet-50 f32 parity step (TF32 off)
 # Its steps and schedule: step 0 trains at lr 0 (warmup), so four steps
 # at lr 0.01 compare the losses after two real updates.
 MESH_PARITY_STEPS, MESH_PARITY_LR = 4, 0.01
-MESH_SERVE_NEW = 16  # cut from 32 to make room for phases 32a-32e
+# Cut from 32 to make room for phases 32a-32e, then to 8 for phase 42g.
+MESH_SERVE_NEW = 8
 # A request through DTensor decode costs ~11.5 s of host dispatch on the
 # card (torch 2.11, PERF.md §6): few repeats, and the f32 check decodes few
 # tokens.
-MESH_REQUEST_REPS, MESH_SLOTS_REPS = 2, 1
+MESH_REQUEST_REPS, MESH_SLOTS_REPS = 1, 1
 MESH_F32_NEW = 8
 
 
@@ -7146,7 +7359,7 @@ def mesh_serve(fd, dev, card):
     (build_generate with ``create_mesh(1, 1)`` — ``serving_mesh`` takes a
     mesh only for ``--tp > 1`` —, the engine with the broadcast hook)
     beside the plain server:
-    one 16-token greedy request's latency (2 repeats) and an 8-request
+    one 8-token greedy request's latency and an 8-request
     --slots 8 batch's wall time; identical greedy tokens; flash decode
     launched alike; then f32 greedy tokens of a TP-sharded model equal
     to the plain model's."""
@@ -7527,7 +7740,7 @@ PIPE_MICROBATCHES = 4
 # bit-equal to their plain versions.
 FEATURE_MESH_FLAGS = ["--num-experts", "8", "--weights", "int8",
                       "--prefix-cache", "4", "--max-prompt-len", "256",
-                      "--max-new-tokens", "8"]
+                      "--max-new-tokens", "4"]
 FEATURE_MESH_PREFIX = 64  # tokens of the shared prefix
 FEATURE_MESH_ROWS = (5, 40, 17, 90)  # suffix lengths
 
@@ -8040,6 +8253,7 @@ def main():
     distill_fd, distill_fa = _timed("distill", distill_phase, dev, smi)
     fd_launches += distill_fd
     _timed("fleet_soak", fleet_soak_phase, smi)
+    measure_fa = _timed("measure", measure_phase, fa, smi)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -8052,7 +8266,8 @@ def main():
                               + mesh_launches[name] + seq_launches[name]
                               + resume_launches[name] + pipe_launches[name]
                               + moe_mesh_launches[name]
-                              + dry_launches[name] + distill_fa[name]),
+                              + dry_launches[name] + distill_fa[name]
+                              + measure_fa[name]),
                  **{k: fa_rows[name][k] for k in keys}}
                 for name, (line, _, src) in FA_KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -274,6 +274,10 @@ def sample_once() -> int:
     and fold run with NO lock held (first-party or otherwise); only
     the finished fold list touches the registry."""
     global _dropped, _sample_time_s, _started_mono
+    # The wall clock starts when the FIRST pass starts, before its fold:
+    # the pass's own time then counts in the elapsed time too, and the
+    # ratio cannot pass 1 (the JAX module starts it after the fold).
+    start_mono = time.monotonic()
     t0 = time.perf_counter()
     me = threading.get_ident()
     folds = [_fold_cached(frame)
@@ -282,7 +286,7 @@ def sample_once() -> int:
     dropped_now = 0
     with _lock:
         if _started_mono is None:
-            _started_mono = time.monotonic()
+            _started_mono = start_mono
         for folded, subsystem in folds:
             dropped_now += _ingest_locked(folded, subsystem, 1)
         _dropped += dropped_now

@@ -43,3 +43,12 @@ def resolve_device(device=None) -> "torch.device":  # noqa: F821
             f"device {dev} requested but CUDA is not available; pass "
             f"device='cpu' (--device cpu) to run on the CPU")
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on a CUDA ``device``; a no-op on the CPU,
+    whose ops return when done."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -69,7 +69,10 @@ def test_port_imports_without_jax():
               "collectives.topo", "collectives.search",
               "collectives.runner", "fleet.controller", "cmd.fleet_sim",
               "cmd.make_distill_data", "analysis.lint", "cmd.agent_lint",
-              "fleet.soak", "cmd.fleet_soak"}
+              "fleet.soak", "cmd.fleet_soak", "utils.chip",
+              "cmd.bench_micro", "cmd.bench_attention", "cmd.bench_prefix",
+              "cmd.bench_serving", "cmd.roofline_resnet",
+              "cmd.roofline_check"}
     assert {f"{PKG}.{m}" for m in slices} <= set(mods)
     code = f"""
 import importlib, importlib.util, sys

@@ -209,6 +209,36 @@ class TestKnobs:
         assert 0.0 <= snap["overhead_ratio"] <= 1.0
         assert "prof.overhead_ratio" in timeseries.gauges()
 
+    def test_overhead_ratio_at_most_one_over_many_deep_threads(self):
+        """The first pass's fold counts in the wall time too: over 800
+        idle threads 150 frames deep the fold takes longer than the gap
+        between two passes, and a clock started after it read above 1."""
+        release = threading.Event()
+        ready = threading.Semaphore(0)
+
+        def deep(n):
+            if n:
+                return deep(n - 1)
+            ready.release()
+            release.wait()
+
+        threads = [threading.Thread(target=deep, args=(150,), daemon=True)
+                   for _ in range(800)]
+        try:
+            for t in threads:
+                t.start()
+            for _ in threads:
+                ready.acquire()
+            profiler.sample_once()
+            time.sleep(0.01)
+            profiler.sample_once()
+            ratio = profiler.snapshot()["overhead_ratio"]
+        finally:
+            release.set()
+            for t in threads:
+                t.join()
+        assert ratio is not None and 0.0 < ratio <= 1.0
+
 
 # ---------------------------------------------------------------------------
 # bounded aggregation + cursor semantics
