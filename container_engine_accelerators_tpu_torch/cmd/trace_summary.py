@@ -12,6 +12,13 @@ end).  ``ProfilerStep#<n>`` annotations count the traced steps.  A trace
 without device events (a CPU run) gives device time 0 and a busy share of
 null.
 
+The program's own ranges (``lm.*`` ``cpu_op`` events, opened by
+``utils/profile.py::span``: ``lm.train.forward``, ``lm.train.backward``,
+``lm.train.optimizer``, ``lm.engine.step.dispatch``, ...) each get the
+device work they launched: a device operation belongs, through its
+runtime call's correlation id, to the innermost range that contains the
+launch.  ``ranges`` gives each range's count, device ms and launches.
+
 Usage:
   python -m container_engine_accelerators_tpu_torch.cmd.trace_summary \\
       <profile-dir-or-trace.json> [--top 30]
@@ -26,7 +33,9 @@ import sys
 from collections import defaultdict
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 STEP_PREFIX = "ProfilerStep#"
+RANGE_PREFIX = "lm."
 
 
 def parse_args(argv=None):
@@ -57,6 +66,34 @@ def _busy_us(intervals) -> float:
     return busy
 
 
+def by_range(spans) -> dict:
+    """Count, device ms and launches of each program range, every device
+    operation given to the innermost range around its launch."""
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in spans
+                    if e.get("cat") == "cpu_op"
+                    and e["name"].startswith(RANGE_PREFIX))
+    out = {}
+    for _, _, name in ranges:
+        out.setdefault(name, {"n": 0, "ms": 0.0, "launches": 0})["n"] += 1
+    launch = {e["args"]["correlation"]: e["ts"] for e in spans
+              if e.get("cat") in LAUNCH_CATS
+              and "correlation" in e.get("args", {})}
+    ops = sorted((launch[c], e["dur"]) for e in spans
+                 if e.get("cat") in DEVICE_CATS
+                 and (c := e.get("args", {}).get("correlation")) in launch)
+    active, i = [], 0
+    for ts, dur in ops:
+        while i < len(ranges) and ranges[i][0] <= ts:
+            active.append(ranges[i])
+            i += 1
+        active = [r for r in active if r[1] >= ts]
+        if active:  # nested ranges: the latest start is the innermost
+            row = out[active[-1][2]]
+            row["ms"] += dur / 1e3
+            row["launches"] += 1
+    return out
+
+
 def summarize(path: str, top: int = 30) -> dict:
     trace = find_trace(path)
     with open(trace) as f:
@@ -85,6 +122,14 @@ def summarize(path: str, top: int = 30) -> dict:
         print(f"{name[:width]:<{width}}  {us / 1e3:10.3f}  "
               f"{launches[name]:8d}  {100 * us / device_us:6.2f}",
               file=sys.stderr)
+    ranges = by_range(spans)
+    if ranges:
+        rw = max(len(n) for n in ranges)
+        print(f"\n{'program range':<{rw}}  {'n':>6}  {'device ms':>10}  "
+              f"{'launches':>8}", file=sys.stderr)
+        for name, r in sorted(ranges.items()):
+            print(f"{name:<{rw}}  {r['n']:6d}  {r['ms']:10.3f}  "
+                  f"{r['launches']:8d}", file=sys.stderr)
     summary = {
         "trace": trace,
         "window_ms": window_us / 1e3,
@@ -97,6 +142,7 @@ def summarize(path: str, top: int = 30) -> dict:
         "launches": sum(launches.values()),
         "ops": [{"name": n, "ms": us / 1e3, "launches": launches[n],
                  "pct": 100 * us / device_us} for n, us in rows],
+        "ranges": ranges,
     }
     print(json.dumps(summary))
     return summary

@@ -79,6 +79,11 @@ from container_engine_accelerators_tpu_torch.models.speculative import (
     spec_round,
 )
 from container_engine_accelerators_tpu_torch.parallel.mesh import local_heads
+from container_engine_accelerators_tpu_torch.utils.profile import (
+    count,
+    recording,
+    span,
+)
 
 log = logging.getLogger(__name__)
 
@@ -256,31 +261,42 @@ class DecodeEngine:
                              f"{self._margin} tokens; slot holds "
                              f"{self.max_len}")
         slot = self._free.pop()
-        prompt = torch.tensor([list(prompt_ids) + [0] * (bucket - plen)],
-                              dtype=torch.long, device=self.device)
-        slot_cache, last = _prefill_lane(self.model, prompt, plen,
-                                         self.max_len, prefix,
-                                         self.prefill_chunk)
-        sampled = bool(temperature and temperature > 0)
-        generator = None
-        if sampled:
-            generator = torch.Generator(device=self.device).manual_seed(
-                int(seed))
-            tok0 = sample_token(last, temperature, generator)
-        else:
-            tok0 = last.argmax(-1)
-        _insert_slot(self.cache, self.pos, self.last_tok, self.active,
-                     slot_cache, tok0, slot, start + plen)
-        self._insert_aux(slot, prompt, plen)
-        rid = self._next_id
-        self._next_id += 1
-        first = int(tok0[0])
-        self._req[slot] = {"id": rid, "tokens": [first],
-                           "remaining": max_new - 1,
-                           "generator": generator,
-                           "temperature": temperature}
-        if self._req[slot]["remaining"] <= 0 or first == self.eos_id:
-            self._retire(slot)
+        with span("lm.engine.submit"):
+            with span("lm.engine.submit.prefill"):
+                prompt = torch.tensor(
+                    [list(prompt_ids) + [0] * (bucket - plen)],
+                    dtype=torch.long, device=self.device)
+                slot_cache, last = _prefill_lane(self.model, prompt, plen,
+                                                 self.max_len, prefix,
+                                                 self.prefill_chunk)
+            count("lm.engine.prefill.prompt_tokens", plen)
+            count("lm.engine.prefill.pad_tokens", bucket - plen)
+            with span("lm.engine.submit.insert"):
+                sampled = bool(temperature and temperature > 0)
+                generator = None
+                if sampled:
+                    generator = torch.Generator(
+                        device=self.device).manual_seed(int(seed))
+                    tok0 = sample_token(last, temperature, generator)
+                else:
+                    tok0 = last.argmax(-1)
+                _insert_slot(self.cache, self.pos, self.last_tok,
+                             self.active, slot_cache, tok0, slot,
+                             start + plen)
+                self._insert_aux(slot, prompt, plen)
+            rid = self._next_id
+            self._next_id += 1
+            with span("lm.engine.submit.read"):
+                first = int(tok0[0])
+            # ``prefilled``: the rows the prefill left in the lane; each
+            # fleet step adds one.
+            self._req[slot] = {"id": rid, "tokens": [first],
+                               "remaining": max_new - 1,
+                               "generator": generator,
+                               "temperature": temperature,
+                               "prefilled": start + plen}
+            if self._req[slot]["remaining"] <= 0 or first == self.eos_id:
+                self._retire(slot)
         return rid
 
     def _insert_aux(self, slot: int, prompt, plen) -> None:
@@ -298,21 +314,33 @@ class DecodeEngine:
         """One decode step for the whole fleet; returns live-slot count."""
         if not self._req:
             return 0
-        sampled = {slot: (r["generator"], r["temperature"])
-                   for slot, r in self._req.items()
-                   if r["generator"] is not None}
-        self.pos, self.last_tok, nxt = _fleet_step(
-            self.model, self.cache, self.pos, self.last_tok, self.active,
-            sampled)
-        self.steps += 1
-        tokens = nxt.tolist()
-        for slot in list(self._req):
-            req = self._req[slot]
-            tok = tokens[slot]
-            req["tokens"].append(tok)
-            req["remaining"] -= 1
-            if req["remaining"] <= 0 or tok == self.eos_id:
-                self._retire(slot)
+        with span("lm.engine.step"):
+            with span("lm.engine.step.dispatch"):
+                sampled = {slot: (r["generator"], r["temperature"])
+                           for slot, r in self._req.items()
+                           if r["generator"] is not None}
+                self.pos, self.last_tok, nxt = _fleet_step(
+                    self.model, self.cache, self.pos, self.last_tok,
+                    self.active, sampled)
+            self.steps += 1
+            with span("lm.engine.step.read"):
+                tokens = nxt.tolist()
+            if recording():
+                # The rows each live lane holds once this step has
+                # written its token, against the rows the fleet reserves.
+                count("lm.engine.kv.used_rows",
+                      sum(r["prefilled"] + len(r["tokens"])
+                          for r in self._req.values()))
+                count("lm.engine.kv.reserved_rows",
+                      self.max_slots * self.max_len)
+            with span("lm.engine.step.retire"):
+                for slot in list(self._req):
+                    req = self._req[slot]
+                    tok = tokens[slot]
+                    req["tokens"].append(tok)
+                    req["remaining"] -= 1
+                    if req["remaining"] <= 0 or tok == self.eos_id:
+                        self._retire(slot)
         return len(self._req)
 
     def run_until_drained(self, max_steps: int = 100_000):

@@ -54,6 +54,7 @@ from container_engine_accelerators_tpu_torch.parallel.seq import (
     ring_positions,
     to_zigzag,
 )
+from container_engine_accelerators_tpu_torch.utils.profile import span
 
 MOE_AUX_WEIGHT = 0.01  # Switch load-balance coefficient
 
@@ -164,15 +165,18 @@ def make_lm_train_step(mesh=None, state: Optional[TrainState] = None,
             tokens, labels, mask = (drop_unit_shards(
                 x if isinstance(x, DTensor) else shard_batch(x, mesh))
                 for x in (tokens, labels, mask))
-        s.optimizer.zero_grad(set_to_none=True)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        num, den, aux = _loss(s.model, tokens, labels, mask, positions,
-                              with_aux=True)
-        loss = num / den
-        loss.backward()
-        if mesh is not None:
-            sync_grads(s.model)
-        s.optimizer.step()
+        with span("lm.train.forward"):
+            s.optimizer.zero_grad(set_to_none=True)
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+            num, den, aux = _loss(s.model, tokens, labels, mask, positions,
+                                  with_aux=True)
+            loss = num / den
+        with span("lm.train.backward"):
+            loss.backward()
+            if mesh is not None:
+                sync_grads(s.model)
+        with span("lm.train.optimizer"):
+            s.optimizer.step()
         s.step += 1
         metrics = {"loss": full(loss.detach())}
         if s.model.num_experts:
@@ -212,20 +216,25 @@ def _seq_parallel_step(mesh, state: TrainState, seq_parallel: str,
     layout = "zigzag" if seq_parallel == "ring-zigzag" else "contiguous"
 
     def step(s: TrainState, tokens, labels, mask):
-        s.optimizer.zero_grad(set_to_none=True)
-        # Rotary and the ring's mask both read these global positions.
-        positions = ring_positions(layout, rank, tokens.shape[1], n).to(
-            tokens.device)
-        num, den = _loss(s.model, tokens, labels, mask, positions)
-        sums = torch.stack([num.detach(), den]).float()
-        dist.all_reduce(sums, group=group)
-        (num / sums[1]).backward()
-        grads = [p.grad for p in s.model.parameters() if p.grad is not None]
-        flat = torch.cat([g.flatten() for g in grads])
-        dist.all_reduce(flat, group=group)  # the one sum over the ranks
-        for g, x in zip(grads, flat.split([g.numel() for g in grads])):
-            g.copy_(x.view_as(g))
-        s.optimizer.step()
+        with span("lm.train.forward"):
+            s.optimizer.zero_grad(set_to_none=True)
+            # Rotary and the ring's mask both read these global positions.
+            positions = ring_positions(layout, rank, tokens.shape[1], n).to(
+                tokens.device)
+            num, den = _loss(s.model, tokens, labels, mask, positions)
+            sums = torch.stack([num.detach(), den]).float()
+            dist.all_reduce(sums, group=group)
+            loss = num / sums[1]
+        with span("lm.train.backward"):
+            loss.backward()
+            grads = [p.grad for p in s.model.parameters()
+                     if p.grad is not None]
+            flat = torch.cat([g.flatten() for g in grads])
+            dist.all_reduce(flat, group=group)  # the one sum over the ranks
+            for g, x in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(x.view_as(g))
+        with span("lm.train.optimizer"):
+            s.optimizer.step()
         s.step += 1
         return s, {"loss": sums[0] / sums[1]}
 

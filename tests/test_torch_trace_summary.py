@@ -81,3 +81,47 @@ def test_module_entry_point(tmp_path):
     assert proc.returncode == 0, proc.stderr
     line = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(line["ops"]) == 1 and line["launches"] == 5
+
+
+def _launch(name, ts, corr, kernel_ts, kernel_dur):
+    """A runtime call at ``ts`` and the device operation it launched,
+    joined by their correlation id."""
+    call = _x("cudaLaunchKernel", "cuda_runtime", ts, 2.0)
+    op = _x(name, "kernel", kernel_ts, kernel_dur)
+    call["args"] = op["args"] = {"correlation": corr}
+    return [call, op]
+
+
+def test_device_work_by_program_range(tmp_path, capsys):
+    """Each device operation goes to the innermost ``lm.*`` range around
+    its launch (the kernel may run after the range closed); a launch
+    outside every range, and the ranges' ``user_annotation`` namesakes,
+    count for none."""
+    events = [
+        _x("lm.train.forward", "cpu_op", 0.0, 100.0),
+        _x("lm.train.backward", "cpu_op", 100.0, 100.0),
+        _x("lm.engine.step", "cpu_op", 300.0, 100.0),
+        _x("lm.engine.step.dispatch", "cpu_op", 310.0, 40.0),
+        _x("lm.train.backward", "user_annotation", 0.0, 400.0),
+        *_launch("fwd", 10.0, 1, 20.0, 30.0),
+        *_launch("bwd", 150.0, 2, 160.0, 50.0),
+        *_launch("late", 190.0, 3, 250.0, 10.0),
+        *_launch("fleet", 320.0, 4, 330.0, 5.0),
+        *_launch("read", 380.0, 5, 390.0, 1.0),
+        *_launch("outside", 500.0, 6, 510.0, 1.0),
+    ]
+    path = tmp_path / "r.pt.trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    s = trace_summary.summarize(str(path))
+    assert s["ranges"] == {
+        "lm.train.forward": {"n": 1, "ms": pytest.approx(0.03),
+                             "launches": 1},
+        "lm.train.backward": {"n": 1, "ms": pytest.approx(0.06),
+                              "launches": 2},
+        "lm.engine.step": {"n": 1, "ms": pytest.approx(0.001),
+                           "launches": 1},
+        "lm.engine.step.dispatch": {"n": 1, "ms": pytest.approx(0.005),
+                                    "launches": 1},
+    }
+    assert s["launches"] == 6
+    assert "lm.engine.step.dispatch" in capsys.readouterr().err

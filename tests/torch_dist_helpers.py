@@ -390,6 +390,36 @@ def _columns(x, rank, world):
         x[:, rank * width:(rank + 1) * width]))
 
 
+def lm_seq_spans(rank, world, cfg, kind, steps):
+    """``steps`` sequence-parallel steps (``kind``) of a fresh f32 LM
+    under a CPU ``torch.profiler`` on a (world, 1) mesh -> this rank's
+    ``{span name: n}`` of the program's ``lm.train.*`` spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from container_engine_accelerators_tpu_torch.models import lm_train as lt
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+    from container_engine_accelerators_tpu_torch.parallel import mesh as pm
+    from container_engine_accelerators_tpu_torch.utils import profile as up
+
+    torch.manual_seed(0)
+    model = TransformerLM(**cfg, dtype=torch.float32, seq_parallel=kind,
+                          device="cpu")
+    state = lt.create_lm_train_state(model)
+    step, state = lt.make_lm_train_step(pm.create_mesh(world, 1), state,
+                                        kind)
+    toks = np.random.default_rng(1).integers(
+        0, cfg["vocab_size"], (2, 8 * world))
+    labels, mask = lt.next_token_targets(torch.from_numpy(toks))
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(steps):
+            state, _ = step(state, _columns(toks, rank, world).long(),
+                            _columns(labels.numpy(), rank, world).long(),
+                            _columns(mask.numpy(), rank, world))
+    return {n: s["n"] for n, s in up.last_window()["spans"].items()}
+
+
 def seq_attention(rank, world, cases):
     """Each case ``(kind, layout, causal, q, k, v, do)`` — global numpy
     arrays, the sequence in storage order (zigzag for layout "zigzag") —
