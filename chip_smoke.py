@@ -64,13 +64,21 @@ kernel against its plain PyTorch version.  Phases, one JSON line each:
    the decode query), dK/dV's P and dS casts (``bwd_cast_inputs``) and
    dQ's dS cast (``dq_cast_inputs``), where the kernel must match the
    plain version to one bf16 step and the same math in f32 must not;
+6a. ``lm_head_split``: the tied head's split kernel on one backward
+   block of the SmolLM heads (G of 8,192 x 49,152 f32: the logits'
+   gradient law, f32's edge values planted) against its plain version,
+   bit for bit but for NaN payloads, and hi + mid + lo == G wherever the
+   split is exact; its time in CUDA graphs beside the plain version's
+   and the bound (10 bytes a value at the card's HBM rate);
 7. ``train_parity``: the full-width model, batch 2 at T 2048, kernels on
    vs dense attention — f32 loss within 1e-5 relative and every gradient
    within 1e-4 of its leaf's largest |g|, bf16 loss within 2e-2;
 8. ``train``: the trainer's ``main`` at its defaults for a few steps
    with the launch counts reset around it — the forward kernel must run
    2 x layers x steps times (remat recomputes it), each backward kernel
-   layers x steps — finite losses, the first equal to dense attention's
+   layers x steps, the head's split kernel once a backward block of G a
+   step (``ops/lm_head.py::chunk_rows``) — finite losses, the first equal
+   to dense attention's
    within bf16 tolerance, and the steady-state step time and tokens/s;
 9. kernel times (CUDA graphs of launches over enough distinct inputs to
    miss the 50 MB L2, timed with CUDA events): flash decode at the
@@ -219,11 +227,24 @@ kernel against its plain PyTorch version.  Phases, one JSON line each:
     mesh with DTensor weights, 6 steps each: its loop through
     ``make_lm_train_step(create_mesh(1, 1), ..., "megatron")``, then
     ``main`` with ``--param-sharding fsdp``; launch counts reset around
-    each (the flash kernels as in phase 8): losses bit-equal to phase
-    8's, step ms, tokens/s and peak memory beside phase 8's;
+    each (the flash kernels as in phase 8): losses bit-equal to the
+    plain trainer's on the tied head's f32 expression (phase 26a), step
+    ms, tokens/s and peak memory beside phase 8's;
+26a. ``train_f32_head`` (run first): phases 8's and 19's trainers again
+    with the tied head's f32 expression, which a DTensor embedding takes
+    (``models/transformer.py::head_on_tensor_cores``), where the plain
+    trainer's head runs on the tensor cores: the reference of phases 26,
+    27 and 32c, its losses within ``HEAD_LOSS_REL`` (1e-3) relative of
+    phases 8's and 19's; then the trainer's head on its first batch
+    (16,384 x 512 against 32,000 x 512, G in two blocks): logits, dX
+    and dE of the tensor-core path, of the f32 expression and of a
+    control fed G rounded to bf16, against f64 products of the same
+    operands — the tensor cores within ``HEAD_ERR_RATIO`` (4) times the
+    CUDA cores' error, the control past it;
 27. ``mesh_resume``: 4 steps on the (1, 1) mesh under fsdp with
-    ``--checkpoint-dir``, then the plain single-GPU trainer resumed from
-    that checkpoint to step 6: losses bit-equal to phase 8's;
+    ``--checkpoint-dir``, then the plain single-GPU trainer, on the f32
+    head, resumed from that checkpoint to step 6: losses bit-equal to
+    phase 26a's;
 28. ``mesh_resnet``: ``models/train.py::make_sharded_train_step`` on the
     (1, 1) mesh against ``train_step``, ResNet-50 at 224x224 from the
     seed-0 weights: f32 with TF32 off at batch 32, 4 steps at lr 0.01
@@ -289,8 +310,8 @@ kernel against its plain PyTorch version.  Phases, one JSON line each:
     16,384 tokens: output, aux, drop share and gradients bit-equal;
 32c. ``mesh_train_moe``: the trainer at its defaults plus
     ``--num-experts 8`` on the (1, 1) mesh under megatron and fsdp:
-    losses and drop shares bit-equal to phase 19's, flash launches
-    exact, step ms;
+    losses and drop shares bit-equal to phase 26a's MoE run (phase 19's
+    trainer on the f32 head), flash launches exact, step ms;
 32d. ``mesh_serve_features``: the server with the MoE-LM, int8 weights
     and the prefix cache on the (1, 1) mesh against the plain server,
     per request and with ``--slots 8``: identical greedy tokens, one
@@ -472,7 +493,9 @@ kernel against its plain PyTorch version.  Phases, one JSON line each:
     and 42e's servers'; flash attention's: the ``train``, ``train_moe``,
     ``mesh_train``, ``seq_train``, ``seq_resume``, ``pipeline``,
     ``mesh_train_moe`` and ``dryrun`` phases', 42e's trainers' and
-    42g's ``bench_attention``).
+    42g's ``bench_attention``; the head's split kernel's: every launch
+    of the script, phase 6a's and every training call of the tied head
+    on the tensor cores).
 
 Each phase's seconds follow it on a ``timing`` line.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -483,6 +506,7 @@ printing any result.  Run from the repository root:
 """
 
 import ast
+import contextlib
 import json
 import math
 import os
@@ -526,6 +550,19 @@ FA_KERNELS = {
 # (atol = rtol) forward, backward: the JAX kernels' tests' tolerances.
 FA_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 1e-1)}
 TRAIN_STEPS = 6
+HEAD_SPLIT_SHAPE = (8192, 49_152)  # a backward block of the SmolLM heads
+# Phase 26a: the most the tensor-core head's losses may lie from the f32
+# head's, relative, over 6 steps: ~10x the larger reading (3.0e-5 dense,
+# 1.1e-4 MoE, on an H100).  Losses cannot tell the head's precision (a
+# head fed G rounded to bf16 read 1.2e-5), so its arithmetic is held on
+# its products: against f64, the tensor cores may err at most
+# HEAD_ERR_RATIO times what the f32 CUDA-core GEMMs err, by the largest
+# error and by the norm.  At the trainer's defaults they read at most
+# 2.9x (the logits' norm: D 512 is one 512-deep tensor-core sum), the
+# control fed G rounded to bf16 72x and more (dX and dE), which must
+# stay past the bound.
+HEAD_LOSS_REL = 1e-3
+HEAD_ERR_RATIO = 4
 TRAIN_SHAPE = (8, 2048, 8, 64)  # the trainer's defaults: B, T, H, D
 SLOTS = 8
 SLOTS_SEED = 6  # prompt lengths and tokens of the serve_slots phase
@@ -1291,6 +1328,87 @@ def _train_model(dev, dtype, use_flash, params):
     return model
 
 
+def _head_split_launches():
+    from container_engine_accelerators_tpu_torch.ops import lm_head
+
+    return lm_head.LAUNCHES["lm_head_split"]
+
+
+def _head_blocks(args):
+    """Split launches a step of the trainer's head: its blocks of G."""
+    from container_engine_accelerators_tpu_torch.ops import lm_head
+
+    m = args.train_batch_size * args.seq_len
+    return math.ceil(m / lm_head.chunk_rows(m, args.vocab_size))
+
+
+def check_lm_head_split(dev):
+    """Phase 6a: the tied head's split kernel on one backward block of the
+    SmolLM heads against its plain version and G itself, then timed.
+    -> its row of the kernels line."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.ops import lm_head as lh
+    from container_engine_accelerators_tpu_torch.ops.build import load_ops
+
+    rows, v = HEAD_SPLIT_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    inputs = []
+    for _ in range(2):  # 4 GB an input: far past the L2
+        g = torch.softmax(3 * torch.randn(rows, v, device=dev, generator=gen),
+                          -1)
+        g[torch.arange(rows, device=dev),
+          torch.randint(0, v, (rows,), device=dev, generator=gen)] -= 1
+        g /= 6 * rows  # the 1.7B's batch: 6 blocks of rows a step
+        inputs.append((g, torch.empty(rows, 3 * v, dtype=torch.bfloat16,
+                                      device=dev)))
+    g, out = inputs[0]
+    edge = [torch.finfo(torch.float32).max, -torch.finfo(torch.float32).max,
+            -2.0 ** -110, 0.0, -0.0, float("inf"), float("-inf"),
+            float("nan"), 2.0 ** -133, 1e-40, torch.finfo(torch.float32).tiny]
+    g[0, :len(edge)] = torch.tensor(edge, device=dev)
+    before = _head_split_launches()
+    lh.split3(g, out)
+    torch.cuda.synchronize()
+    if _head_split_launches() != before + 1:
+        raise AssertionError("lm_head_split: one split3 call launched "
+                             f"{_head_split_launches() - before} kernels")
+    want = lh.split3_reference(g)
+    nan = want.isnan()  # a NaN's payload is no part of the result
+    bits, want_bits = out.view(torch.int16), want.view(torch.int16)
+    differ = int((bits != want_bits)[~nan].sum()) + int(
+        (out.isnan() != nan).sum())
+    if differ:
+        raise AssertionError(f"lm_head_split: {differ} of {out.numel()} "
+                             f"parts differ from split3_reference's bits")
+    del want, nan, bits, want_bits
+    # Exact where bf16's finest step reaches G's last bit.
+    exact = (g.abs() >= 2.0 ** -110) & g.isfinite() | (g == 0)
+    total = (out[:, :v].float() + out[:, v:2 * v].float()
+             + out[:, 2 * v:].float())
+    inexact = int((total != g)[exact].sum())
+    if inexact:
+        raise AssertionError(f"lm_head_split: hi + mid + lo != G at "
+                             f"{inexact} of {int(exact.sum())} values")
+    exact_values = int(exact.sum())
+    del total, exact
+    ms = _graph_ms(load_ops().lm_head_split, inputs)
+    plain_ms = _graph_ms(
+        lambda g, out: out.copy_(lh.split3_reference(g)), inputs)
+    row = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": 10 * rows * v / _hbm_bytes_per_s() * 1e3,
+           "bound_by": "bytes", "library_ms": None}
+    _phase("lm_head_split", shape=[rows, v], distinct_inputs=len(inputs),
+           edge_values=[str(x) for x in edge], parts_bit_equal=True,
+           sum_exact_values=exact_values, **row,
+           share_of_bound=row["bound_ms"] / ms,
+           bytes="4 read + 6 written a value", library="none: the JAX "
+           "package leaves the head to XLA; cuBLAS has no such split")
+    del inputs, g, out
+    torch.cuda.empty_cache()
+    return row
+
+
 def check_train_parity(dev):
     """Phase 7: the full-width train step, kernels on vs dense attention."""
     import numpy as np
@@ -1362,6 +1480,7 @@ def train(fa, dev, card):
     for name in fa.LAUNCHES:
         fa.LAUNCHES[name] = 0
     torch.cuda.reset_peak_memory_stats()
+    split_before = _head_split_launches()
     t0 = time.perf_counter()
     losses = train_lm.main(argv, on_step=on_step)
     peak = torch.cuda.max_memory_allocated()
@@ -1373,6 +1492,11 @@ def train(fa, dev, card):
     if launches != want:
         raise AssertionError(f"flash attention launches on the main path "
                              f"{launches}, expected {want}")
+    splits = _head_split_launches() - split_before
+    if splits != _head_blocks(args) * TRAIN_STEPS:
+        raise AssertionError(f"lm_head_split launches on the main path "
+                             f"{splits}, expected {_head_blocks(args)} "
+                             f"blocks x {TRAIN_STEPS} steps")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite train loss: {losses}")
     # The first step's loss with dense attention: same seed, same batch.
@@ -1398,6 +1522,9 @@ def train(fa, dev, card):
            expected_launches=f"fwd 2 x {args.num_layers} layers x "
                              f"{TRAIN_STEPS} steps (remat), bwd "
                              f"{args.num_layers} x {TRAIN_STEPS}",
+           lm_head_split_launches=splits,
+           expected_lm_head_split_launches=f"{_head_blocks(args)} blocks "
+                                           f"x {TRAIN_STEPS} steps",
            wall_s=round(time.perf_counter() - t0, 3),
            steady_step_ms=step_ms, steady_steps=len(steady),
            step_ms_each=[round(x * 1e3, 3) for x in steady],
@@ -2771,6 +2898,7 @@ def train_moe(fa, dev, card, ckpt):
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    split_before = _head_split_launches()
     t0 = time.perf_counter()
     losses = train_lm.main(argv, on_step=on_step)
     wall_s = time.perf_counter() - t0
@@ -2783,6 +2911,11 @@ def train_moe(fa, dev, card, ckpt):
     if launches != want:
         raise AssertionError(f"flash attention launches on the MoE path "
                              f"{launches}, expected {want}")
+    splits = _head_split_launches() - split_before
+    if splits != _head_blocks(args) * TRAIN_STEPS:
+        raise AssertionError(f"lm_head_split launches on the MoE path "
+                             f"{splits}, expected {_head_blocks(args)} "
+                             f"blocks x {TRAIN_STEPS} steps")
     aux = [float(a) for a in aux]
     dropped = [float(x) for x in dropped]
     if not all(math.isfinite(x) for x in losses + aux):
@@ -3077,7 +3210,10 @@ def _kernel_counts():
     from container_engine_accelerators_tpu_torch.ops import flash_attention
     from container_engine_accelerators_tpu_torch.ops import flash_decode
 
-    return {**flash_decode.LAUNCHES, **flash_attention.LAUNCHES}
+    from container_engine_accelerators_tpu_torch.ops import lm_head
+
+    return {**flash_decode.LAUNCHES, **flash_attention.LAUNCHES,
+            **lm_head.LAUNCHES}
 
 
 def _launches_none(phase, before):
@@ -6670,12 +6806,168 @@ def _megatron_lm(args, on_step):
     return [float(x) for x in losses]
 
 
+@contextlib.contextmanager
+def _f32_head():
+    """The tied LM head's f32 expression for every call, as a DTensor
+    embedding takes it."""
+    from container_engine_accelerators_tpu_torch.models import transformer
+
+    rule = transformer.head_on_tensor_cores
+    transformer.head_on_tensor_cores = lambda x, embedding: False
+    try:
+        yield
+    finally:
+        transformer.head_on_tensor_cores = rule
+
+
+@contextlib.contextmanager
+def _bf16_g_head():
+    """The control of phase 26a: the tensor-core head with G rounded to
+    bf16 before its split, so mid and lo are zero."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.ops import lm_head
+
+    split = lm_head.split3
+    lm_head.split3 = lambda g, out: split(g.to(torch.bfloat16).float(), out)
+    try:
+        yield
+    finally:
+        lm_head.split3 = split
+
+
+def _errors(got, ref):
+    """(max |got - ref| over max |ref|, ||got - ref|| over ||ref||)."""
+    d = got.double() - ref
+    return ((d.abs().max() / ref.abs().max()).item(),
+            (d.norm() / ref.norm()).item())
+
+
+def _head_errors(dev):
+    """The trainer's head at its defaults on its first batch, from the
+    seed-0 weights, G the gradient of its loss: the tensor-core path's
+    logits and f32 sums of dX and dE (``ops/lm_head.py``, G in its
+    blocks), the f32 expression's CUDA-core GEMMs' and the control's,
+    each against an f64 product of the same bf16 operands and the same
+    f32 G.  -> {product: {path: (max error over max |ref|, norm over
+    norm)}}, or AssertionError where the tensor cores err more than
+    ``HEAD_ERR_RATIO`` times the CUDA cores, or the control does not."""
+    import torch
+    import torch.nn.functional as F
+
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+    from container_engine_accelerators_tpu_torch.models import lm_train
+    from container_engine_accelerators_tpu_torch.models.transformer import (
+        TransformerLM,
+    )
+    from container_engine_accelerators_tpu_torch.ops import lm_head as lh
+
+    args = train_lm.parse_args([])
+    model = TransformerLM(device=dev)
+    lm_train.create_lm_train_state(model, torch.Generator().manual_seed(0))
+    toks, labels, mask = (torch.from_numpy(a).to(dev) for a in
+                          train_lm.synthetic_batches(args)[0])
+    with torch.no_grad():
+        x = model(toks.long(), project=False).flatten(0, 1)
+        e = model.embed.to(x.dtype)
+    del model
+    assert x.dtype == torch.bfloat16
+    logits = (x.float() @ e.float().t()).requires_grad_()
+    mask = mask.flatten()
+    per_tok = F.cross_entropy(logits, labels.flatten().long(),
+                              reduction="none")
+    g, = torch.autograd.grad((per_tok * mask).sum() / mask.sum(), logits)
+    del per_tok
+    rows = lh.chunk_rows(*g.shape)
+    paths = {"tensor_cores": {"logits": lh.gemm(x, e.t(), lh.DEPTH_LOGITS)},
+             "f32_cuda_cores": {"logits": logits.detach(),
+                                "dx": g @ e.float(), "de": g.t() @ x.float()},
+             "bf16_g_control": {}}
+    new = paths["tensor_cores"]
+    new["dx"], new["de"] = lh.head_grads(g, x, e, rows)
+    with _bf16_g_head():
+        control = paths["bf16_g_control"]
+        control["dx"], control["de"] = lh.head_grads(g, x, e, rows)
+    x64, e64 = x.double(), e.double()
+    refs = {"logits": lambda: x64 @ e64.t(), "dx": lambda: g.double() @ e64,
+            "de": lambda: g.double().t() @ x64}
+    out = {}
+    for name, ref in refs.items():
+        r = ref()
+        out[name] = {path: _errors(got[name], r)
+                     for path, got in paths.items() if name in got}
+        del r
+    for errs in out.values():
+        f32 = errs["f32_cuda_cores"]
+        tc_ok = all(a <= HEAD_ERR_RATIO * b
+                    for a, b in zip(errs["tensor_cores"], f32))
+        control_out = "bf16_g_control" not in errs or all(
+            a > HEAD_ERR_RATIO * b
+            for a, b in zip(errs["bf16_g_control"], f32))
+        if not (tc_ok and control_out):
+            raise AssertionError(f"train_f32_head: the head against f64 "
+                                 f"{out}, bound {HEAD_ERR_RATIO} x "
+                                 f"f32_cuda_cores")
+    return {"shape": {"m": int(g.shape[0]), "v": int(g.shape[1]),
+                      "d": int(x.shape[1]), "block_rows": rows},
+            **out}
+
+
+def train_f32_head(card, losses, moe_losses):
+    """Phase 26a: the train phase's and train_moe's trainers again on the
+    tied head's f32 expression, and the trainer's head against f64 on
+    both paths.  -> (losses, MoE losses, MoE drop shares): what the (1, 1)
+    mesh, whose DTensor embedding takes that expression, matches bit for
+    bit."""
+    import torch
+
+    from container_engine_accelerators_tpu_torch.cmd import train_lm
+
+    argv = ["--train-steps", str(TRAIN_STEPS), "--steps-per-eval", "1"]
+    out = {}
+    for name, flags, tc in (("dense", [], losses),
+                            ("moe", MOE_FLAGS, moe_losses)):
+        dropped = []
+
+        def on_step(step, loss, metrics):
+            if "moe_dropped" in metrics:
+                dropped.append(float(metrics["moe_dropped"]))
+
+        before = _head_split_launches()
+        with _f32_head():
+            f32 = train_lm.main(flags + argv, on_step=on_step)
+        if _head_split_launches() != before:
+            raise AssertionError(f"train_f32_head {name}: the f32 head "
+                                 f"launched lm_head_split")
+        gap = max(abs(a - b) / abs(b) for a, b in zip(tc, f32))
+        if len(f32) != TRAIN_STEPS or not gap <= HEAD_LOSS_REL:
+            raise AssertionError(f"train_f32_head {name}: losses {f32} vs "
+                                 f"the tensor-core head's {tc}")
+        out[name] = {"losses": f32, "dropped": dropped,
+                     "tensor_core_head_losses": tc,
+                     "max_rel_to_tensor_core_head": gap}
+    errors = _head_errors(torch.device("cuda"))
+    torch.cuda.empty_cache()
+    _phase("train_f32_head", card=card,
+           entry="cmd/train_lm.py main() at its defaults, and with "
+                 "--num-experts 8, the tied head's f32 expression forced",
+           steps=TRAIN_STEPS, **out, head_errors_vs_f64=errors,
+           tolerance=f"losses: the tensor-core head within {HEAD_LOSS_REL}"
+                     f" relative of the f32 head; head_errors_vs_f64 (max "
+                     f"error over max |ref|, norm over norm): the tensor "
+                     f"cores at most {HEAD_ERR_RATIO} x the CUDA cores, "
+                     f"the control (G rounded to bf16) past that")
+    return (out["dense"]["losses"], out["moe"]["losses"],
+            out["moe"]["dropped"])
+
+
 def mesh_train(fa, card, plain_losses, plain):
     """Phase 26: cmd/train_lm.py at its defaults on the (1, 1) mesh,
     megatron (its training loop through ``make_lm_train_step`` on
     ``create_mesh(1, 1)``) and then ``main()`` with ``--param-sharding
-    fsdp``: losses equal to the train phase's (same seed), flash launch
-    counts, step ms, tokens/s, peak memory."""
+    fsdp``: losses equal to the plain trainer's on the f32 head (same
+    seed; phase 26a), flash launch counts, step ms, tokens/s, peak
+    memory."""
     import torch
 
     from container_engine_accelerators_tpu_torch.cmd import train_lm
@@ -6714,7 +7006,7 @@ def mesh_train(fa, card, plain_losses, plain):
             total[k] += v
         if losses != plain_losses:
             raise AssertionError(f"mesh_train {sharding} losses {losses} "
-                                 f"differ from the plain trainer's "
+                                 f"differ from train_f32_head's "
                                  f"{plain_losses}")
         steady = [b - a for a, b in zip(ends[1:], ends[2:])]
         step_ms = statistics.median(steady) * 1e3
@@ -6729,20 +7021,21 @@ def mesh_train(fa, card, plain_losses, plain):
                               " state, None, 'megatron')",
                   "fsdp": "cmd/train_lm.py main() at its defaults with "
                           "--param-sharding fsdp: the (1, 1) mesh"},
-           steps=MESH_STEPS, plain=plain, plain_losses=plain_losses,
+           steps=MESH_STEPS, plain=plain, f32_head_losses=plain_losses,
            megatron=runs["megatron"], fsdp=runs["fsdp"],
            expected_launches=f"fwd 2 x {args.num_layers} layers x "
                              f"{MESH_STEPS} steps (remat), bwd "
                              f"{args.num_layers} x {MESH_STEPS}, each run",
-           tolerance="bit-equal losses: one rank computes the plain "
-                     "trainer's operations in its order")
+           tolerance="losses bit-equal to train_f32_head's: one rank "
+                     "computes the plain trainer's operations, on the f32 "
+                     "head, in its order")
     return total
 
 
 def mesh_resume(card, plain_losses):
     """Phase 27: a checkpoint saved on the (1, 1) mesh under fsdp restored
-    into the plain single-GPU trainer: its resumed losses beside the
-    train phase's unbroken ones."""
+    into the plain single-GPU trainer on the f32 head: its resumed losses
+    beside phase 26a's unbroken ones."""
     from container_engine_accelerators_tpu_torch.cmd import train_lm
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mckpt_") as tmp:
@@ -6752,7 +7045,9 @@ def mesh_resume(card, plain_losses):
         first = train_lm.main(argv + ["--train-steps", "4",
                                       "--param-sharding", "fsdp"])
         first_s = time.perf_counter() - t0
-        resumed = train_lm.main(argv + ["--train-steps", str(MESH_STEPS)])
+        with _f32_head():
+            resumed = train_lm.main(argv + ["--train-steps",
+                                            str(MESH_STEPS)])
     losses = first + resumed
     if len(first) != 4 or len(resumed) != MESH_STEPS - 4:
         raise AssertionError(f"mesh_resume ran {len(first)} + "
@@ -7922,8 +8217,9 @@ def mesh_train_moe(fa, card, moe_losses, moe_dropped):
     """Phase 32c: cmd/train_lm.py at its defaults plus --num-experts 8 on
     the (1, 1) mesh, megatron (its loop through ``make_lm_train_step(
     create_mesh(1, 1), ...)``) and ``main()`` with ``--param-sharding
-    fsdp``: losses and drop shares equal to phase 19's, flash launch
-    counts exact, step ms.  -> the launches of both runs."""
+    fsdp``: losses and drop shares equal to phase 26a's (phase 19's
+    trainer on the f32 head), flash launch counts exact, step ms.  -> the
+    launches of both runs."""
     import torch
 
     from container_engine_accelerators_tpu_torch.cmd import train_lm
@@ -7961,7 +8257,8 @@ def mesh_train_moe(fa, card, moe_losses, moe_dropped):
         if losses != moe_losses or dropped != moe_dropped:
             raise AssertionError(f"mesh_train_moe {sharding}: losses "
                                  f"{losses}, dropped {dropped} vs "
-                                 f"train_moe's {moe_losses}, {moe_dropped}")
+                                 f"train_f32_head's {moe_losses}, "
+                                 f"{moe_dropped}")
         steady = [b - a for a, b in zip(ends[1:], ends[2:])]
         runs[sharding] = {"losses": losses, "dropped_share": dropped,
                           "launches": launches,
@@ -7981,13 +8278,15 @@ def mesh_train_moe(fa, card, moe_losses, moe_dropped):
                               "create_mesh(1, 1), state, None, 'megatron')",
                   "fsdp": "cmd/train_lm.py main() --num-experts 8 "
                           "--param-sharding fsdp: the (1, 1) mesh"},
-           steps=TRAIN_STEPS, train_moe_losses=moe_losses,
-           train_moe_dropped_share=moe_dropped,
+           steps=TRAIN_STEPS, f32_head_losses=moe_losses,
+           f32_head_dropped_share=moe_dropped,
            megatron=runs["megatron"], fsdp=runs["fsdp"],
            expected_launches=f"fwd 2 x {args.num_layers} layers x "
                              f"{TRAIN_STEPS} steps (remat), bwd "
                              f"{args.num_layers} x {TRAIN_STEPS}, each run",
-           tolerance="losses and drop shares bit-equal to train_moe's")
+           tolerance="losses and drop shares bit-equal to "
+                     "train_f32_head's MoE run (phase 19's trainer on the "
+                     "f32 head)")
     return total
 
 
@@ -8153,6 +8452,7 @@ def main():
     _timed("model", check_model, dev)
     fd_launches, run = _timed("serve", serve, fd)
     _timed("fa_kernel_check", check_fa_kernels, fa, dev)
+    head_row = _timed("lm_head_split", check_lm_head_split, dev)
     _timed("train_parity", check_train_parity, dev)
     fa_launches, losses, plain_train = _timed("train", train, fa, dev, smi)
     t0 = time.perf_counter()
@@ -8206,9 +8506,11 @@ def main():
 
     _timed("nccl", nccl_phase, smi)
     _timed("collectives", collectives_phase, smi)
-    mesh_launches = _timed("mesh_train", mesh_train, fa, smi, losses,
+    f32_losses, f32_moe_losses, f32_moe_dropped = _timed(
+        "train_f32_head", train_f32_head, smi, losses, moe_losses)
+    mesh_launches = _timed("mesh_train", mesh_train, fa, smi, f32_losses,
                            plain_train)
-    _timed("mesh_resume", mesh_resume, smi, losses)
+    _timed("mesh_resume", mesh_resume, smi, f32_losses)
     _timed("mesh_resnet", mesh_resnet, dev, smi)
     _timed("mesh_conv_shards", mesh_conv_shards, dev, smi)
     _timed("mesh_inception", mesh_inception, dev, smi)
@@ -8221,7 +8523,7 @@ def main():
     pipe_launches = _timed("pipeline", pipeline_phase, fa, dev, smi)
     _timed("expert_parallel", expert_parallel_phase, dev, smi)
     moe_mesh_launches = _timed("mesh_train_moe", mesh_train_moe, fa, smi,
-                               moe_losses, moe_dropped)
+                               f32_moe_losses, f32_moe_dropped)
     _timed("mesh_serve_features", mesh_serve_features, fd, smi)
     dry_launches = _timed("dryrun", dryrun_phase, fa, fd, smi)
     dcn.shutdown()
@@ -8270,6 +8572,12 @@ def main():
                               + measure_fa[name]),
                  **{k: fa_rows[name][k] for k in keys}}
                 for name, (line, _, src) in FA_KERNELS.items()]
+    # Every split of the script (the head's training calls and phase 6a).
+    kernels.append({"name": "lm_head_split", "route": "cuda",
+                    "source": f"{FA_CSRC}/lm_head_split.cu",
+                    "replaces": None,
+                    "launches": _head_split_launches(),
+                    **{k: head_row[k] for k in keys}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,10 +18,15 @@ modes:
 Numerics follow the flax model under its ``dtype`` (the compute dtype):
 projections and the embedding run in the compute dtype, RMSNorm computes
 in f32, and the tied LM head multiplies compute-dtype operands with f32
-accumulation.  flax keeps the params in f32 and casts kernel and input to
-the compute dtype at every call; train mode does the same — its params
-are f32 leaves with ``requires_grad`` and every use casts them, so the
-f32 gradients flow back through the cast.  Decode mode never trains: it
+accumulation (:func:`lm_head`): a training call on a plain CUDA bf16
+tensor runs that arithmetic on the tensor cores, its backward splitting
+the f32 gradient exactly into three bf16 parts (``ops/lm_head.py``);
+every other call (decode mode, ``no_grad``, the CPU, a mesh, f32)
+multiplies the upcast operands in f32.  flax keeps the params in f32
+and casts kernel and input to the compute dtype at every call; train
+mode does the same — its params are f32 leaves with ``requires_grad``
+and every use casts them, so the f32 gradients flow back through the
+cast.  Decode mode never trains: it
 holds its weights already cast to the compute dtype (cast once, at load,
 which gives the same values) and without autograd bookkeeping.  Both
 modes have the same parameter names and shapes, so one state dict loads
@@ -72,6 +77,7 @@ from container_engine_accelerators_tpu_torch.ops.flash_decode import (
     NEG_INF,
     flash_decode,
 )
+from container_engine_accelerators_tpu_torch.ops.lm_head import tied_head
 from container_engine_accelerators_tpu_torch.ops.moe import MoEFFN
 from container_engine_accelerators_tpu_torch.parallel.mesh import (
     full,
@@ -104,11 +110,37 @@ def rotary_embedding(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
 
 
+def head_on_tensor_cores(x, embedding) -> bool:
+    """Whether :func:`lm_head` takes the tensor-core path: a training
+    call (grad enabled, the embedding requiring grad) on a plain CUDA
+    bf16 ``x`` and a plain ``embedding``, neither a DTensor.  Decode
+    mode, ``no_grad``, the CPU, a mesh and f32 models keep the f32
+    expression."""
+    return (x.is_cuda and x.dtype == torch.bfloat16
+            and torch.is_grad_enabled() and embedding.requires_grad
+            and not isinstance(x, DTensor)
+            and not isinstance(embedding, DTensor))
+
+
 def lm_head(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
     """Tied LM head: compute-dtype operands, f32 accumulation -> f32
-    logits.  The products of two bf16 values are exact in f32, so
-    upcasting the operands and multiplying in f32 is that arithmetic."""
-    return x.float() @ embedding.to(x.dtype).float().t()
+    logits, in one of two ways that give that arithmetic (the products
+    of two bf16 values are exact in f32), picked by
+    :func:`head_on_tensor_cores`:
+
+    - a training call on a plain CUDA bf16 tensor runs its GEMMs on the
+      tensor cores (``ops/lm_head.py::tied_head``): the forward is bf16
+      GEMMs with f32 accumulators and output; the backward splits the
+      logits' f32 gradient exactly into three bf16 parts and sums their
+      bf16 GEMMs in f32, then rounds the two gradients as autograd
+      rounds those of the f32 expression;
+    - every other call upcasts the operands and multiplies in f32
+      (``x.float() @ embedding.float().t()``), which on the card is
+      cuBLAS's f32 GEMM on the CUDA cores."""
+    e = embedding.to(x.dtype)
+    if head_on_tensor_cores(x, embedding):
+        return tied_head(x, e)
+    return x.float() @ e.float().t()
 
 
 def _param(*shape, dtype, device, train):

@@ -1,10 +1,11 @@
 """Build of the port's hand-written CUDA kernels.
 
 Every kernel source under ``csrc/`` — flash decode (two ``.cu``: bf16
-and f32 instantiations of one template) and flash attention (two
-``.cu``: the CUDA-core kernels and the tensor-core ones), each
-header-free beside a small ``*_op.cpp`` that registers the ops with
-``TORCH_LIBRARY`` — goes into ONE library, compiled for
+and f32 instantiations of one template), flash attention (two ``.cu``:
+the CUDA-core kernels and the tensor-core ones) and the LM head's
+gradient split (one ``.cu``), each header-free beside a small
+``*_op.cpp`` that registers the ops with ``TORCH_LIBRARY`` — goes into
+ONE library, compiled for
 ``sm_90a`` by one ``torch.utils.cpp_extension.load`` call (ninja runs
 one compiler per source, all at once) at first use into
 ``.torch_ext_build/`` beside the package.  The ops then live under
@@ -23,7 +24,7 @@ from container_engine_accelerators_tpu_torch.utils.profile import span
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_decode.cu", "flash_decode_f32.cu", "flash_decode_op.cpp",
            "flash_attention.cu", "flash_attention_sm90.cu",
-           "flash_attention_op.cpp")
+           "flash_attention_op.cpp", "lm_head_split.cu", "lm_head_op.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 
 _ops = None

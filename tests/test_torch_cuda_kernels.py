@@ -486,3 +486,125 @@ def test_train_step_with_kernels_matches_dense(cuda):
     for name, g in out[True][1].items():
         ref = out[False][1][name]
         assert (g - ref).abs().max() <= 1e-4 * ref.abs().max(), name
+
+
+def _split_inputs(rows, v, cuda):
+    """The logits' gradient law (softmax - one-hot over the rows), with
+    f32's edge values planted in its first row."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.softmax(3 * torch.randn(rows, v, device=cuda, generator=gen), -1)
+    g[torch.arange(rows, device=cuda),
+      torch.randint(0, v, (rows,), device=cuda, generator=gen)] -= 1
+    g /= rows
+    edge = torch.tensor([torch.finfo(torch.float32).max, -2.0 ** -110, 0.0,
+                         -0.0, float("inf"), float("nan"), 2.0 ** -133, 1e-40],
+                        device=cuda)
+    n = min(v, edge.numel())
+    g[0, :n] = edge[:n]
+    return g
+
+
+@pytest.mark.parametrize("rows,v,offset", [
+    (64, 49_152, 0),  # the SmolLM vocabulary: 16-byte loads
+    (7, 1_030, 0),    # a width not a multiple of four: scalar loop
+    (9, 36, 1),       # rows that start off 16-byte alignment: scalar loop
+    (1_200, 8, 0),    # more rows than CTAs
+])
+def test_lm_head_split_kernel_matches_plain_version(cuda, rows, v, offset):
+    from container_engine_accelerators_tpu_torch.ops import lm_head as lh
+
+    g = _split_inputs(rows + offset, v, cuda).flatten()[offset * (v - 1):]
+    g = g[:rows * v].view(rows, v)
+    out = torch.empty(rows, 3 * v, dtype=torch.bfloat16, device=cuda)
+    before = lh.LAUNCHES["lm_head_split"]
+    lh.split3(g, out)
+    torch.cuda.synchronize()
+    assert lh.LAUNCHES["lm_head_split"] == before + 1
+    want = lh.split3_reference(g)
+    nan = want.isnan()  # a NaN's payload is no part of the result
+    assert torch.equal(out.isnan(), nan)
+    assert torch.equal(out.view(torch.int16)[~nan],
+                       want.view(torch.int16)[~nan])
+
+
+def _errors(got, ref):
+    """(max |got - ref| over max |ref|, ||got - ref|| over ||ref||)."""
+    d = got.double() - ref
+    return ((d.abs().max() / ref.abs().max()).item(),
+            (d.norm() / ref.norm()).item())
+
+
+def test_tied_head_errs_no_more_than_the_f32_gemm(cuda):
+    """The 1.7B's head for one block of G (8,192 x 2,048 against 49,152
+    x 2,048): the tensor-core path's logits and f32 sums of dX and dE
+    against an f64 product of the same bf16 operands and the same f32 G
+    err by at most twice what the f32 expression's CUDA-core GEMMs err,
+    by the largest error and by the norm (``-s`` prints both)."""
+    from container_engine_accelerators_tpu_torch.ops import lm_head as lh
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    m, d, v = 8192, 2048, 49_152
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(m, d, device=cuda, generator=gen).to(torch.bfloat16)
+    e = (torch.randn(v, d, device=cuda, generator=gen) / d ** 0.5
+         ).to(torch.bfloat16)
+    x64, e64 = x.double(), e.double()
+    old = {"logits": x.float() @ e.float().t()}
+    g = torch.softmax(old["logits"], -1)
+    g[torch.arange(m, device=cuda),
+      torch.randint(0, v, (m,), device=cuda, generator=gen)] -= 1
+    g /= m
+    assert lh.chunk_rows(m, v) == m
+    new = {"logits": lh.gemm(x, e.t(), lh.DEPTH_LOGITS)}
+    new["dx"], new["de"] = lh.head_grads(g, x, e, m)
+    old["dx"], old["de"] = g @ e.float(), g.t() @ x.float()
+    refs = {"logits": lambda: x64 @ e64.t(), "dx": lambda: g.double() @ e64,
+            "de": lambda: g.double().t() @ x64}
+    for name, ref in refs.items():
+        r = ref()
+        new_err, old_err = _errors(new[name], r), _errors(old[name], r)
+        del r
+        print(f"lm head {name}: tensor cores max {new_err[0]:.3e} "
+              f"norm {new_err[1]:.3e}; f32 CUDA cores max {old_err[0]:.3e} "
+              f"norm {old_err[1]:.3e}")
+        assert new_err[0] <= 2 * old_err[0] and new_err[1] <= 2 * old_err[1]
+
+
+def test_train_mode_head_takes_the_tensor_core_path(cuda):
+    """A bf16 model in train mode on the card: the head splits G once
+    (one block), and the embedding's gradient lies within 2e-2 of its
+    largest |g| of the f32 expression's (the logits' f32 sums differ in
+    order, and the bf16 activations carry that through the layers); a
+    forward without grad keeps the f32 expression."""
+    from container_engine_accelerators_tpu_torch.models import transformer
+    from container_engine_accelerators_tpu_torch.ops import lm_head as lh
+
+    cfg = dict(vocab_size=1000, num_layers=1, num_heads=2, head_dim=64,
+               mlp_dim=128)
+    params = init_params(TransformerLM(**cfg, device="meta"),
+                         torch.Generator().manual_seed(0))
+    toks = torch.randint(0, 1000, (2, 128), generator=torch.Generator()
+                         .manual_seed(1)).to(cuda)
+    labels, mask = lm_train.next_token_targets(toks)
+    grads = {}
+    for tc in (True, False):
+        model = TransformerLM(**cfg, device=cuda)
+        model.load_state_dict(params)
+        if not tc:
+            rule = transformer.head_on_tensor_cores
+            transformer.head_on_tensor_cores = lambda x, e: False
+        try:
+            before = lh.LAUNCHES["lm_head_split"]
+            num, den = lm_train._loss(model, toks, labels, mask, None)
+            (num / den).backward()
+        finally:
+            if not tc:
+                transformer.head_on_tensor_cores = rule
+        assert lh.LAUNCHES["lm_head_split"] - before == (1 if tc else 0)
+        grads[tc] = model.embed.grad
+        with torch.no_grad():
+            before = lh.LAUNCHES["lm_head_split"]
+            model(toks)
+            assert lh.LAUNCHES["lm_head_split"] == before
+    gap = (grads[True] - grads[False]).abs().max()
+    assert gap <= 2e-2 * grads[False].abs().max()
