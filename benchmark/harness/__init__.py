@@ -2,7 +2,8 @@
 
 :func:`run_cell` looks the cell up in the manifest, hands its
 configuration and traffic mix to the runner of the mix's ``kind``
-(``harness/train.py``, ``harness/serve.py``), which sets the program up,
+(``harness/train.py``, ``harness/serve.py``), which sets the program up
+through the configuration's architecture (``arch/<architecture>.py``),
 measures the window, reads the device's peak memory, frees the program
 and then checks what the window produced against the plain reference.
 The metric readers (``metrics/<name>.py``) then turn the runner's
@@ -36,14 +37,16 @@ def free_device(device) -> None:
 
 
 class Record:
-    """What one run measured, for the metric readers: the set-up and
-    window seconds (host clock), counters of the work done in the
-    window, host spans and samples by name, the peak memory, and with
-    ``--trace 1`` the reduced trace (``harness/tracing.py``) and what
-    the runner noted about the traced iterations."""
+    """What one run measured, for the metric readers: the cell's
+    configuration, mix and architecture module (``arch``: its sizes and
+    counts), the set-up and window seconds (host clock), counters of the
+    work done in the window, host spans and samples by name, the peak
+    memory, and with ``--trace 1`` the reduced trace
+    (``harness/tracing.py``) and what the runner noted about the traced
+    iterations."""
 
-    def __init__(self, cell: str, cfg: dict, mix: dict):
-        self.cell, self.cfg, self.mix = cell, cfg, mix
+    def __init__(self, cell: str, cfg: dict, mix: dict, arch):
+        self.cell, self.cfg, self.mix, self.arch = cell, cfg, mix, arch
         self.setup_s = None
         self.window_s = None
         self.memory_peak_bytes = None
@@ -71,7 +74,10 @@ class Context:
         self.device = torch.device(device)
         self.t_start = t_start
         self.control = control
-        self.record = Record(cell, self.cfg, self.mix)
+        self.record = Record(cell, self.cfg, self.mix, self.arch())
+
+    def arch(self):
+        return self.manifest.arch(self.cfg["architecture"])
 
     def reference(self):
         return self.manifest.reference(self.cfg["architecture"])

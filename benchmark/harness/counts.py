@@ -1,57 +1,16 @@
-"""The yardstick's arithmetic: the card's peaks, the model FLOPs of a
-training step and of served tokens, K/V bytes, and the bounds of the
-flash kernels, all from shapes.
+"""The yardstick's arithmetic that holds for any model: the card's
+peaks, a share of one, and the bounds of the flash kernels from a
+launch's shape.  A model's own FLOPs and K/V bytes are its
+architecture's (``arch/<architecture>.py``).
 
 Peaks are NVIDIA's H100 SXM data sheet, dense (no sparsity), at the
 card's full 700 W: a run prints the card's power limit beside them.
 """
 
-from harness.weights import sizes
-
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 BF16_BYTES = 2
-
-
-def matmul_params(cfg: dict) -> int:
-    """Parameters that multiply in a forward: every block projection and
-    the tied head (the embedding lookup is no product)."""
-    s = sizes(cfg)
-    d, h, kvh, hd, f = s["D"], s["H"], s["KVH"], s["hd"], s["F"]
-    attn = d * h * hd * 2 + d * kvh * hd * 2  # q, out; k, v
-    mlp = 3 * d * f
-    return s["L"] * (attn + mlp) + s["V"] * d
-
-
-def attn_flops_per_key(cfg: dict) -> int:
-    """Forward FLOPs a query spends on one visible key over all layers:
-    QK and PV, 2 * head_dim each, for every query head."""
-    s = sizes(cfg)
-    return 4 * s["L"] * s["H"] * s["hd"]
-
-
-def train_step_flops(cfg: dict, batch: int, seq: int) -> float:
-    """Model FLOPs of one training step: 6 N a token for the products
-    (forward and backward, tied head included) and 3 x the causal
-    attention's forward, (T + 1) / 2 visible keys a query on average.
-    Remat's recompute is not counted."""
-    tokens = batch * seq
-    return (6 * matmul_params(cfg) * tokens
-            + 3 * attn_flops_per_key(cfg) * tokens * (seq + 1) / 2)
-
-
-def forward_flops(cfg: dict, tokens: int, visible_keys: int) -> float:
-    """Forward FLOPs of ``tokens`` processed tokens whose queries see
-    ``visible_keys`` keys in all (bucket padding excluded)."""
-    return (2 * matmul_params(cfg) * tokens
-            + attn_flops_per_key(cfg) * visible_keys)
-
-
-def kv_bytes_per_token(cfg: dict, elem: int = BF16_BYTES) -> int:
-    """K and V of one token over all layers."""
-    s = sizes(cfg)
-    return 2 * s["L"] * s["KVH"] * s["hd"] * elem
 
 
 # Products of head_dim-long vectors a causal pair costs in each flash

@@ -1,14 +1,7 @@
 """Device kernels told apart by the names the trace gives them on the
-card: the port's own (``ops/csrc``) and cuBLAS's f32 GEMMs."""
+card: the port's own (``ops/csrc``)."""
 
-# cuBLAS's f32 GEMMs on CUDA cores (TF32 is off): SIMT sgemm kernels.
-F32_GEMM_MARKS = ("sgemm", "f32f32_f32f32", "ffma")
 FLASH_KINDS = {"fwd": "fa_fwd", "dq": "fa_bwd_dq", "dkv": "fa_bwd_dkv"}
-
-
-def is_f32_gemm(name: str) -> bool:
-    n = name.lower()
-    return any(m in n for m in F32_GEMM_MARKS)
 
 
 def flash_attention(kind):

@@ -4,8 +4,9 @@ Everything that belongs to one configuration, one traffic mix, one cell
 or one metric sits in a file of its own, found here by its name:
 
 - a configuration: the ``file`` its entry names (sizes, source,
-  ``reduced``, ``assumed``), whose ``architecture`` names the plain
-  reference ``reference/<architecture>.py``;
+  ``reduced``, ``assumed``), whose ``architecture`` names the module
+  ``arch/<architecture>.py`` (its sizes, leaves, model and counts) and
+  the plain reference ``reference/<architecture>.py``;
 - a traffic mix: ``traffic/<mix>.json``, whose ``kind`` names the runner
   ``harness/<kind>.py``;
 - a cell's limits for ``correct``: ``limits/<cell>.json``;
@@ -93,6 +94,12 @@ class Manifest:
         tool that patches the runner patches the one the run uses."""
         self._find("harness", kind, ".py")
         return importlib.import_module(f"harness.{kind}")
+
+    def arch(self, architecture: str):
+        """``arch/<architecture>.py``: ``sizes``, ``kinds``, ``build``,
+        ``train_step_flops``, ``forward_flops``, ``kv_bytes_per_token``."""
+        return _load(self._find("arch", architecture, ".py"),
+                     f"arch_{architecture}")
 
     def reference(self, architecture: str):
         return _load(self._find("reference", architecture, ".py"),

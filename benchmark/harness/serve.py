@@ -1,11 +1,13 @@
 """Serving cells: the port's LM served through the continuous-batching
 engine on flash decode.
 
-Set-up builds ``TransformerLM(decode=True, use_flash_decode=True)`` on
-bf16 weights drawn from the seed and a ``DecodeEngine`` with the mix's
-slots and slot length, prefills one prompt of every bucket the mix's
-prompts fall in, then fills the fleet: every client sends its first
-request, and the loop runs ``warmup_iterations`` more iterations.
+Set-up builds the architecture's model for serving
+(``arch/<architecture>.py``: ``build(cfg, device, "serve")``; SmolLM's
+decodes on flash decode) on bf16 weights drawn from the seed and a
+``DecodeEngine`` with the mix's slots and slot length, prefills one
+prompt of every bucket the mix's prompts fall in, then fills the fleet:
+every client sends its first request, and the loop runs
+``warmup_iterations`` more iterations.
 
 The loop is closed: each client sends its next request when its answer
 has come.  An iteration submits the waiting clients' requests to free
@@ -37,20 +39,11 @@ from harness import clock, compare, free_device, sync, tracing, traffic
 from harness import weights
 
 
-def build(cfg, seed, device):
+def build(arch, cfg, seed, device):
     """The program's decode model on the drawn bf16 weights."""
-    from container_engine_accelerators_tpu_torch.models.transformer import (
-        TransformerLM,
-    )
-
-    s = weights.sizes(cfg)
-    model = TransformerLM(vocab_size=s["V"], num_layers=s["L"],
-                          num_heads=s["H"], head_dim=s["hd"],
-                          mlp_dim=s["F"], num_kv_heads=s["KVH"],
-                          dtype=torch.bfloat16, decode=True,
-                          use_flash_decode=True, device=device)
-    weights.load_into(dict(model.named_parameters()), cfg, seed, device,
-                      torch.bfloat16)
+    model = arch.build(cfg, device, "serve")
+    weights.load_into(dict(model.named_parameters()), arch.kinds(cfg), seed,
+                      device, torch.bfloat16)
     return model
 
 
@@ -133,16 +126,16 @@ def warm_buckets(engine, stream, bucket_len, law, max_len):
 
 def run(ctx):
     cfg, mix, dev, rec = ctx.cfg, ctx.mix, ctx.device, ctx.record
-    s = weights.sizes(cfg)
+    arch = ctx.arch()
     from container_engine_accelerators_tpu_torch.models.batching import (
         DecodeEngine,
         bucket_len,
     )
 
-    model = build(cfg, ctx.seed, dev)
+    model = build(arch, cfg, ctx.seed, dev)
     engine = DecodeEngine(model, max_slots=mix["slots"],
                           max_len=mix["max_len"])
-    stream = traffic.ServeTraffic(mix, s["V"], ctx.seed)
+    stream = traffic.ServeTraffic(mix, arch.sizes(cfg)["V"], ctx.seed)
     warm_buckets(engine, stream, bucket_len, mix["prompt_len"],
                  mix["max_len"])
     loop = ClosedLoop(engine, stream, mix["clients"], rec)
@@ -196,11 +189,12 @@ def sample(finished, seed: int, tokens_wanted: int):
 def check(ctx, finished):
     cfg, mix, dev, rec = ctx.cfg, ctx.mix, ctx.device, ctx.record
     t0 = clock()
-    s = weights.sizes(cfg)
+    arch = ctx.arch()
+    s = arch.sizes(cfg)
     ref = ctx.reference()
     ref.no_tf32()
-    params = {n: t.float() for n, t in
-              weights.draw(cfg, ctx.seed, dev, torch.bfloat16).items()}
+    params = {n: t.float() for n, t in weights.draw(
+        arch.kinds(cfg), ctx.seed, dev, torch.bfloat16).items()}
     plain = ref.Reference(s, params)
     low = ref.Reference(s, params, ref.fp8) if ctx.control else None
     picked = sample(finished, ctx.seed, mix["check_tokens"])

@@ -1,16 +1,18 @@
 """Training cells: the port's LM trained on the flash kernels.
 
 Set-up builds one training step (``models/lm_train.py``:
-``create_lm_train_state``, ``make_lm_train_step``) over
-``TransformerLM(decode=False, remat=True, use_flash=True)`` in bf16 with
-f32 master weights, draws the weights and the mix's device-resident
-batches from the seed, and drives that same step through its first
-``check_steps`` steps on batches whose rows all differ.  Those steps are
-the warm-up, and they leave what the check compares: each step's loss,
-the first gradient's norm by leaf (from AdamW's first moment after one
-step, ``(1 - beta1) g``) and each leaf's change over the steps.  The
-window then runs the same step on the batches in turn until
-``--seconds`` have passed and ends on a ``synchronize``.
+``create_lm_train_state``, ``make_lm_train_step``) over the
+architecture's model for training (``arch/<architecture>.py``:
+``build(cfg, device, "train")``; SmolLM's trains in bf16 on the flash
+kernels with remat) with f32 master weights, draws the weights and the
+mix's device-resident batches from the seed, and drives that same step
+through its first ``check_steps`` steps on batches whose rows all
+differ.  Those steps are the warm-up, and they leave what the check
+compares: each step's loss, the first gradient's norm by leaf (from
+AdamW's first moment after one step, ``(1 - beta1) g``) and each leaf's
+change over the steps.  The window then runs the same step on the
+batches in turn until ``--seconds`` have passed and ends on a
+``synchronize``.
 
 After the window (and the traced slice of ``--trace 1``) the program is
 freed, and the plain reference takes the same steps from the same
@@ -25,22 +27,6 @@ from harness import clock, compare, free_device, sync, tracing, traffic
 from harness import weights
 
 
-def build(cfg, device):
-    """The program's model and step, the weights not yet drawn."""
-    from container_engine_accelerators_tpu_torch.models import lm_train
-    from container_engine_accelerators_tpu_torch.models.transformer import (
-        TransformerLM,
-    )
-
-    s = weights.sizes(cfg)
-    model = TransformerLM(vocab_size=s["V"], num_layers=s["L"],
-                          num_heads=s["H"], head_dim=s["hd"],
-                          mlp_dim=s["F"], num_kv_heads=s["KVH"],
-                          dtype=torch.bfloat16, decode=False,
-                          use_flash=True, remat=True, device=device)
-    return model, lm_train
-
-
 def check_optimizer(optimizer, opt: dict) -> None:
     """The program's AdamW has to be the one the mix states, which the
     reference takes."""
@@ -53,14 +39,13 @@ def check_optimizer(optimizer, opt: dict) -> None:
 
 
 @torch.no_grad()
-def change_norms(model, cfg, seed, device) -> dict:
+def change_norms(model, kinds, seed, device) -> dict:
     """Each leaf's distance from the drawn start (drawn again, a kind at
     a time)."""
     params = dict(model.named_parameters())
     names, norms = [], []
-    for kind in weights.all_kinds():
-        start = weights.draw_kind(cfg, kind, seed, device, torch.float32)
-        for name, leaf in weights.leaves(cfg, kind, start):
+    for kind, start in weights.stacks(kinds, seed, device, torch.float32):
+        for name, leaf in weights.leaves(kind, start):
             names.append(name)
             norms.append((params[name].float() - leaf).norm())
         del start
@@ -75,15 +60,19 @@ def measure(ctx):
     """Set-up, the window and the traced slice; frees the program and
     returns what the check compares: (losses, first gradient's norms,
     changes' norms)."""
+    from container_engine_accelerators_tpu_torch.models import lm_train
+
     cfg, mix, dev, rec = ctx.cfg, ctx.mix, ctx.device, ctx.record
-    s = weights.sizes(cfg)
-    model, lm_train = build(cfg, dev)
-    weights.load_into(dict(model.named_parameters()), cfg, ctx.seed, dev,
+    arch = ctx.arch()
+    kinds = arch.kinds(cfg)
+    model = arch.build(cfg, dev, "train")
+    weights.load_into(dict(model.named_parameters()), kinds, ctx.seed, dev,
                       torch.float32)
     state = lm_train.create_lm_train_state(model)
     check_optimizer(state.optimizer, mix["optimizer"])
     step, state = lm_train.make_lm_train_step(state=state)
-    batches = traffic.train_batches(mix, s["V"], ctx.seed, dev)
+    batches = traffic.train_batches(mix, arch.sizes(cfg)["V"], ctx.seed,
+                                    dev)
     feed = [(batches[i],) + tuple(lm_train.next_token_targets(batches[i]))
             for i in range(mix["batches"])]
 
@@ -106,7 +95,7 @@ def measure(ctx):
             grads = dict(zip([n for n, _ in named], norms.tolist()))
             check_s += clock() - t
     t = clock()
-    changes = change_norms(model, cfg, ctx.seed, dev)
+    changes = change_norms(model, kinds, ctx.seed, dev)
     check_s += clock() - t
 
     tokens_per_step = mix["batch"] * mix["seq_len"]
@@ -147,12 +136,13 @@ def reference_readings(ctx, quant="exact"):
     names the reference's rounding (``exact`` or the control's
     ``fp8``)."""
     cfg, mix, dev = ctx.cfg, ctx.mix, ctx.device
-    s = weights.sizes(cfg)
+    arch = ctx.arch()
+    s = arch.sizes(cfg)
     ref = ctx.reference()
     ref.no_tf32()
     batches = list(traffic.train_batches(mix, s["V"], ctx.seed, dev)
                    [:mix["check_steps"]].unbind(0))
-    params = weights.draw(cfg, ctx.seed, dev, torch.float32)
+    params = weights.draw(arch.kinds(cfg), ctx.seed, dev, torch.float32)
     out = ref.train(s, params, batches, mix["optimizer"],
                     mix["check_micro_batch"], getattr(ref, quant))
     del params, batches

@@ -5,14 +5,13 @@ T (T + 1) / 2 causal pairs, 2 / 3 / 4 products; the time includes the
 delta pre-pass the dQ op runs."""
 
 from harness import counts, kernels
-from harness.weights import sizes
 
 
 def read(run):
     t = run.trace
     if t is None or run.mix["kind"] != "train":
         return None
-    s = sizes(run.cfg)
+    s = run.arch.sizes(run.cfg)
     shape = (run.mix["batch"], run.mix["seq_len"], s["H"], s["hd"])
     bound = sum(t.launches(kernels.flash_attention(kind))
                 * counts.flash_attention_bound_s(kind, *shape)

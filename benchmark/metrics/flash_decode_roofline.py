@@ -5,7 +5,6 @@ at the card's HBM bandwidth, over those launches' device time, in
 percent."""
 
 from harness import counts, kernels
-from harness.weights import sizes
 
 
 def read(run):
@@ -13,7 +12,7 @@ def read(run):
     lengths = run.trace_info["fleet_step_lengths"]
     if t is None or not lengths:
         return None
-    s = sizes(run.cfg)
+    s = run.arch.sizes(run.cfg)
     need, spent = 0.0, 0.0
     for ops, lens in zip(t.iterations["fleet_step"], lengths):
         fd = [us for name, us in ops if kernels.is_flash_decode(name)]

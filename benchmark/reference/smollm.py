@@ -46,7 +46,7 @@ def fp8(x):
 
 class Reference:
     """The forward over ``params`` (name -> f32 tensor, the benchmark's
-    layouts) with sizes ``s`` (``harness.weights.sizes``)."""
+    layouts) with sizes ``s`` (``arch/smollm.py::sizes``)."""
 
     def __init__(self, s: dict, params: dict, quant=exact):
         self.s, self.p, self.quant = s, params, quant

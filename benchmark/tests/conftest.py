@@ -40,6 +40,12 @@ def tiny_manifest():
     return Manifest(tiny_spec(), REPO, search=[DATA, BENCH_DIR])
 
 
+@pytest.fixture(scope="session")
+def smollm(tiny_manifest):
+    """SmolLM's architecture module, as the harness finds it."""
+    return tiny_manifest.arch("smollm")
+
+
 def run_tiny(manifest, cell, seed, control=False):
     """One CPU run of a tiny cell: (result, record)."""
     from harness import run_cell

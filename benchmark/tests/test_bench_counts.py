@@ -1,7 +1,7 @@
 """The yardstick's counts, pinned to hand counts: the model FLOPs of a
-training step of each configuration, K/V bytes a token, the
-flash-attention bound of the kernel table's row 1 and flash decode's
-byte count at its row 4."""
+training step of each configuration and K/V bytes a token (SmolLM's,
+``arch/smollm.py``), the flash-attention bound of the kernel table's
+row 1 and flash decode's byte count at its row 4."""
 
 import json
 
@@ -15,16 +15,16 @@ def cfg(name):
     return json.loads((BENCH / "configs" / f"{name}.json").read_text())
 
 
-def test_train_step_flops():
-    assert counts.train_step_flops(cfg("smollm-1.7b"), 8, 2048) == \
+def test_train_step_flops(smollm):
+    assert smollm.train_step_flops(cfg("smollm-1.7b"), 8, 2048) == \
         pytest.approx(1.781e14, rel=1e-3)
-    assert counts.train_step_flops(cfg("smollm-360m"), 16, 2048) == \
+    assert smollm.train_step_flops(cfg("smollm-360m"), 16, 2048) == \
         pytest.approx(8.35e13, rel=1e-3)
 
 
-def test_kv_bytes_per_token():
-    assert counts.kv_bytes_per_token(cfg("smollm-1.7b")) == 196_608
-    assert counts.kv_bytes_per_token(cfg("smollm-360m")) == 40_960
+def test_kv_bytes_per_token(smollm):
+    assert smollm.kv_bytes_per_token(cfg("smollm-1.7b")) == 196_608
+    assert smollm.kv_bytes_per_token(cfg("smollm-360m")) == 40_960
 
 
 def test_flash_attention_bound_row1():

@@ -38,6 +38,8 @@ def test_cell_finds_its_files(manifest, cell):
     mix = manifest.mix(entry["traffic"])
     assert manifest.runner(mix["kind"]).run
     assert manifest.reference(cfg["architecture"]).Reference
+    arch = manifest.arch(cfg["architecture"])
+    assert arch.kinds(cfg) and callable(arch.build)
     limits = manifest.limits(cell)
     assert any("limit" in v for v in limits.values())
     for v in limits.values():

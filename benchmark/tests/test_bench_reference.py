@@ -10,9 +10,12 @@ import torch
 from conftest import DATA
 
 from harness import weights
+from harness.manifest import Manifest
 
 CFG = json.loads((DATA / "configs" / "tiny.json").read_text())
 OPT = {"lr": 3e-4, "betas": [0.9, 0.999], "eps": 1e-8, "weight_decay": 0.1}
+ARCH = Manifest.load().arch("smollm")
+KINDS = ARCH.kinds(CFG)
 
 
 @pytest.fixture(scope="module")
@@ -23,18 +26,19 @@ def ref():
 
 
 def port_model(decode):
+    """The port's model in f32 (the benchmark's cells run it in bf16)."""
     from container_engine_accelerators_tpu_torch.models.transformer import (
         TransformerLM,
     )
 
-    s = weights.sizes(CFG)
+    s = ARCH.sizes(CFG)
     model = TransformerLM(vocab_size=s["V"], num_layers=s["L"],
                           num_heads=s["H"], head_dim=s["hd"], mlp_dim=s["F"],
                           num_kv_heads=s["KVH"], dtype=torch.float32,
                           decode=decode, use_flash=True,
                           use_flash_decode=True, remat=not decode,
                           device="cpu")
-    weights.load_into(dict(model.named_parameters()), CFG, 3, "cpu",
+    weights.load_into(dict(model.named_parameters()), KINDS, 3, "cpu",
                       torch.float32)
     return model
 
@@ -42,7 +46,7 @@ def port_model(decode):
 def test_train_step_matches(ref):
     from container_engine_accelerators_tpu_torch.models import lm_train
 
-    s = weights.sizes(CFG)
+    s = ARCH.sizes(CFG)
     tokens = torch.randint(0, s["V"], (4, 32),
                            generator=torch.Generator().manual_seed(1))
     model = port_model(decode=False)
@@ -52,7 +56,7 @@ def test_train_step_matches(ref):
     port_grads = {n: state.optimizer.state[p]["exp_avg"].norm().item() / 0.1
                   for n, p in model.named_parameters()}
 
-    start = weights.draw(CFG, 3, "cpu", torch.float32)
+    start = weights.draw(KINDS, 3, "cpu", torch.float32)
     params = {n: t.clone() for n, t in start.items()}
     losses, grads, changes = ref.train(s, params, [tokens], OPT, 2)
     assert losses[0] == pytest.approx(metrics["loss"].item(), rel=1e-5)
@@ -70,7 +74,7 @@ def test_prefill_and_decode_logits_match(ref):
         prefill,
     )
 
-    s = weights.sizes(CFG)
+    s = ARCH.sizes(CFG)
     model = port_model(decode=True)
     g = torch.Generator().manual_seed(2)
     ids = torch.randint(0, s["V"], (1, 24), generator=g)
@@ -85,6 +89,6 @@ def test_prefill_and_decode_logits_match(ref):
             out = model(torch.tensor([[tok]]),
                         positions=torch.tensor([plen + j]), cache=cache)
             got.append(out[0, 0])
-    plain = ref.Reference(s, weights.draw(CFG, 3, "cpu", torch.float32))
+    plain = ref.Reference(s, weights.draw(KINDS, 3, "cpu", torch.float32))
     want = plain.logits_at(seq, list(range(plen - 1, len(seq))))
     assert torch.allclose(torch.stack(got), want, atol=1e-4)

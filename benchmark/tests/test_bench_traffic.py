@@ -9,7 +9,7 @@ import pytest
 from conftest import BENCH
 
 from harness import traffic
-from harness.weights import sizes
+from harness.manifest import Manifest
 
 SERVE = ["serve-doc"]
 
@@ -84,4 +84,5 @@ def test_configs_fit_their_mixes():
         cfg = json.loads((BENCH / "configs" / f"{cfg_name}.json")
                          .read_text())
         assert mix(mix_name)["max_len"] <= cfg["max_position_embeddings"]
-        assert sizes(cfg)["V"] == 49152
+        arch = Manifest.load().arch(cfg["architecture"])
+        assert arch.sizes(cfg)["V"] == 49152

@@ -109,22 +109,14 @@ def int8_weights():
     from container_engine_accelerators_tpu_torch.models.quant import (
         serving_params,
     )
-    from container_engine_accelerators_tpu_torch.models.transformer import (
-        TransformerLM,
-    )
 
     from harness import serve, weights
 
     orig = serve.build
 
-    def build(cfg, seed, device):
-        s = weights.sizes(cfg)
-        model = TransformerLM(vocab_size=s["V"], num_layers=s["L"],
-                              num_heads=s["H"], head_dim=s["hd"],
-                              mlp_dim=s["F"], num_kv_heads=s["KVH"],
-                              dtype=torch.bfloat16, decode=True, quant=True,
-                              use_flash_decode=True, device=device)
-        drawn = weights.draw(cfg, seed, device, torch.bfloat16)
+    def build(arch, cfg, seed, device):
+        model = arch.build(cfg, device, "serve", quant=True)
+        drawn = weights.draw(arch.kinds(cfg), seed, device, torch.bfloat16)
         model.load_state_dict(serving_params(drawn, "int8"))
         return model
 
